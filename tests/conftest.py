@@ -56,6 +56,11 @@ CASE_FSTAR = {
 }
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; the test skips without one")
+
+
 def full_q(joints, base=(0, 0, 0.92983, 0, 0, 0), qw=1.0):
     q = np.zeros(40)
     q[0:6] = base
