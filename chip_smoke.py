@@ -6,25 +6,42 @@
 Phases, each fatal on failure (nothing is caught):
 
 1. environment: versions, the card's name and power limit, TF32 off;
-2. build: nvcc builds the two tick kernels from csrc/ (sm_90a);
-3. each kernel against its plain version at the serving inputs (batch 1024,
-   seed 0): every field of tick_prestage on the card vs the plain prestage
-   in float64 on the CPU, each within its limit (tick_cuda.PRE_TOL; τ_grav
-   well inside bench.py's 0.05 Nm); every output of tick_qpchain fed the
-   same prestage cast to float32 vs the plain qpchain in float32 on the CPU
-   (tick_cuda.QP_TOL), cold and warm; and the two kernels chained vs the
-   plain float64 tick, every lane (CHAIN_TOL);
-4. the serving path through entry.py's FusedTick(backend="cuda"): a cold-start
-   tick at 12 IPM iterations, then warm ticks at 7 carrying (x, λ), at batch
-   1024, then one unbatched tick; every output finite, no lane with
-   qp_error, gap and primal residual ≤ 1e-3, τ_grav within 0.05 Nm and τ_cmd
-   within 0.05 Nm of a float64 CPU tick on four lanes, and the launch counts
-   of both kernels exactly one per tick;
-5. times with CUDA events: each kernel against its plain version run on the
-   card, at batch 1024 and batch 1, and the warm chain's solves/s.
+2. build: nvcc builds the four kernels from csrc/ (sm_90a), one nvcc per
+   source, all started together;
+3. the fused tick's kernels against their plain versions at the serving
+   inputs (batch 1024, seed 0): every field of tick_prestage on the card vs
+   the plain prestage in float64 on the CPU, each within its limit
+   (tick_cuda.PRE_TOL; τ_grav well inside bench.py's 0.05 Nm); every output
+   of tick_qpchain fed the same prestage cast to float32 vs the plain
+   qpchain in float32 on the CPU (tick_cuda.QP_TOL), cold and warm; and the
+   two kernels chained vs the plain float64 tick, every lane (CHAIN_TOL);
+4. the compiled tick's kernels against their plain versions, on the inputs
+   one CompiledTick(backend="cuda") tick gives them at batch 1024:
+   psd_inverse on A (n = 39) and W + V2ᵀV2 (n = 33) vs the plain version in
+   float64 on the CPU (relative, linalg_cuda.PSD_INV_RTOL; the output
+   exactly symmetric), and qp_solve on the tick's three QPs (n = 12, 9, 6;
+   m = 86, 33 mirrored rows) vs the plain version in float32 on the CPU,
+   cold at 12 iterations and warm at 7 (qp_cuda.QP_SOLVE_TOL on x, λ, gap
+   and primal residual);
+5. the serving paths through entry.py, each with its launch counts set to 0
+   just before it and read just after: FusedTick(backend="cuda") and
+   CompiledTick(backend="cuda"), each a cold-start tick at 12 IPM iterations,
+   then warm ticks at 7 carrying (x, λ), at batch 1024, then one unbatched
+   tick; every output finite, no lane with qp_error, gap and primal residual
+   ≤ 1e-3; per tick exactly one launch of each fused kernel, and exactly two
+   of psd_inverse and three of qp_solve;
+6. the truth guard on four lanes: FusedTick(cuda) against the plain fused
+   tick in float64 on the CPU, and both CUDA ticks against the port's
+   CompiledTick in float64 on the CPU, the independent formulation; τ_grav
+   and τ_cmd within 0.05 Nm;
+7. times with CUDA events at batch 1024 and batch 1: each kernel against
+   its plain version run on the card, psd_inverse against torch.linalg.inv,
+   and the warm chains' solves/s of both ticks.
 
-The last lines are the kernels' JSON record, the card's name and power
-limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
+The last lines are the kernels' JSON record (with each kernel's bound: the
+larger of its bytes over the card's memory rate and its operations over the
+float32 rate), the card's name and power limit as nvidia-smi gives them,
+and {"ok": true, "device": {...}}.
 """
 
 import json
@@ -38,7 +55,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 B = 1024
-K = 16                     # ticks of the serving chain: 1 cold-start + 15 warm
+K = 16                     # ticks of the fused serving chain: 1 cold-start + 15 warm
+K_C = 6                    # ticks of the compiled serving chain: 1 cold-start + 5 warm
 COLD_ITERS, WARM_ITERS = 12, 7
 TAU_GRAV_TOL = 0.05        # bench.py's truth guard on τ_grav (Nm)
 TAU_CMD_TOL = 5e-2         # the repo's bar for τ_cmd across solvers (Nm)
@@ -48,6 +66,16 @@ TAU_CMD_TOL = 5e-2         # the repo's bar for τ_cmd across solvers (Nm)
 # |contact force| ≤ 571)
 CHAIN_TOL = {"torque_task": 1e-2, "torque_cmd": 1e-2, "contact_force": 7e-2}
 QP_FAIL = 1e-3             # PipelineConfig.qp_fail_gap / qp_fail_pres
+# The least time the card could take for a kernel's work: the larger of its
+# bytes (each input read once, each output written once) over the memory
+# rate and its operations over the float32 rate outside the tensor cores
+# (H100 SXM, NVIDIA's data sheet, at the full 700 W).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+# operations per solve of the fused tick's two stages at a warm tick of 7
+# IPM iterations (benchmarks/sol_tick_r05.json)
+PRESTAGE_FLOPS, QPCHAIN_FLOPS = 337112.0, 107561.8
+QP_NAMES = ("level 0", "level 1", "redistribution")
 
 
 def maxerr(a, b):
@@ -73,6 +101,48 @@ def cuda_time(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def bound(nbytes, flops):
+    """(ms, "bytes" or "operations"): the least time the card could take."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def capture_kernel_inputs(tick, q, qd, fs, iters):
+    """One cold tick of a CompiledTick, with the psd_inverse and qp_solve
+    wrappers wrapped for that tick to keep a copy of each call's inputs."""
+    from libdwbc_tpu_torch.ops import linalg_cuda, qp_cuda
+
+    seen = {"psd_inverse": [], "qp_solve": []}
+    inv, solve = linalg_cuda.psd_inverse, qp_cuda.qp_solve
+
+    def inv_rec(A):
+        seen["psd_inverse"].append(A.clone())
+        return inv(A)
+
+    def solve_rec(H, g, C, d, x0=None, lam0=None, iters=12, ridge=1e-6, mirror=0):
+        seen["qp_solve"].append(dict(H=H.clone(), g=g.clone(), C=C.clone(), d=d.clone(),
+                                     ridge=ridge, mirror=mirror))
+        return solve(H, g, C, d, x0, lam0, iters=iters, ridge=ridge, mirror=mirror)
+
+    linalg_cuda.psd_inverse, qp_cuda.qp_solve = inv_rec, solve_rec
+    try:
+        tick._tick_impl(q, qd, fs, warm=tick.init_warm(q.shape[:-1]), qp_iters=iters)
+    finally:
+        linalg_cuda.psd_inverse, qp_cuda.qp_solve = inv, solve
+    torch.cuda.synchronize()
+    return seen
+
+
+def gap_pres(C, d, x, lam):
+    """The normalized gap and primal residual solve_qp reports, from the
+    unmirrored C."""
+    from libdwbc_tpu_torch.ops.qp import _comp_gap
+
+    slack = d - (C @ x[..., None])[..., 0]
+    return _comp_gap(slack, lam, C.shape[-2]), torch.clamp_min(-slack, 0.0).max(-1).values
+
+
 def interleaved(plain, kernel, reps_plain, reps_kernel):
     """(plain ms, kernel ms), each the mean of two runs taken in the order
     plain, kernel, kernel, plain."""
@@ -90,11 +160,14 @@ def main():
     sys.path.insert(0, str(ROOT))
     from libdwbc_tpu_torch import entry
     from libdwbc_tpu_torch.model.compile import RobotModel
-    from libdwbc_tpu_torch.ops import _build
+    from libdwbc_tpu_torch.ops import _build, linalg_cuda, qp_cuda
+    from libdwbc_tpu_torch.ops import tick_cuda as tc
+    from libdwbc_tpu_torch.ops.linalg_cuda import PSD_INV_RTOL, psd_inverse_plain
+    from libdwbc_tpu_torch.ops.qp_cuda import QP_SOLVE_TOL, qp_solve_plain
     from libdwbc_tpu_torch.ops.tick_cuda import PRE_TOL, QP_TOL, TickKernels
     from libdwbc_tpu_torch.ops.tick_kernel import TickProgram
     from libdwbc_tpu_torch.wbc.fused import FusedTick
-    from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
+    from libdwbc_tpu_torch.wbc.pipeline import CompiledTick, standard_tocabi_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -112,8 +185,10 @@ def main():
     for line in log.splitlines():
         if any(w in line for w in ("entry function", "registers", "spill")):
             print(f"  ptxas: {line.strip()}")
+    for name in ("tick_prestage", "tick_qpchain", "psd_inverse", "qp_solve"):
+        assert f"{name}_kernel" in log or not log, f"no {name} kernel in the build log"
 
-    # ------------------------------------ 3. each kernel vs its plain version
+    # ----------------------- 3. the fused tick's kernels vs their plain versions
     model = RobotModel.load(str(entry.MODEL_PATH))
     cfg = standard_tocabi_config(model, qp_iters=COLD_ITERS)
     q, _, fstars = entry._example_inputs(model)
@@ -193,16 +268,71 @@ def main():
     for name, tol in CHAIN_TOL.items():
         assert chain_err[name] <= tol, (name, chain_err[name], tol)
 
-    # ------------------------------------------------ 4. the serving path
-    model, tick = entry._model_and_tick(dev, qp_iters=COLD_ITERS)
-    assert isinstance(tick, FusedTick) and tick.backend == "cuda"
+    # -------------------- 4. the compiled tick's kernels vs their plain versions
     q_d = torch.as_tensor(qs, device=dev)
     qd_d = torch.zeros((B, model.ndof), device=dev)
     fs_d = tuple(torch.as_tensor(f, device=dev) for f in fs)
     md = model.model_dof
+    _, ctick = entry._model_and_tick(dev, qp_iters=COLD_ITERS, fused=False)
+    assert isinstance(ctick, CompiledTick) and ctick.backend == "cuda"
+    seen = capture_kernel_inputs(ctick, q_d, qd_d, fs_d, COLD_ITERS)
+    assert [tuple(A.shape) for A in seen["psd_inverse"]] == [(B, 39, 39), (B, 33, 33)]
+    assert [(tuple(p["C"].shape), p["mirror"]) for p in seen["qp_solve"]] == [
+        ((B, 86, n), 33) for n in (12, 9, 6)]
 
-    def step(qq, warm, iters):
-        res, warm = tick._tick_impl(qq, qd_d, fs_d, warm=warm, qp_iters=iters)
+    psd_err, psd_abs = {}, {}
+    for A in seen["psd_inverse"]:
+        n = A.shape[-1]
+        out = linalg_cuda.psd_inverse(A)
+        torch.cuda.synchronize()
+        ref = psd_inverse_plain(A.cpu().double())
+        scale = float(ref.abs().max())
+        psd_abs[n] = maxerr(out, ref)
+        psd_err[n] = psd_abs[n] / scale
+        own = maxerr(psd_inverse_plain(A.cpu()), ref) / scale
+        symmetric = torch.equal(out, out.transpose(-1, -2))
+        print(f"psd_inverse n = {n} vs plain float64 (max abs err / max |A⁻¹|, [plain "
+              f"float32's own] <= limit): {psd_err[n]:.3e} [{own:.3e}] <= {PSD_INV_RTOL[n]:g}; "
+              f"exactly symmetric: {symmetric}")
+        assert torch.isfinite(out).all() and symmetric
+        assert psd_err[n] <= PSD_INV_RTOL[n], (n, psd_err[n], PSD_INV_RTOL[n])
+
+    qps_err = {}
+    for name, p in zip(QP_NAMES, seen["qp_solve"]):
+        cpu = {k: p[k].cpu() for k in "HgCd"}
+        kw = dict(ridge=p["ridge"], mirror=p["mirror"])
+        ref_c = qp_solve_plain(cpu["H"], cpu["g"], cpu["C"], cpu["d"], iters=COLD_ITERS, **kw)
+        ker_c = qp_cuda.qp_solve(p["H"], p["g"], p["C"], p["d"], iters=COLD_ITERS, **kw)
+        x0, lam0 = ref_c[0], ref_c[2]
+        ref_w = qp_solve_plain(cpu["H"], cpu["g"], cpu["C"], cpu["d"], x0, lam0,
+                               iters=WARM_ITERS, **kw)
+        ker_w = qp_cuda.qp_solve(p["H"], p["g"], p["C"], p["d"], x0.to(dev), lam0.to(dev),
+                                 iters=WARM_ITERS, **kw)
+        torch.cuda.synchronize()
+        for tag, ref, ker in (("cold", ref_c, ker_c), ("warm", ref_w, ker_w)):
+            for t in ker:
+                assert torch.isfinite(t).all(), (name, tag)
+            g_k, p_k = gap_pres(cpu["C"], cpu["d"], ker[0].cpu(), ker[2].cpu())
+            g_r, p_r = gap_pres(cpu["C"], cpu["d"], ref[0], ref[2])
+            qps_err[(name, tag)] = dict(
+                x=maxerr(ker[0], ref[0]),
+                lam=float(((ker[2].cpu() - ref[2]).abs() / (1.0 + ref[2].abs())).max()),
+                gap=maxerr(g_k, g_r), pres=maxerr(p_k, p_r))
+            assert float(g_k.max()) <= QP_FAIL and float(p_k.max()) <= QP_FAIL, (name, tag)
+    print("qp_solve vs plain float32 (max abs err of x, gap and pres; of λ relative to "
+          "1 + |λ|): "
+          + "  ".join(f"{n}.{t}: " + " ".join(f"{k} {v:.3e}" for k, v in e.items())
+                      for (n, t), e in qps_err.items()))
+    for (n, t), e in qps_err.items():
+        for k, v in e.items():
+            assert v <= QP_SOLVE_TOL[k], (n, t, k, v, QP_SOLVE_TOL[k])
+
+    # ------------------------------------------------ 5. the serving paths
+    model, tick = entry._model_and_tick(dev, qp_iters=COLD_ITERS)
+    assert isinstance(tick, FusedTick) and tick.backend == "cuda"
+
+    def step(tk, qq, warm, iters):
+        res, warm = tk._tick_impl(qq, qd_d, fs_d, warm=warm, qp_iters=iters)
         qq = qq.clone()
         qq[:, 6:6 + md] += 1e-6 * torch.tanh(res.torque_cmd[:, :md])
         return res, qq, warm
@@ -212,12 +342,13 @@ def main():
     qq, warm = q_d, tick.init_warm((B,))
     results = []
     for k in range(K):
-        res, qq, warm = step(qq, warm, COLD_ITERS if k == 0 else WARM_ITERS)
+        res, qq, warm = step(tick, qq, warm, COLD_ITERS if k == 0 else WARM_ITERS)
         results.append(res)
     res1 = tick._tick_impl(q_d[0], qd_d[0], tuple(f[0] for f in fs_d))
     torch.cuda.synchronize()
     launches = dict(tick.kernels.launches)
-    print(f"serving path: {K} ticks at batch {B} + 1 unbatched tick, launches {launches}")
+    print(f"FusedTick serving path: {K} ticks at batch {B} + 1 unbatched tick, "
+          f"launches {launches}")
     assert launches == {"tick_prestage": K + 1, "tick_qpchain": K + 1}, launches
 
     gap_max = max(float(r.qp_gap.max()) for r in results)
@@ -231,23 +362,59 @@ def main():
     assert res1.torque_cmd.shape == (md,) and not bool(res1.qp_error)
     assert [tuple(x.shape) + tuple(l.shape) for x, l in warm] == [
         (B, nv, B, m) for nv, m in tick.prog.plan.qp_dims]
-    print(f"serving path: gap max {gap_max:.3e}  pres max {pres_max:.3e}  "
+    print(f"FusedTick serving path: gap max {gap_max:.3e}  pres max {pres_max:.3e}  "
           f"qp_error lanes {n_err}  unbatched τ_cmd[0:3] "
           f"{res1.torque_cmd[:3].tolist()}")
     assert n_err == 0 and gap_max <= QP_FAIL and pres_max <= QP_FAIL
 
-    # truth guard: tick 0 on four lanes against a float64 CPU tick
+    linalg_cuda.launches["psd_inverse"] = 0
+    qp_cuda.launches["qp_solve"] = 0
+    qq, cwarm = q_d, ctick.init_warm((B,))
+    cresults = []
+    for k in range(K_C):
+        res, qq, cwarm = step(ctick, qq, cwarm, COLD_ITERS if k == 0 else WARM_ITERS)
+        cresults.append(res)
+    cres1 = ctick._tick_impl(q_d[0], qd_d[0], tuple(f[0] for f in fs_d))
+    torch.cuda.synchronize()
+    claunches = {"psd_inverse": linalg_cuda.launches["psd_inverse"],
+                 "qp_solve": qp_cuda.launches["qp_solve"]}
+    print(f"CompiledTick serving path: {K_C} ticks at batch {B} + 1 unbatched tick, "
+          f"launches {claunches}")
+    assert claunches == {"psd_inverse": 2 * (K_C + 1), "qp_solve": 3 * (K_C + 1)}, claunches
+    for r in cresults + [cres1]:
+        for name, v in r._asdict().items():
+            if v.dtype != torch.bool:
+                assert torch.isfinite(v).all(), f"CompiledTick: non-finite {name}"
+    assert cres1.torque_cmd.shape == (md,) and not bool(cres1.qp_error)
+    assert [tuple(x.shape) + tuple(l.shape) for x, l in cwarm] == [
+        (B, nv, B, m) for nv, m in tick.prog.plan.qp_dims]
+    cgap = max(float(r.qp_gap.max()) for r in cresults)
+    cpres = max(float(r.qp_primal_res.max()) for r in cresults)
+    c_err = sum(int(r.qp_error.sum()) for r in cresults)
+    print(f"CompiledTick serving path: gap max {cgap:.3e}  pres max {cpres:.3e}  "
+          f"qp_error lanes {c_err}  unbatched τ_cmd[0:3] {cres1.torque_cmd[:3].tolist()}")
+    assert c_err == 0 and cgap <= QP_FAIL and cpres <= QP_FAIL
+
+    # ------------------------------------------------------ 6. truth guard
+    # tick 0 on four lanes against float64 CPU ticks: the plain fused tick,
+    # and the port's CompiledTick (the independent formulation) for both
+    lanes = (qs[:4].astype(np.float64), np.zeros((4, model.ndof)),
+             tuple(f[:4].astype(np.float64) for f in fs))
     _, ref_tick = entry._model_and_tick("cpu", dtype=torch.float64,
                                         qp_iters=COLD_ITERS, backend="torch")
-    r64, _ = ref_tick._tick_impl(qs[:4].astype(np.float64), np.zeros((4, model.ndof)),
-                                 tuple(f[:4].astype(np.float64) for f in fs),
-                                 warm=ref_tick.init_warm((4,)))
-    d_grav = maxerr(results[0].torque_grav[:4], r64.torque_grav)
-    d_cmd = maxerr(results[0].torque_cmd[:4], r64.torque_cmd)
-    print(f"truth guard (4 lanes vs float64 CPU): τ_grav {d_grav:.3e}  τ_cmd {d_cmd:.3e}")
-    assert d_grav <= TAU_GRAV_TOL and d_cmd <= TAU_CMD_TOL, (d_grav, d_cmd)
+    r64, _ = ref_tick._tick_impl(*lanes, warm=ref_tick.init_warm((4,)))
+    _, ref_ctick = entry._model_and_tick("cpu", dtype=torch.float64, qp_iters=COLD_ITERS,
+                                         backend="torch", fused=False)
+    c64, _ = ref_ctick._tick_impl(*lanes, warm=ref_ctick.init_warm((4,)))
+    for label, got, want in (("FusedTick(cuda) vs plain fused float64", results[0], r64),
+                             ("FusedTick(cuda) vs CompiledTick float64", results[0], c64),
+                             ("CompiledTick(cuda) vs CompiledTick float64", cresults[0], c64)):
+        d_grav = maxerr(got.torque_grav[:4], want.torque_grav)
+        d_cmd = maxerr(got.torque_cmd[:4], want.torque_cmd)
+        print(f"truth guard, {label} (4 lanes): τ_grav {d_grav:.3e}  τ_cmd {d_cmd:.3e}")
+        assert d_grav <= TAU_GRAV_TOL and d_cmd <= TAU_CMD_TOL, (label, d_grav, d_cmd)
 
-    # ------------------------------------------------------------ 5. times
+    # ------------------------------------------------------------ 7. times
     plain_dev = TickProgram(model, cfg, dev, torch.float32)
     times = {}
     for nb in (B, 1):
@@ -269,30 +436,94 @@ def main():
     def chain():
         qq_, w_ = q_d, warm
         for _ in range(K - 1):
-            _, qq_, w_ = step(qq_, w_, WARM_ITERS)
+            _, qq_, w_ = step(tick, qq_, w_, WARM_ITERS)
 
     chain_ms = cuda_time(chain, 2)
     solves = B * (K - 1) / (chain_ms / 1e3)
     single_ms = cuda_time(lambda: tick._tick_impl(q_d[0], qd_d[0],
                                                   tuple(f[0] for f in fs_d)), 10)
-    print(f"warm chain: {K - 1} ticks at batch {B} in {chain_ms:.3f} ms -> "
+    print(f"FusedTick warm chain: {K - 1} ticks at batch {B} in {chain_ms:.3f} ms -> "
           f"{solves:.1f} solves/s; unbatched cold tick {single_ms:.3f} ms  [{card}]")
 
+    lib_ms = {}
+    for A in seen["psd_inverse"]:
+        n = A.shape[-1]
+        for nb in (B, 1):
+            An = A[:nb].contiguous()
+            times[("psd_inverse", n, nb)] = interleaved(
+                lambda: psd_inverse_plain(An), lambda: linalg_cuda.psd_inverse(An), 2, 10)
+            lib_ms[(n, nb)] = cuda_time(lambda: torch.linalg.inv(An), 10)
+            p, kt = times[("psd_inverse", n, nb)]
+            print(f"time psd_inverse n {n} batch {nb}: kernel {kt:.3f} ms  plain (torch on the "
+                  f"card) {p:.3f} ms  torch.linalg.inv {lib_ms[(n, nb)]:.3f} ms  [{card}]")
+    for name, p in zip(QP_NAMES, seen["qp_solve"]):
+        kw = dict(iters=WARM_ITERS, ridge=p["ridge"], mirror=p["mirror"])
+        x0, _, lam0 = qp_cuda.qp_solve(p["H"], p["g"], p["C"], p["d"], iters=COLD_ITERS,
+                                       ridge=p["ridge"], mirror=p["mirror"])
+        for nb in (B, 1):
+            a = [t[:nb].contiguous() for t in (p["H"], p["g"], p["C"], p["d"], x0, lam0)]
+            times[("qp_solve", name, nb)] = interleaved(
+                lambda: qp_solve_plain(*a, **kw), lambda: qp_cuda.qp_solve(*a, **kw), 2, 10)
+            pt, kt = times[("qp_solve", name, nb)]
+            print(f"time qp_solve {name} (warm, {WARM_ITERS} iterations) batch {nb}: "
+                  f"kernel {kt:.3f} ms  plain (torch on the card) {pt:.3f} ms  [{card}]")
+
+    def cchain():
+        qq_, w_ = q_d, cwarm
+        for _ in range(K_C - 1):
+            _, qq_, w_ = step(ctick, qq_, w_, WARM_ITERS)
+
+    cchain_ms = cuda_time(cchain, 1)
+    csolves = B * (K_C - 1) / (cchain_ms / 1e3)
+    csingle_ms = cuda_time(lambda: ctick._tick_impl(q_d[0], qd_d[0],
+                                                    tuple(f[0] for f in fs_d)), 3)
+    print(f"CompiledTick warm chain: {K_C - 1} ticks at batch {B} in {cchain_ms:.3f} ms -> "
+          f"{csolves:.1f} solves/s; unbatched cold tick {csingle_ms:.3f} ms  [{card}]")
+
+    # bounds at batch B: bytes of each kernel's inputs and outputs, and its
+    # operations on this run's shapes
+    plan = kern.plan
+    n_pre, n_out, n_warm = (tc._elems(lay(plan)) for lay in
+                            (tc.pre_layout, tc.out_layout, tc.warm_layout))
+    n_q, n_fs = q_el.shape[0], sum(f.shape[0] for f in fs_el)
+    bounds = {
+        "tick_prestage": bound(4 * (B * (n_q + n_pre) + kern.table.numel()),
+                               PRESTAGE_FLOPS * B),
+        "tick_qpchain": bound(4 * (B * (n_pre + n_fs + 2 * n_warm + n_out)
+                                   + kern.table.numel()), QPCHAIN_FLOPS * B),
+        "psd_inverse": bound(4 * B * (39 * 40 // 2 + 39 * 39),
+                             linalg_cuda.psd_inverse_flops(39) * B),
+    }
+    p0 = seen["qp_solve"][0]
+    _, m0, n0 = p0["C"].shape
+    me0 = m0 - p0["mirror"]
+    bounds["qp_solve"] = bound(4 * B * (n0 * n0 + n0 + me0 * n0 + m0 + (n0 + m0) + (n0 + 2 * m0)),
+                               qp_cuda.qp_solve_flops(n0, m0, p0["mirror"], WARM_ITERS) * B)
+    for name, (ms, by) in bounds.items():
+        print(f"bound {name} at batch {B}: {ms:.6f} ms ({by})")
+
+    def entry_(name, launches_, err, ms, plain_ms, library_ms, replaces):
+        return {"name": name, "route": "cuda",
+                "source": f"libdwbc_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+                "launches": launches_, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                "library_ms": library_ms}
+
+    qp_key = ("qp_solve", QP_NAMES[0], B)
     record = {"kernels": [
-        {"name": "tick_prestage", "route": "cuda",
-         "source": "libdwbc_tpu_torch/csrc/tick_prestage.cu",
-         "replaces": "libdwbc_tpu/wbc/fused.py:364",
-         "launches": launches["tick_prestage"],
-         "max_abs_err": pre_err["torque_grav"],
-         "ms": times[("tick_prestage", B)][1],
-         "plain_ms": times[("tick_prestage", B)][0]},
-        {"name": "tick_qpchain", "route": "cuda",
-         "source": "libdwbc_tpu_torch/csrc/tick_qpchain.cu",
-         "replaces": "libdwbc_tpu/wbc/fused.py:364",
-         "launches": launches["tick_qpchain"],
-         "max_abs_err": max(qp_err["cold.torque_cmd"], qp_err["warm.torque_cmd"]),
-         "ms": times[("tick_qpchain", B)][1],
-         "plain_ms": times[("tick_qpchain", B)][0]},
+        entry_("tick_prestage", launches["tick_prestage"], pre_err["torque_grav"],
+               times[("tick_prestage", B)][1], times[("tick_prestage", B)][0], None,
+               "libdwbc_tpu/wbc/fused.py:364"),
+        entry_("tick_qpchain", launches["tick_qpchain"],
+               max(qp_err["cold.torque_cmd"], qp_err["warm.torque_cmd"]),
+               times[("tick_qpchain", B)][1], times[("tick_qpchain", B)][0], None,
+               "libdwbc_tpu/wbc/fused.py:364"),
+        entry_("psd_inverse", claunches["psd_inverse"], max(psd_abs.values()),
+               times[("psd_inverse", 39, B)][1], times[("psd_inverse", 39, B)][0],
+               lib_ms[(39, B)], "libdwbc_tpu/ops/pallas_linalg.py:145"),
+        entry_("qp_solve", claunches["qp_solve"],
+               max(e["x"] for e in qps_err.values()), times[qp_key][1], times[qp_key][0],
+               None, "libdwbc_tpu/ops/pallas_qp.py:302"),
     ]}
     print(json.dumps(record))
     print(gpu_line())

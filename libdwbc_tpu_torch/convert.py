@@ -5,7 +5,10 @@
 * ``from_jax_model`` and ``config_from_jax`` copy the numpy fields of the JAX
   package's ``RobotModel`` and ``PipelineConfig`` objects (duck-typed: this
   module imports no JAX);
-* ``tick_tables`` builds the plain tick's constant buffers.
+* ``tick_tables`` builds the plain tick's constant buffers;
+* ``to_numpy``, ``result_to_numpy`` and ``warm_to_numpy`` carry results
+  and warm state (``TickResult``, ``QPSolution``, per-QP (x, λ)) of either
+  package across as numpy arrays, and ``warm_from_numpy`` back in.
 """
 
 from __future__ import annotations
@@ -122,3 +125,29 @@ def tick_tables(model, cfg, device, dtype) -> dict:
     if plan.tlim is not None:
         out["tlim"] = t(plan.tlim)
     return out
+
+
+def to_numpy(x) -> np.ndarray:
+    """A torch tensor or any array (a JAX array included) as numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def result_to_numpy(res) -> dict:
+    """The fields of a ``TickResult`` or ``QPSolution`` of either package
+    as a dict of numpy arrays."""
+    return {k: to_numpy(v) for k, v in res._asdict().items()}
+
+
+def warm_to_numpy(warm) -> tuple:
+    """Per-QP warm state ((x, λ), ...) as numpy."""
+    return tuple((to_numpy(x), to_numpy(lam)) for x, lam in warm)
+
+
+def warm_from_numpy(warm, device, dtype) -> tuple:
+    """Per-QP warm state from numpy (or any arrays, read-only ones
+    included) as tensors that own a copy."""
+    return tuple((torch.tensor(np.asarray(x), dtype=dtype, device=device),
+                  torch.tensor(np.asarray(lam), dtype=dtype, device=device))
+                 for x, lam in warm)

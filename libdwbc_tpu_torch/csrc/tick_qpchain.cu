@@ -6,11 +6,8 @@
 // TickProgram._ipm in static mode: per task level a one-sided Mehrotra
 // predictor-corrector IPM for min ½xᵀdiag(H)x s.t. Cx ≤ d (H = 1 on the task
 // block, 0 on the contact block; float32 ridge 1e-6), then the contact
-// redistribution QP.  Only [B; D] is stored: the mirrored −B torque-limit
-// rows are folded into every reduction over the m rows, while slacks and
-// duals keep all m.  Warm solves take split primal/dual steps, cold solves a
-// common step; iterations freeze once μ ≤ μ_tol, a non-finite step is
-// skipped, λ is capped at w_cap.
+// redistribution QP.  The IPM itself is csrc/ipm.cuh, shared with the
+// standalone solver csrc/qp_solve.cu.
 //
 // What bounds it on the H100: per IPM iteration one Gram matrix (n²/2·m
 // FMAs, n ≤ 12, m = 86) and one n×n Cholesky, plus passes over the 53×n
@@ -20,202 +17,33 @@
 // B = 1024).  Blocks are one warp (32 blocks at B = 1024); filling all
 // 132 SMs is later work.
 #include "elemlin.cuh"
+#include "ipm.cuh"
 
 namespace dwbc {
 
 template <typename T>
-struct QPWS {
-  V<T> tau_task, tau_contact, tau_base, d, s, inv_s, r_p, wv, ds_a, dlam_a, ds,
-      dlam, tmp, r_d, rhs, dx_a, dx, idg;
-  M<T> C, L;
+struct QPWS : IPMWS<T> {
+  V<T> tau_task, tau_contact, tau_base;
 
-  DWBC_HD QPWS(Arena<T>& a, const Tab<T>& tb) {
-    const int nv = tb.tmax() + tb.cfree, m = tb.mrows();
+  DWBC_HD QPWS(Arena<T>& a, const Tab<T>& tb)
+      : IPMWS<T>(a, tb.tmax() + tb.cfree, tb.srows(), tb.mrows()) {
     tau_task = a.vec(tb.mdof);
     tau_contact = a.vec(tb.mdof);
     tau_base = a.vec(tb.mdof);
-    C = a.mat(tb.srows(), nv);
-    L = a.mat(nv, nv);
-    d = a.vec(m);
-    s = a.vec(m);
-    inv_s = a.vec(m);
-    r_p = a.vec(m);
-    wv = a.vec(m);
-    ds_a = a.vec(m);
-    dlam_a = a.vec(m);
-    ds = a.vec(m);
-    dlam = a.vec(m);
-    tmp = a.vec(m);
-    r_d = a.vec(nv);
-    rhs = a.vec(nv);
-    dx_a = a.vec(nv);
-    dx = a.vec(nv);
-    idg = a.vec(nv);
   }
 };
 
-// out (m rows) = C·x with the mirrored block unfolded: [Bx; −Bx; Dx].
-template <typename T>
-DWBC_HD void cx_full(const QPWS<T>& w, V<T> x, V<T> out, int n, int me, int mr) {
-  for (int r = 0; r < me; ++r) {
-    T acc = w.C(r, 0) * x[0];
-    for (int i = 1; i < n; ++i) acc += w.C(r, i) * x[i];
-    if (r < mr) {
-      out[r] = acc;
-      out[mr + r] = -acc;
-    } else {
-      out[mr + r] = acc;
-    }
-  }
-}
-
-// out (n) = Cᵀ·v over all m rows, the mirrored rows folded: v_r − v_{mr+r}.
-// w.tmp holds the folded vector.
-template <typename T>
-DWBC_HD void ctv_full(const QPWS<T>& w, V<T> v, V<T> out, int n, int me, int mr) {
-  for (int r = 0; r < me; ++r) w.tmp[r] = r < mr ? v[r] - v[mr + r] : v[mr + r];
-  for (int i = 0; i < n; ++i) {
-    T acc = w.C(0, i) * w.tmp[0];
-    for (int r = 1; r < me; ++r) acc += w.C(r, i) * w.tmp[r];
-    out[i] = acc;
-  }
-}
-
-template <typename T>
-DWBC_HD T alpha_max(V<T> v, V<T> dv, int m) {
-  T mn = (T)1e20;
-  for (int r = 0; r < m; ++r) {
-    T ratio = dv[r] < (T)0 ? -v[r] / dv[r] : (T)1e20;
-    mn = vmin(mn, ratio);
-  }
-  return clamp_max((T)0.995 * mn, (T)1);
-}
-
-// One Newton solve on the factored system.  Complementarity residual
-// r_c = s∘λ − σμ·1 + ds_a∘dλ_a (corrector) or s∘λ (predictor).
-template <typename T>
-DWBC_HD void newton(const QPWS<T>& w, V<T> lam, V<T> dxo, V<T> dso, V<T> dlo,
-                    bool corrector, T sigma_mu, int n, int me, int mr) {
-  const int m = me + mr;
-  V<T> v = dso;                                   // scratch before ds lands
-  for (int r = 0; r < m; ++r) {
-    T rc = w.s[r] * lam[r] - (corrector ? sigma_mu - w.ds_a[r] * w.dlam_a[r] : (T)0);
-    v[r] = w.wv[r] * w.r_p[r] - rc * w.inv_s[r];
-  }
-  ctv_full(w, v, w.rhs, n, me, mr);
-  for (int i = 0; i < n; ++i) w.rhs[i] = -w.r_d[i] - w.rhs[i];
-  for (int i = 0; i < n; ++i) {                   // L y = rhs
-    T acc = w.rhs[i];
-    for (int k = 0; k < i; ++k) acc -= w.L(i, k) * dxo[k];
-    dxo[i] = acc * w.idg[i];
-  }
-  for (int i = n - 1; i >= 0; --i) {              // Lᵀ dx = y
-    T acc = dxo[i];
-    for (int k = i + 1; k < n; ++k) acc -= w.L(k, i) * dxo[k];
-    dxo[i] = acc * w.idg[i];
-  }
-  cx_full(w, dxo, dso, n, me, mr);
-  for (int r = 0; r < m; ++r) {
-    T rc = w.s[r] * lam[r] - (corrector ? sigma_mu - w.ds_a[r] * w.dlam_a[r] : (T)0);
-    T dsr = -(w.r_p[r] + dso[r]);
-    dso[r] = dsr;
-    dlo[r] = -(rc + lam[r] * dsr) * w.inv_s[r];
-  }
-}
-
 // min ½xᵀdiag(H)x s.t. Cx ≤ d, H = 1 on the first nt variables and 0 on
-// the rest.  x and lam are the warm state in and the solution out.
+// the rest (ipm.cuh), then the primal residual and the normalized
+// complementarity gap.  x and lam are the warm state in and the solution out.
 template <typename T>
 DWBC_HD void ipm(const QPWS<T>& w, V<T> x, V<T> lam, int n, int nt, int me,
                  int mr, int iters, bool warm, T& gap, T& pres) {
-  const bool f32 = sizeof(T) == 4;
-  const T ridge = f32 ? (T)1e-6 : (T)1e-9;
-  const T s_floor = f32 ? (T)1e-10 : (T)1e-14;
-  const T w_cap = f32 ? (T)1e8 : (T)1e12;
-  const T mu_tol = f32 ? (T)5e-8 : (T)1e-13;
+  const T ridge = sizeof(T) == 4 ? (T)1e-6 : (T)1e-9;
   const int m = me + mr;
-
-  if (warm) {
-    cx_full(w, x, w.tmp, n, me, mr);
-    for (int r = 0; r < m; ++r) {
-      w.s[r] = clamp_min(w.d[r] - w.tmp[r], (T)1e-4);
-      lam[r] = clamp_max(clamp_min(lam[r], (T)1e-4), w_cap);
-    }
-  } else {
-    for (int i = 0; i < n; ++i) x[i] = (T)0;
-    for (int r = 0; r < m; ++r) {
-      w.s[r] = clamp_min(w.d[r], (T)1);
-      lam[r] = (T)1;
-    }
-  }
-
-  for (int it = 0; it < iters; ++it) {
-    T mu = 0;
-    for (int r = 0; r < m; ++r) mu += w.s[r] * lam[r];
-    mu = mu / (T)m;
-    const T live = mu > mu_tol ? (T)1 : (T)0;
-
-    // factor: residuals, scaling w = λ/s, Gram Cᵀdiag(w)C + H + ridge
-    cx_full(w, x, w.r_p, n, me, mr);
-    for (int r = 0; r < m; ++r) {
-      w.inv_s[r] = (T)1 / clamp_min(w.s[r], s_floor);
-      w.r_p[r] = w.r_p[r] + w.s[r] - w.d[r];
-      w.wv[r] = clamp_max(clamp_min(lam[r] * w.inv_s[r], (T)0), w_cap);
-    }
-    ctv_full(w, lam, w.r_d, n, me, mr);
-    for (int i = 0; i < n; ++i)
-      w.r_d[i] = ((i < nt ? (T)1 : (T)0) + ridge) * x[i] + w.r_d[i];
-    for (int r = 0; r < me; ++r) w.tmp[r] = r < mr ? w.wv[r] + w.wv[mr + r] : w.wv[mr + r];
-    for (int i = 0; i < n; ++i)
-      for (int j = 0; j <= i; ++j) {
-        T acc = (w.C(0, i) * w.tmp[0]) * w.C(0, j);
-        for (int r = 1; r < me; ++r) acc += (w.C(r, i) * w.tmp[r]) * w.C(r, j);
-        if (i == j) acc = acc + ((i < nt ? (T)1 : (T)0) + ridge);
-        w.L(i, j) = acc;
-      }
-    for (int j = 0; j < n; ++j) {                 // right-looking, sqrt pivots
-      T dj = sqrt(clamp_min(w.L(j, j), (T)1e-30));
-      T inv_d = (T)1 / dj;
-      w.idg[j] = inv_d;
-      w.L(j, j) = dj;
-      for (int i = j + 1; i < n; ++i) w.L(i, j) = w.L(i, j) * inv_d;
-      for (int i = j + 1; i < n; ++i)
-        for (int k = j + 1; k <= i; ++k) w.L(i, k) = w.L(i, k) - w.L(i, j) * w.L(k, j);
-    }
-
-    // predictor
-    newton(w, lam, w.dx_a, w.ds_a, w.dlam_a, false, (T)0, n, me, mr);
-    const T a_p = alpha_max(w.s, w.ds_a, m);
-    const T a_d = alpha_max(lam, w.dlam_a, m);
-    T mu_aff = 0;
-    for (int r = 0; r < m; ++r)
-      mu_aff += (w.s[r] + a_p * w.ds_a[r]) * (lam[r] + a_d * w.dlam_a[r]);
-    mu_aff = mu_aff / (T)m;
-    T ratio = mu_aff / clamp_min(mu, (T)1e-30);
-    const T sigma = ratio * ratio * ratio;
-
-    // corrector
-    newton(w, lam, w.dx, w.ds, w.dlam, true, sigma * mu, n, me, mr);
-    T a_pc, a_dc;
-    if (warm) {
-      a_pc = live * alpha_max(w.s, w.ds, m);
-      a_dc = live * alpha_max(lam, w.dlam, m);
-    } else {
-      a_pc = live * vmin(alpha_max(w.s, w.ds, m), alpha_max(lam, w.dlam, m));
-      a_dc = a_pc;
-    }
-    bool ok = true;
-    for (int i = 0; i < n; ++i) ok = ok && isfinite(w.dx[i]);
-    if (ok) {
-      for (int i = 0; i < n; ++i) x[i] = x[i] + a_pc * w.dx[i];
-      for (int r = 0; r < m; ++r) {
-        w.s[r] = w.s[r] + a_pc * w.ds[r];
-        lam[r] = clamp_max(lam[r] + a_dc * w.dlam[r], w_cap);
-      }
-    }
-  }
-
-  cx_full(w, x, w.tmp, n, me, mr);
+  ipm_iterate<T>(w, M<T>{nullptr, 0, 0}, V<T>{nullptr, 0}, x, lam, n, nt, me,
+                 mr, iters, warm, ridge);
+  cx_full<T>(w, x, w.tmp, n, me, mr);
   T p = 0, g = 0;
   for (int r = 0; r < m; ++r) {
     T slack = w.d[r] - w.tmp[r];

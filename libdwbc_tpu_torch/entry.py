@@ -1,5 +1,5 @@
-"""Serving entry points of the port: the flagship tick and its example
-inputs (counterparts of ``__graft_entry__._model_and_tick`` and
+"""Serving entry points of the port: the flagship tick (fused or compiled)
+and its example inputs (counterparts of ``__graft_entry__._model_and_tick`` and
 ``_example_inputs``).
 
 The flagship is the 33-DoF Tocabi (``models/tocabi.npz``) standing in
@@ -16,16 +16,22 @@ import torch
 
 from .model.compile import RobotModel
 from .wbc.fused import FusedTick
-from .wbc.pipeline import standard_tocabi_config
+from .wbc.pipeline import CompiledTick, standard_tocabi_config
 
 MODEL_PATH = Path(__file__).resolve().parent.parent / "models" / "tocabi.npz"
 
 
-def _model_and_tick(device, dtype=torch.float32, qp_iters=12, backend="cuda"):
-    """(model, FusedTick) for the flagship configuration on ``device``."""
+def _model_and_tick(device=None, dtype=torch.float32, qp_iters=12, backend="cuda",
+                    fused=True):
+    """(model, tick) for the flagship configuration: ``FusedTick`` when
+    ``fused``, else ``CompiledTick`` (as the JAX entry returns off the TPU).
+    ``device`` defaults to the card; pass "cpu" (with backend="torch") for
+    the plain version on the CPU."""
     model = RobotModel.load(str(MODEL_PATH))
     cfg = standard_tocabi_config(model, qp_iters=qp_iters)
-    return model, FusedTick(model, cfg, device=device, dtype=dtype, backend=backend)
+    cls = FusedTick if fused else CompiledTick
+    return model, cls(model, cfg, device="cuda" if device is None else device,
+                      dtype=dtype, backend=backend)
 
 
 def _example_inputs(model, dtype=np.float32):

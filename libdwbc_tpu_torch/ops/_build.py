@@ -1,5 +1,7 @@
-"""Build of the CUDA tick kernels: ``nvcc`` for sm_90a into one shared
-library with a plain C interface, loaded with ``ctypes``.
+"""Build of the CUDA kernels: ``nvcc`` for sm_90a into one shared library
+with a plain C interface, loaded with ``ctypes``.  Each ``csrc/*.cu`` is
+compiled to an object by its own ``nvcc``, all started together, and the
+objects are linked into the library.
 
 The library lands in ``libdwbc_tpu_torch/_build/`` under a name that carries
 a hash of the sources and flags, so a changed source is rebuilt and an
@@ -20,7 +22,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 
 def nvcc_path() -> str:
@@ -48,14 +50,33 @@ def build(verbose: bool = False) -> tuple[Path, str]:
     if so.exists():
         return so, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
-           "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = nvcc_path()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []), "-c",
+               str(src), "-o", str(obj)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    log = []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            for _, _, other in jobs:
+                other.kill()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    tmp = so.with_name(f"{tag}.tmp")
+    cmd = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(tmp),
+           *(str(obj) for _, obj, _ in jobs)]
     r = subprocess.run(cmd, capture_output=True, text=True)
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n{r.stderr}")
+        raise RuntimeError(f"nvcc link failed ({r.returncode}): {' '.join(cmd)}\n{r.stderr}")
     os.replace(tmp, so)
-    return so, r.stdout + r.stderr
+    return so, "".join(log) + r.stdout + r.stderr
 
 
 @functools.cache
@@ -73,4 +94,13 @@ def library() -> ctypes.CDLL:
     lib.dwbc_tick_prestage.restype = i
     lib.dwbc_tick_qpchain.argtypes = [p, p, p, p, p, p, p, i, i, p]
     lib.dwbc_tick_qpchain.restype = i
+    lib.dwbc_psd_inverse_ws_elems.argtypes = [i]
+    lib.dwbc_psd_inverse_ws_elems.restype = ll
+    lib.dwbc_psd_inverse.argtypes = [p, p, p, i, i, p]
+    lib.dwbc_psd_inverse.restype = i
+    lib.dwbc_qp_solve_ws_elems.argtypes = [i, i, i]
+    lib.dwbc_qp_solve_ws_elems.restype = ll
+    lib.dwbc_qp_solve.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                  ctypes.c_float, p]
+    lib.dwbc_qp_solve.restype = i
     return lib

@@ -1,6 +1,15 @@
-"""Tick configuration and result records (counterpart of
-``libdwbc_tpu/wbc/pipeline.py``: ``TickResult``, ``qp_error_flag``,
-``PipelineConfig``, ``standard_tocabi_config``)."""
+"""The tick's configuration and results, and ``CompiledTick`` (counterpart
+of ``libdwbc_tpu/wbc/pipeline.py``: ``TickResult``, ``qp_error_flag``,
+``PipelineConfig``, ``standard_tocabi_config``, the jacobian plan and
+``CompiledTick``).
+
+``CompiledTick`` is the tick written as batched tensor algebra — kinematics,
+the contact-space factorization, the task hierarchy and its QPs — the
+independent formulation beside the element-leading ``FusedTick``.  With
+``backend="cuda"`` its two SPD inverses (A at n = 39, W + V2ᵀV2 at n = 33
+on the flagship) run the ``psd_inverse`` kernel and its QPs the
+``qp_solve`` kernel; everything else is torch ops on the card.
+"""
 
 from __future__ import annotations
 
@@ -9,8 +18,12 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch import nn
 
+from ..kin.engine import FK, Kinematics
+from . import dynamics as dyn
 from . import types as T
+from .hqp import contact_constraint_blocks, solve_contact_redistribution_qp, solve_task_level_qp
 
 
 class TickResult(NamedTuple):
@@ -77,3 +90,230 @@ def standard_tocabi_config(
         torque_limit=np.full(model.model_dof, torque_limit),
         qp_iters=qp_iters,
     )
+
+
+_SIX_MODES = (T.TASK_LINK_6D, T.TASK_LINK_6D_COM_FRAME, T.TASK_LINK_6D_CUSTOM_FRAME)
+_POS_MODES = (T.TASK_LINK_POSITION, T.TASK_LINK_POSITION_COM_FRAME,
+              T.TASK_LINK_POSITION_CUSTOM_FRAME)
+
+
+def _parse_task_spec(spec):
+    """task_specs entry (mode, link) or (mode, link, (px, py, pz)) →
+    (mode, link, body-frame task point or None)."""
+    mode, link = spec[0], spec[1]
+    point = np.asarray(spec[2], np.float64) if len(spec) > 2 else None
+    return mode, link, point
+
+
+def _plan_jacobians(model, cfg):
+    """Static jacobian plan: the body-origin jacobians the tick reads
+    (``J_bodies``, None when that would be every body), the body-fixed
+    points (contact points first, then custom-frame task points; repeated
+    pairs share one row), and per level the slot of each task spec."""
+    points = []
+
+    def _point_slot(link, pt):
+        entry = (int(link), tuple(float(x) for x in np.asarray(pt)))
+        if entry not in points:
+            points.append(entry)
+        return points.index(entry)
+
+    for c in cfg.contacts:
+        _point_slot(c.link, c.contact_point)
+    j_bodies: list[int] = []
+    slots = []
+    for level in cfg.task_specs:
+        lvl_slots = []
+        for spec in level:
+            mode, link, point = _parse_task_spec(spec)
+            if link == model.nbody:
+                lvl_slots.append(("tot", None))
+            elif mode in (T.TASK_LINK_6D_COM_FRAME, T.TASK_LINK_POSITION_COM_FRAME):
+                lvl_slots.append(("com", link))
+            elif point is not None and mode in (T.TASK_LINK_6D_CUSTOM_FRAME,
+                                                T.TASK_LINK_POSITION_CUSTOM_FRAME):
+                lvl_slots.append(("pt", _point_slot(link, point)))
+            else:
+                if int(link) not in j_bodies:
+                    j_bodies.append(int(link))
+                lvl_slots.append(("J", (link, j_bodies.index(int(link)))))
+        slots.append(tuple(lvl_slots))
+    if len(j_bodies) >= model.nbody:
+        j_bodies = None  # narrowing buys nothing; keep identity order
+    return (None if j_bodies is None else tuple(j_bodies)), tuple(points), tuple(slots)
+
+
+def _resolve_task_jacobian(kin, model, cfg, task_slots, st, fk, level, dtype):
+    """One level's task jacobian from the slot plan; st may come from a
+    narrowed or a full update."""
+    narrowed = st.J.shape[-3] != model.nbody
+    rows = []
+    for spec, (kind, payload) in zip(cfg.task_specs[level], task_slots[level]):
+        mode, link, point = _parse_task_spec(spec)
+        if kind == "tot":
+            J6 = st.Jcom_total
+        elif kind == "com":
+            J6 = st.Jcom[..., payload, :, :]
+        elif kind == "pt":
+            if st.J_pts is not None:
+                J6 = st.J_pts[..., payload, :, :]
+            else:
+                J6 = kin.frame_point_jacobian(
+                    fk, link, torch.as_tensor(point, dtype=dtype, device=st.q.device))
+        else:
+            blink, bidx = payload
+            J6 = st.J[..., bidx if narrowed else blink, :, :]
+        if mode in _SIX_MODES:
+            rows.append(J6)
+        elif mode in _POS_MODES:
+            rows.append(J6[..., 0:3, :])
+        else:
+            rows.append(J6[..., 3:6, :])
+    return torch.cat(rows, dim=-2)
+
+
+def _level_dims(model, cfg):
+    """(nv, rows) of each QP of the tick, in call order: one per task level,
+    then the redistribution QP."""
+    cfree = sum(c.contact_dof for c in cfg.contacts) - 6
+    k = sum(c.constraint_number for c in cfg.contacts)
+    lim_rows = 2 * model.model_dof if cfg.torque_limit is not None else 0
+    dims = [(sum(6 if spec[0] in _SIX_MODES else 3 for spec in level) + cfree, lim_rows + k)
+            for level in cfg.task_specs]
+    dims.append((cfree, lim_rows + k))
+    return dims
+
+
+class CompiledTick(nn.Module):
+    """One WBC tick for a fixed configuration, batched over leading dims of
+    (q, q̇, f*) — the same serving contract as ``FusedTick``
+    (``init_warm``, ``_tick_impl``, warm (x, λ) per QP)."""
+
+    def __init__(self, model, cfg, device, dtype=torch.float32, backend="cuda"):
+        super().__init__()
+        device = torch.device(device)
+        if backend not in ("torch", "cuda"):
+            raise ValueError(f"backend must be 'torch' or 'cuda', got {backend!r}")
+        if backend == "cuda":
+            if not torch.cuda.is_available() or device.type != "cuda":
+                raise RuntimeError("CompiledTick(backend='cuda') needs a CUDA device")
+            if dtype != torch.float32:
+                raise TypeError("the CUDA kernels of CompiledTick are float32")
+        if device.type == "cuda":
+            # exact float32 products on the card (no TF32 rounding)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self.model = model
+        self.cfg = cfg
+        self.dtype = dtype
+        self.device = device
+        self.backend = backend
+        self.kin = Kinematics(model, backend=backend)
+        self._J_bodies, self._points, self._task_slots = _plan_jacobians(model, cfg)
+        self._dims = _level_dims(model, cfg)
+        self.register_buffer("axis", torch.as_tensor(
+            np.asarray(model.axis, np.float64), dtype=dtype, device=device), persistent=False)
+        tlim = (None if cfg.torque_limit is None else torch.as_tensor(
+            np.asarray(cfg.torque_limit, np.float64), dtype=dtype, device=device))
+        self.register_buffer("tlim", tlim, persistent=False)
+        self._consts = [dyn.contact_constraint_block(
+            c.contact_type, c.plane_x, c.plane_y, c.friction_ratio, c.friction_ratio_z,
+            dtype=dtype, device=device) for c in cfg.contacts]
+
+    def init_warm(self, batch=()):
+        """Cold warm state: per QP (zeros (batch, n), ones (batch, m))."""
+        batch = tuple(batch)
+        kw = dict(dtype=self.dtype, device=self.device)
+        return tuple((torch.zeros(batch + (nv,), **kw), torch.ones(batch + (rows,), **kw))
+                     for nv, rows in self._dims)
+
+    def _tick_impl(self, q, qdot, fstars, warm=None, qp_iters=None, servos=None):
+        """q (B, nq) or (nq,), q̇ alike, f* per level (B, t) or (t,), warm per
+        QP (x, λ) or None → TickResult, and the warm state out when warm was
+        given."""
+        if servos is not None:
+            raise NotImplementedError("the on-device servo is not ported yet")
+        cfg, bk = self.cfg, self.backend
+        m = self.model.model_dof
+
+        def as_t(x):
+            return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+
+        q, qdot = as_t(q), as_t(qdot)
+        fstars = tuple(as_t(f) for f in fstars)
+        if warm is not None:
+            warm = tuple((as_t(x), as_t(lam)) for x, lam in warm)
+        st = self.kin.update(q, qdot, J_bodies=self._J_bodies, points=self._points)
+        fk = FK(R=st.R, p=st.p, axis_w=(st.R @ self.axis[..., None])[..., 0], com_w=st.com_w)
+
+        J_C = torch.cat([dyn.contact_jacobian_rows(st.J_pts[..., i, :, :],
+                                                   st.R[..., c.link, :, :], c.contact_type)
+                         for i, c in enumerate(cfg.contacts)], dim=-2)
+        cs = dyn.contact_space(J_C, st.A_inv, backend=bk)
+        torque_grav, P_C = dyn.gravity_compensation(st.A_inv, cs.W_inv, cs.N_C,
+                                                    cs.J_C_INV_T, st.G)
+        A_const, A_rot = contact_constraint_blocks(
+            self._consts, [dyn.contact_rotation_block(c.contact_type, st.R[..., c.link, :, :])
+                           for c in cfg.contacts])
+
+        batch = q.shape[:-1]
+        kw = dict(dtype=self.dtype, device=self.device)
+        torque_task = torch.zeros(batch + (m,), **kw)
+        torque_contact = torch.zeros(batch + (m,), **kw)
+        gap = torch.zeros(batch, **kw)
+        pres = torch.zeros(batch, **kw)
+        iters = cfg.qp_iters if qp_iters is None else qp_iters
+        warm_out = []
+
+        prev_null = torch.eye(m, **kw).expand(batch + (m, m))
+        for h in range(len(cfg.task_specs)):
+            J_task = _resolve_task_jacobian(self.kin, self.model, cfg, self._task_slots,
+                                            st, fk, h, self.dtype)
+            tf = dyn.task_jkt(J_task, st.A_inv, cs.N_C, cs.W_inv, backend=bk)
+            fstar = fstars[h]
+            JktL = tf.J_kt @ tf.Lambda_task
+            if cfg.use_hqp:
+                res = solve_task_level_qp(
+                    prev_null @ JktL, fstar, torque_grav + torque_task, cs.NwJw,
+                    cs.J_C_INV_T, P_C, A_const, A_rot, self.tlim, iters=iters,
+                    warm=None if warm is None else warm[h], backend=bk)
+                warm_out.append((res.x, res.lam))
+                torque_h = (JktL @ (fstar + res.f_star_delta)[..., None])[..., 0]
+                torque_contact = (cs.NwJw @ res.contact_qp[..., None])[..., 0]
+                gap = torch.maximum(gap, res.gap)
+                pres = torch.maximum(pres, res.primal_res)
+            else:
+                torque_h = (JktL @ fstar[..., None])[..., 0]
+            if h == 0:
+                torque_task = torque_h
+            else:
+                torque_task = torque_task + (prev_null @ torque_h[..., None])[..., 0]
+            prev_null = dyn.task_null_space(tf.J_kt, tf.Lambda_task, J_task,
+                                            cs.A_inv_N_C, prev_null)
+
+        if cfg.use_hqp and cs.NwJw.shape[-1] > 0:
+            sol = solve_contact_redistribution_qp(
+                torque_grav + torque_task + torque_contact, cs.NwJw, cs.J_C_INV_T, P_C,
+                A_const, A_rot, self.tlim, iters=iters,
+                warm=None if warm is None else warm[len(cfg.task_specs)], backend=bk)
+            warm_out.append((sol.x, sol.lam))
+            torque_contact = torque_contact + (cs.NwJw @ sol.x[..., None])[..., 0]
+            gap = torch.maximum(gap, sol.gap)
+            pres = torch.maximum(pres, sol.primal_res)
+
+        torque_cmd = torque_grav + torque_task + torque_contact
+        result = TickResult(
+            torque_grav=torque_grav,
+            torque_task=torque_task,
+            torque_contact=torque_contact,
+            torque_cmd=torque_cmd,
+            contact_force=dyn.contact_force_from_torque(torque_cmd, cs.J_C_INV_T, P_C),
+            qp_gap=gap,
+            qp_primal_res=pres,
+            contact_rank_health=cs.rank_health,
+            qp_error=qp_error_flag(gap, pres, torque_cmd, cfg),
+        )
+        return (result, tuple(warm_out)) if warm is not None else result
+
+    def forward(self, q, qdot, fstars, warm=None, qp_iters=None):
+        return self._tick_impl(q, qdot, fstars, warm=warm, qp_iters=qp_iters)

@@ -115,3 +115,22 @@ def test_kernel_table_refuses_other_configs(models, variant):
         tc.kernel_table(plan)
     with pytest.raises(NotImplementedError):
         tc.TickKernels(TickProgram(pm, cfg, "cpu", torch.float64))
+
+
+def test_results_and_warm_state_round_trip_as_numpy():
+    """A tick's result fields and warm state as numpy, and the warm state
+    back in as tensors of another dtype."""
+    from libdwbc_tpu_torch import entry
+    from libdwbc_tpu_torch.convert import result_to_numpy, warm_from_numpy, warm_to_numpy
+
+    model, tick = entry._model_and_tick("cpu", torch.float64, backend="torch")
+    q, qd, fs = entry._example_inputs(model, np.float64)
+    res, warm = tick._tick_impl(q, qd, fs, warm=tick.init_warm())
+    out = result_to_numpy(res)
+    assert list(out) == list(res._fields)
+    assert all(isinstance(v, np.ndarray) for v in out.values())
+    assert np.array_equal(out["torque_cmd"], res.torque_cmd.numpy())
+    back = warm_from_numpy(warm_to_numpy(warm), "cpu", torch.float32)
+    for (x, lam), (bx, blam) in zip(warm, back):
+        assert bx.dtype == torch.float32 and torch.equal(bx, x.float())
+        assert torch.equal(blam, lam.float())

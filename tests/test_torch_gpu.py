@@ -1,4 +1,5 @@
-"""The CUDA tick kernels on the card against their plain versions.
+"""The CUDA kernels on the card against their plain versions, and the two
+CUDA ticks (FusedTick, CompiledTick) on their serving path.
 
 Marked ``gpu``: every test skips where no CUDA device is present.  On a
 machine with a card (and without JAX) run them with
@@ -118,3 +119,162 @@ def test_fused_tick_cuda_serving(case, dev):
     assert r1.torque_cmd.shape == (B, 33) and r2.torque_cmd.shape == (33,)
     assert not bool(r1.qp_error.any()) and not bool(r2.qp_error)
     assert [tuple(x.shape) for x, _ in w] == [(B, 12), (B, 9), (B, 6)]
+
+
+# ------------------------------------------------ psd_inverse and qp_solve
+def _spd(rng, B, n, cond=1e3):
+    U, _ = np.linalg.qr(rng.standard_normal((B, n, n)))
+    return (U * np.logspace(0, np.log10(cond), n)[None, None, :]) @ np.swapaxes(U, -1, -2)
+
+
+@pytest.mark.parametrize("n,B_", [(39, 64), (33, 64), (39, 1), (16, 5), (64, 3)])
+def test_psd_inverse_kernel_matches_plain(dev, n, B_):
+    """Within ten times the plain float32 version's own error from float64,
+    relative to max |A⁻¹|, and exactly symmetric."""
+    from libdwbc_tpu_torch.ops import linalg_cuda
+
+    A = torch.as_tensor(_spd(np.random.default_rng(n + B_), B_, n), dtype=torch.float32)
+    n0 = linalg_cuda.launches["psd_inverse"]
+    out = linalg_cuda.psd_inverse(A.to(dev))
+    torch.cuda.synchronize()
+    assert linalg_cuda.launches["psd_inverse"] == n0 + 1
+    assert torch.equal(out, out.transpose(-1, -2))
+    ref = linalg_cuda.psd_inverse_plain(A.double())
+    scale = float(ref.abs().max())
+    err = float((out.cpu().double() - ref).abs().max()) / scale
+    own = float((linalg_cuda.psd_inverse_plain(A).double() - ref).abs().max()) / scale
+    print(f"psd_inverse n {n} B {B_}: kernel {err:.3e}, plain float32 {own:.3e}")
+    assert err <= 10 * own
+
+
+def test_psd_inverse_kernel_raises_on_bad_inputs(dev):
+    from libdwbc_tpu_torch.ops import linalg_cuda
+
+    A = torch.as_tensor(_spd(np.random.default_rng(0), 4, 20), dtype=torch.float32).to(dev)
+    with pytest.raises(TypeError):
+        linalg_cuda.psd_inverse(A.double())
+    with pytest.raises(ValueError):
+        linalg_cuda.psd_inverse(A[:, :12, :12].contiguous())
+    with pytest.raises(ValueError):
+        linalg_cuda.psd_inverse(A.transpose(-1, -2))
+
+
+def _qp(rng, B_, n, k, extra):
+    """One-sided problems with a ± mirrored block of k rows, strictly
+    feasible."""
+    m = 2 * k + extra
+    Q = rng.standard_normal((B_, n, n))
+    H = Q @ np.swapaxes(Q, -1, -2) * 0.1 + np.eye(n)
+    Bm = rng.standard_normal((B_, k, n))
+    C = np.concatenate([Bm, -Bm, rng.standard_normal((B_, extra, n))], axis=1)
+    d = np.einsum("bmn,bn->bm", C, rng.standard_normal((B_, n))) + rng.uniform(0.05, 2.0, (B_, m))
+    return [torch.as_tensor(a, dtype=torch.float32)
+            for a in (H, rng.standard_normal((B_, n)), C, d)]
+
+
+@pytest.fixture(scope="module")
+def tick_qps(case, dev):
+    """The three QPs (inputs of qp_solve) of one cold CompiledTick(cuda)
+    tick at the case's states."""
+    from libdwbc_tpu_torch.ops import qp_cuda
+    from libdwbc_tpu_torch.wbc.pipeline import CompiledTick
+
+    seen = []
+    solve = qp_cuda.qp_solve
+
+    def record(H, g, C, d, x0=None, lam0=None, iters=12, ridge=1e-6, mirror=0):
+        seen.append((H.clone(), g.clone(), C.clone(), d.clone(), ridge, mirror))
+        return solve(H, g, C, d, x0, lam0, iters=iters, ridge=ridge, mirror=mirror)
+
+    tick = CompiledTick(case["model"], case["cfg"], dev, backend="cuda")
+    mp = pytest.MonkeyPatch()
+    mp.setattr(qp_cuda, "qp_solve", record)
+    try:
+        tick._tick_impl(case["q_el"].T.contiguous().to(dev), torch.zeros((B, 39), device=dev),
+                        tuple(f.T.contiguous().to(dev) for f in case["fs_el"]),
+                        warm=tick.init_warm((B,)), qp_iters=12)
+    finally:
+        mp.undo()
+    assert [(tuple(C.shape), mr) for _, _, C, _, _, mr in seen] == [
+        ((B, 86, n), 33) for n in (12, 9, 6)]
+    return seen
+
+
+@pytest.mark.parametrize("mode", ["cold", "warm", "unfolded"])
+def test_qp_solve_kernel_matches_plain(tick_qps, dev, mode):
+    """The tick's three QPs (n = 12, 9, 6; m = 86) against the plain float32
+    version on the CPU, within qp_cuda.QP_SOLVE_TOL: cold at 12 iterations
+    with the 33 mirrored rows folded, warm at 7, and cold with the mirror
+    unfolded (mirror = 0, all 86 rows stored)."""
+    from libdwbc_tpu_torch.ops import qp_cuda
+    from libdwbc_tpu_torch.ops.qp import _comp_gap
+
+    for H, g, C, d, ridge, mirror in tick_qps:
+        cpu = [t.cpu() for t in (H, g, C, d)]
+        kw = dict(ridge=ridge, mirror=0 if mode == "unfolded" else mirror)
+        warm, iters = (), 12
+        if mode == "warm":
+            x0, _, lam0 = qp_cuda.qp_solve_plain(*cpu, iters=12, **kw)
+            warm, iters = (x0, lam0), 7
+        ref = qp_cuda.qp_solve_plain(*cpu, *warm, iters=iters, **kw)
+        n0 = qp_cuda.launches["qp_solve"]
+        got = [t.cpu() for t in qp_cuda.qp_solve(H, g, C, d, *[w.to(dev) for w in warm],
+                                                 iters=iters, **kw)]
+        assert qp_cuda.launches["qp_solve"] == n0 + 1
+        err = dict(x=float((got[0] - ref[0]).abs().max()),
+                   lam=float(((got[2] - ref[2]).abs() / (1.0 + ref[2].abs())).max()))
+        slack_k = cpu[3] - (cpu[2] @ got[0][..., None])[..., 0]
+        slack_r = cpu[3] - (cpu[2] @ ref[0][..., None])[..., 0]
+        err["gap"] = float((_comp_gap(slack_k, got[2], 86) - _comp_gap(slack_r, ref[2], 86))
+                           .abs().max())
+        err["pres"] = float((torch.clamp_min(-slack_k, 0).max(-1).values
+                             - torch.clamp_min(-slack_r, 0).max(-1).values).abs().max())
+        print(f"qp_solve {mode} n {g.shape[-1]}: " + " ".join(f"{k} {v:.3e}"
+                                                             for k, v in err.items()))
+        for k, v in err.items():
+            assert v <= qp_cuda.QP_SOLVE_TOL[k], (mode, k, v)
+
+
+def test_qp_solve_kernel_raises_on_bad_inputs(dev):
+    from libdwbc_tpu_torch.ops import qp_cuda
+
+    H, g, C, d = [a.to(dev) for a in _qp(np.random.default_rng(4), 4, 6, 3, 4)]
+    with pytest.raises(TypeError):
+        qp_cuda.qp_solve(H.double(), g.double(), C.double(), d.double())
+    with pytest.raises(ValueError):
+        qp_cuda.qp_solve(H, g, C, d, mirror=6)
+    with pytest.raises(ValueError):
+        qp_cuda.qp_solve(H, g, C, d, x0=torch.zeros_like(g))
+    with pytest.raises(ValueError):
+        qp_cuda.qp_solve(H, g, C[:, :, :5].contiguous(), d)
+
+
+def test_compiled_tick_cuda_serving(case, dev):
+    """Two psd_inverse and three qp_solve launches per tick, warm carry,
+    the unbatched tick, and the truth guard's bars against the port's
+    CompiledTick in float64 on the CPU."""
+    from libdwbc_tpu_torch.ops import linalg_cuda, qp_cuda
+    from libdwbc_tpu_torch.wbc.pipeline import CompiledTick
+
+    tick = CompiledTick(case["model"], case["cfg"], dev, backend="cuda")
+    q = case["q_el"].T.contiguous().to(dev)
+    fs = tuple(f.T.contiguous().to(dev) for f in case["fs_el"])
+    qd = torch.zeros((B, 39), device=dev)
+    n0 = (linalg_cuda.launches["psd_inverse"], qp_cuda.launches["qp_solve"])
+    r0, w = tick._tick_impl(q, qd, fs, warm=tick.init_warm((B,)), qp_iters=12)
+    r1, w = tick._tick_impl(q, qd, fs, warm=w, qp_iters=7)
+    r2 = tick._tick_impl(q[0], qd[0], tuple(f[0] for f in fs))
+    torch.cuda.synchronize()
+    assert (linalg_cuda.launches["psd_inverse"] - n0[0], qp_cuda.launches["qp_solve"] - n0[1]) \
+        == (6, 9)
+    assert r1.torque_cmd.shape == (B, 33) and r2.torque_cmd.shape == (33,)
+    assert not bool(r0.qp_error.any()) and not bool(r1.qp_error.any()) and not bool(r2.qp_error)
+    assert [tuple(x.shape) for x, _ in w] == [(B, 12), (B, 9), (B, 6)]
+    ref = CompiledTick(case["model"], case["cfg"], "cpu", torch.float64, backend="torch")
+    r64, _ = ref._tick_impl(case["q_el"].T[:4].double(), torch.zeros((4, 39), dtype=torch.float64),
+                            tuple(f.T[:4].double() for f in case["fs_el"]),
+                            warm=ref.init_warm((4,)))
+    for name in ("torque_grav", "torque_cmd"):
+        err = float((getattr(r0, name)[:4].cpu().double() - getattr(r64, name)).abs().max())
+        print(f"CompiledTick(cuda) vs float64 {name}: {err:.3e}")
+        assert err <= 0.05

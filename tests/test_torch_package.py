@@ -13,10 +13,15 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = os.path.join(ROOT, "models", "tocabi.npz")
 MODULES = ("libdwbc_tpu_torch", "libdwbc_tpu_torch.convert", "libdwbc_tpu_torch.entry",
-           "libdwbc_tpu_torch.model.compile", "libdwbc_tpu_torch.ops.elemlin",
-           "libdwbc_tpu_torch.ops.tick_kernel", "libdwbc_tpu_torch.ops.tick_cuda",
-           "libdwbc_tpu_torch.ops._build", "libdwbc_tpu_torch.wbc.fused",
-           "libdwbc_tpu_torch.wbc.pipeline", "libdwbc_tpu_torch.wbc.types")
+           "libdwbc_tpu_torch.model.compile", "libdwbc_tpu_torch.kin.engine",
+           "libdwbc_tpu_torch.kin.rotations", "libdwbc_tpu_torch.ops.elemlin",
+           "libdwbc_tpu_torch.ops.smallmat", "libdwbc_tpu_torch.ops.linalg",
+           "libdwbc_tpu_torch.ops.linalg_cuda", "libdwbc_tpu_torch.ops.qp",
+           "libdwbc_tpu_torch.ops.qp_cuda", "libdwbc_tpu_torch.ops.tick_kernel",
+           "libdwbc_tpu_torch.ops.tick_cuda", "libdwbc_tpu_torch.ops._build",
+           "libdwbc_tpu_torch.wbc.dynamics", "libdwbc_tpu_torch.wbc.hqp",
+           "libdwbc_tpu_torch.wbc.fused", "libdwbc_tpu_torch.wbc.pipeline",
+           "libdwbc_tpu_torch.wbc.types")
 
 
 def test_port_imports_no_jax():
@@ -25,6 +30,9 @@ def test_port_imports_no_jax():
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
             "from libdwbc_tpu_torch import entry\n"
             "model, tick = entry._model_and_tick('cpu', backend='torch')\n"
+            "model, tick = entry._model_and_tick('cpu', backend='torch', fused=False)\n"
+            "q, qd, fs = entry._example_inputs(model)\n"
+            "tick._tick_impl(q, qd, fs)\n"
             "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
             "assert not any(k.startswith('libdwbc_tpu.') or k == 'libdwbc_tpu' for k in sys.modules)\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

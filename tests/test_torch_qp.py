@@ -1,0 +1,199 @@
+"""The port's QP solvers against the JAX package, float64, problems from a
+seed:
+
+* ``ops/qp.py::solve_qp`` against JAX ``solve_qp`` (its XLA loop):
+  one-sided, two-sided with infinite bounds, equality rows, a warm start,
+  and the polish with its objective gate; x, λ, gap and primal residual;
+* the plain ``qp_solve`` (``ops/qp_cuda.py``) against ``pallas_qp_solve``
+  in interpret mode: cold, warm and with mirrored rows, x to 1e-9.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+X_TOL = 1e-9
+# The polish solves the penalty system H + ρCᵀDC with ρ = 1/ridge = 1e9 at
+# float64: its conditioning turns summation-order roundoff (1e-16) into
+# ~1e-7 relative on polished lanes, whichever framework sums.
+POLISH_TOL = 2e-6
+# λ and s of the plain qp_solve against the interpreted kernel: the duals
+# are more sensitive to roundoff than x near convergence.
+DUAL_TOL = 1e-8
+
+
+def _problems(rng, B, n, m):
+    """Strictly feasible one-sided problems: H = QQᵀ/10 + I, C x0 + margin."""
+    Q = rng.standard_normal((B, n, n))
+    H = Q @ np.swapaxes(Q, -1, -2) * 0.1 + np.eye(n)
+    g = rng.standard_normal((B, n))
+    C = rng.standard_normal((B, m, n))
+    x0 = rng.standard_normal((B, n))
+    d = np.einsum("bmn,bn->bm", C, x0) + rng.uniform(0.05, 2.0, (B, m))
+    return H, g, C, d, x0
+
+
+def _t(*xs):
+    return [None if x is None else torch.as_tensor(np.array(x)) for x in xs]
+
+
+def _j(*xs):
+    return [None if x is None else jnp.asarray(x) for x in xs]
+
+
+def _close(got, ref, tol, name):
+    got, ref = got.numpy(), np.asarray(ref)
+    err = float(np.abs(got - ref).max() / max(1.0, np.abs(ref).max()))
+    assert err <= tol, f"{name}: {err:.3e}"
+
+
+def _cases():
+    rng = np.random.default_rng(0)
+    B, n, m = 3, 6, 10
+    H, g, C, d, x0 = _problems(rng, B, n, m)
+    cases = {"one_sided": dict(H=H, g=g, A=C, lb=None, ub=d)}
+    lb = np.einsum("bmn,bn->bm", C, x0) - rng.uniform(0.05, 2.0, (B, m))
+    lb[:, ::3] = -np.inf
+    ub = d.copy()
+    ub[:, 1::4] = np.inf
+    cases["two_sided"] = dict(H=H, g=g, A=C, lb=lb, ub=ub)
+    Aeq = rng.standard_normal((B, 2, n))
+    cases["equality"] = dict(H=H, g=g, A=C, lb=None, ub=d, Aeq=Aeq,
+                             beq=np.einsum("bpn,bn->bp", Aeq, x0))
+    # a semidefinite H (the task QPs' zero f_c block) with active rows
+    Hs = np.zeros((n, n))
+    Hs[:3, :3] = np.eye(3)
+    cases["semidefinite"] = dict(H=Hs, g=np.zeros(n), A=C, lb=None, ub=d - 0.5)
+    return cases
+
+
+CASES = _cases()
+
+
+@pytest.fixture(scope="module", params=sorted(CASES) + ["warm"])
+def solved(request):
+    from libdwbc_tpu.ops.qp import solve_qp as jax_solve
+    from libdwbc_tpu_torch.convert import result_to_numpy, warm_from_numpy, warm_to_numpy
+    from libdwbc_tpu_torch.ops.qp import solve_qp
+
+    name = request.param
+    kw = dict(CASES["one_sided" if name == "warm" else name])
+    warm = None
+    if name == "warm":
+        # the JAX solve's (x, λ) carried across as numpy
+        first = jax_solve(*_j(kw["H"], kw["g"], kw["A"], None, kw["ub"]), iters=8)
+        warm = warm_to_numpy([(first.x, first.lam)])[0]
+        kw["g"] = kw["g"] + 0.01 * np.random.default_rng(1).standard_normal(kw["g"].shape)
+    args = [kw[k] for k in ("H", "g", "A", "lb", "ub")]
+    extra = [kw.get("Aeq"), kw.get("beq")]
+    ref = jax_solve(*_j(*args), *_j(*extra), iters=20,
+                    warm=None if warm is None else tuple(_j(*warm)))
+    got = solve_qp(*_t(*args), *_t(*extra), iters=20,
+                   warm=None if warm is None else warm_from_numpy([warm], "cpu",
+                                                                 torch.float64)[0])
+    return result_to_numpy(ref), result_to_numpy(got)
+
+
+@pytest.mark.parametrize("field", ["x", "lam", "gap", "primal_res", "polished"])
+def test_solve_qp_matches_jax(solved, field):
+    ref, got = solved
+    r, g = ref[field], got[field]
+    if field == "polished":
+        assert np.array_equal(r, g)
+    elif field in ("gap", "primal_res"):
+        assert float(np.abs(g - r).max()) <= 1e-10
+    else:
+        _close(torch.as_tensor(g), r, POLISH_TOL, field)
+
+
+def test_solve_qp_polish_is_taken_at_float64_only():
+    """The polish is accepted on some lanes at float64, never at float32."""
+    from libdwbc_tpu_torch.ops.qp import solve_qp
+
+    kw = CASES["one_sided"]
+    sol = solve_qp(*_t(kw["H"], kw["g"], kw["A"], None, kw["ub"]), iters=20)
+    assert bool(sol.polished.any())
+    sol32 = solve_qp(*[t.float() for t in _t(kw["H"], kw["g"], kw["A"])], None,
+                     torch.as_tensor(kw["ub"], dtype=torch.float32), iters=20)
+    assert not bool(sol32.polished.any())
+
+
+# ------------------------------------------ plain qp_solve vs Pallas interpret
+def _mirrored(rng, B, n, k, extra):
+    H, g, _, _, _ = _problems(rng, B, n, 2 * k + extra)
+    Bm = rng.standard_normal((B, k, n))
+    C = np.concatenate([Bm, -Bm, rng.standard_normal((B, extra, n))], axis=1)
+    d = np.einsum("bmn,bn->bm", C, rng.standard_normal((B, n))) + rng.uniform(
+        0.05, 2.0, (B, 2 * k + extra))
+    return H, g, C, d
+
+
+@pytest.mark.parametrize("mode", ["cold", "warm", "mirror"])
+def test_plain_qp_solve_matches_interpreted_pallas(mode):
+    from libdwbc_tpu.ops.pallas_qp import pallas_qp_solve
+    from libdwbc_tpu_torch.ops.qp_cuda import qp_solve_plain
+
+    rng = np.random.default_rng(4)
+    if mode == "mirror":
+        H, g, C, d = _mirrored(rng, 4, 6, 4, 5)
+        kw = dict(mirror=4)
+    else:
+        H, g, C, d, _ = _problems(rng, 4, 6, 12)
+        kw = {}
+    x0 = lam0 = None
+    if mode == "warm":
+        x0, _, lam0 = pallas_qp_solve(*_j(H, g, C, d), iters=10, interpret=True)
+        x0, lam0 = np.asarray(x0), np.asarray(lam0)
+        g = g + 0.01 * rng.standard_normal(g.shape)
+    ref = pallas_qp_solve(*_j(H, g, C, d), iters=12, interpret=True,
+                          x0=None if x0 is None else jnp.asarray(x0),
+                          lam0=None if lam0 is None else jnp.asarray(lam0), **kw)
+    got = qp_solve_plain(*_t(H, g, C, d, x0, lam0), iters=12, **kw)
+    for name, r, o, tol in zip(("x", "s", "lam"), ref, got, (X_TOL, DUAL_TOL, DUAL_TOL)):
+        _close(o, r, tol, name)
+
+
+def test_qp_solve_wrapper_on_cpu_is_the_plain_version():
+    from libdwbc_tpu_torch.ops import qp_cuda
+
+    H, g, C, d, _ = _problems(np.random.default_rng(5), 3, 5, 8)
+    args = [t.float() for t in _t(H, g, C, d)]
+    n0 = qp_cuda.launches["qp_solve"]
+    for a, b in zip(qp_cuda.qp_solve(*args, iters=9), qp_cuda.qp_solve_plain(*args, iters=9)):
+        assert torch.equal(a, b)
+    assert qp_cuda.launches["qp_solve"] == n0
+
+
+def test_cuda_backend_on_cpu_takes_the_loop():
+    """Routing is by device and dtype: CPU tensors under backend="cuda"
+    take the solve_qp loop, polish included."""
+    from libdwbc_tpu_torch.ops import qp_cuda
+    from libdwbc_tpu_torch.ops.qp import solve_qp
+
+    kw = CASES["one_sided"]
+    args = _t(kw["H"], kw["g"], kw["A"], None, kw["ub"])
+    n0 = qp_cuda.launches["qp_solve"]
+    a = solve_qp(*args, iters=15, backend="cuda")
+    b = solve_qp(*args, iters=15)
+    assert torch.equal(a.x, b.x) and torch.equal(a.polished, b.polished)
+    assert bool(a.polished.any())
+    assert qp_cuda.launches["qp_solve"] == n0
+
+
+@pytest.mark.parametrize("shape", [(12, 86, 33, 7), (9, 86, 33, 12), (6, 10, 0, 12)])
+def test_qp_solve_flops_match_the_benchmark_count(shape):
+    """The port's operation count of the qp_solve recurrence (chip_smoke.py's
+    bound) is benchmarks/sol_qp.py's analytic count of the Pallas kernel."""
+    import importlib.util
+    import os
+
+    from libdwbc_tpu_torch.ops.qp_cuda import qp_solve_flops
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "benchmarks", "sol_qp.py")
+    spec = importlib.util.spec_from_file_location("sol_qp", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert qp_solve_flops(*shape) == mod.kernel_flops(*shape)["flops_per_solve"]
