@@ -36,7 +36,32 @@ Phases, each fatal on failure (nothing is caught):
    and τ_cmd within 0.05 Nm;
 7. times with CUDA events at batch 1024 and batch 1: each kernel against
    its plain version run on the card, psd_inverse against torch.linalg.inv,
-   and the warm chains' solves/s of both ticks.
+   and the warm chains' solves/s of both ticks;
+8. the masked kernels against their plain versions, on the first 1024
+   lanes of the masked sweep (entry._masked_inputs: the two feet as
+   candidates, the hypotheses both / left / right cycled over the lanes),
+   each error per hypothesis: every field of tick_prestage (masked) vs the
+   plain masked prestage in float64 on the CPU (tick_cuda.PRE_TOL_MASKED;
+   crow_mask and active_cdof exactly; in every single-support lane NwJw and
+   the dead foot's rows of J̄ᵀ exact zeros), tick_qpchain (masked) fed that
+   prestage as float32 vs the plain float32 qpchain, cold and warm
+   (QP_TOL_MASKED), and the two chained vs the plain float64 tick
+   (CHAIN_TOL_MASKED);
+9. the masked serving path at its full width, its launch counts set to 0
+   just before it and read just after: make_control_loop(FusedTick(
+   masked=True, backend="cuda"), gap_fallback=1e-3) over B = 4096
+   scenarios and K = 32 ticks (tick 0 cold at 12 iterations, then warm at
+   7, q[:, 6:39] += 1e-6·tanh(τ_cmd) between ticks): every output finite,
+   no qp_error, primal residual ≤ 1e-3, launches exactly 2 × (K + refined
+   ticks), peak device memory; then the same chain without the fallback,
+   whose qp_gap_max is printed, not asserted;
+10. the masked truth guard on 6 lanes, 2 per hypothesis: tick 0 of
+   FusedTick(masked, cuda) vs the plain masked fused tick and vs the port's
+   MaskedTick (the independent formulation), both in float64 on the CPU;
+   τ_grav and τ_cmd within 0.05 Nm;
+11. times of the masked kernels at B = 4096 and B = 1 against their plain
+   versions on the card, and the solves/s of the fallback loop and of the
+   plain warm chain at B = 4096.
 
 The last lines are the kernels' JSON record (with each kernel's bound: the
 larger of its bytes over the card's memory rate and its operations over the
@@ -76,6 +101,13 @@ FP32_FLOPS_PER_S = 67e12
 # IPM iterations (benchmarks/sol_tick_r05.json)
 PRESTAGE_FLOPS, QPCHAIN_FLOPS = 337112.0, 107561.8
 QP_NAMES = ("level 0", "level 1", "redistribution")
+B_M, K_M, N_M = 4096, 32, 1024  # masked sweep: scenarios, ticks, lanes held vs plain
+GAP_FALLBACK = 1e-3
+HYPOTHESES = ("both feet", "left foot", "right foot")   # lane % 3
+# the masked kernels chained vs the plain float64 tick, per hypothesis:
+# about four times the plain float32 tick's own error on these inputs
+# (9.4e-3 Nm, 8.7e-3 Nm, 1.4e-2 N at most, single support the worst)
+CHAIN_TOL_MASKED = {"torque_task": 4e-2, "torque_cmd": 4e-2, "contact_force": 6e-2}
 
 
 def maxerr(a, b):
@@ -151,6 +183,30 @@ def interleaved(plain, kernel, reps_plain, reps_kernel):
     k2 = cuda_time(kernel, reps_kernel)
     p2 = cuda_time(plain, reps_plain)
     return (p1 + p2) / 2, (k1 + k2) / 2
+
+
+def masked_extra_flops(plan):
+    """Operations per solve that the masked branches add to the static
+    counts (a multiply-add is 2), read off csrc/tick_prestage.cu and
+    csrc/tick_qpchain.cu for the masked plan: (prestage, qpchain)."""
+    nd, md, cd, cf, kr = plan.ndof, plan.mdof, plan.cdof, plan.cfree, plan.k_rows
+    pre = (cd * nd                  # J_C rows × mask
+           + 2 * cd                 # Mc += 1 − mask on the diagonal
+           + 2 * cd * cd            # Λc re-masked
+           - 2 * md * cf * cf       # orthonormalize_drop is one MGS pass, qr_thin two
+           + 2 * md * cf            # compact_columns' column norms
+           + 2 * cd * md * cf - 2 * cf * md * cf  # J̄ᵀ·V2 over all cd rows, not cf
+           + 2 * cd + 3 * cf * cf   # c_act (twice), the inner system's live masks
+           + md * cf)               # NwJw × live
+    qp = kr * sum(nv for nv, _ in plan.qp_dims) + 2   # cone rows × crow; the gate
+    return pre, qp
+
+
+def per_hyp(got, want, n):
+    """Max abs error of (elem..., n) tensors per hypothesis (lane % 3)."""
+    d = (got.detach().cpu().double() - want.detach().cpu().double()).abs().reshape(-1, n)
+    lane = torch.arange(n) % 3
+    return [float(d[:, lane == h].max()) for h in range(3)]
 
 
 def main():
@@ -480,6 +536,192 @@ def main():
     print(f"CompiledTick warm chain: {K_C - 1} ticks at batch {B} in {cchain_ms:.3f} ms -> "
           f"{csolves:.1f} solves/s; unbatched cold tick {csingle_ms:.3f} ms  [{card}]")
 
+    # --------------------- 8. the masked kernels vs their plain versions
+    from libdwbc_tpu_torch.ops.tick_cuda import PRE_TOL_MASKED, QP_TOL_MASKED
+    from libdwbc_tpu_torch.wbc.loop import make_control_loop
+    from libdwbc_tpu_torch.wbc.masked import MaskedTick
+
+    mq, mqd, mfs, mmask = entry._masked_inputs(model, B_M, seed=0)
+    mplain64 = TickProgram(model, cfg, "cpu", torch.float64, masked=True)
+    mplain32 = TickProgram(model, cfg, "cpu", torch.float32, masked=True)
+    mkern = TickKernels(TickProgram(model, cfg, dev, torch.float32, masked=True))
+    mq_el = torch.as_tensor(np.ascontiguousarray(mq.T))
+    mcm_el = torch.as_tensor(np.ascontiguousarray(mmask.T))
+    mfs_el = [torch.as_tensor(np.ascontiguousarray(f.T)) for f in mfs]
+    q_n, cm_n = mq_el[:, :N_M].contiguous(), mcm_el[:, :N_M].contiguous()
+    fs_n = [f[:, :N_M].contiguous() for f in mfs_el]
+    mpre64 = mplain64.prestage(q_n.double(), cm_n.double())
+    mpre_k = mkern.prestage(q_n.to(dev), cm_n.to(dev))
+    torch.cuda.synchronize()
+    mpre_own = mplain32.prestage(q_n, cm_n)
+    mpre_err, mpre_own_err = {}, {}
+    for name in PRE_TOL_MASKED:
+        got, own, want = mpre_k[name], mpre_own[name], mpre64[name]
+        if name == "Ntorques":
+            got, own, want = (torch.cat([t.reshape(-1, N_M) for t in x], 0)
+                              for x in (got, own, want))
+        assert torch.isfinite(got).all(), f"masked prestage: non-finite {name}"
+        mpre_err[name] = per_hyp(got, want, N_M)
+        mpre_own_err[name] = per_hyp(own, want, N_M)
+    print("tick_prestage (masked) vs plain float64, per hypothesis "
+          f"{'/'.join(HYPOTHESES)} (max abs err, [plain float32's own] <= limit): "
+          + "  ".join(f"{k} " + "/".join(f"{e:.3e}" for e in v)
+                      + " [" + "/".join(f"{e:.3e}" for e in mpre_own_err[k])
+                      + f"] <= {PRE_TOL_MASKED[k]:g}" for k, v in mpre_err.items()))
+    for k in ("crow_mask", "active_cdof"):
+        assert torch.equal(mpre_k[k].cpu().double(), mpre64[k]), k
+    lane = torch.arange(N_M) % 3
+    nw, jb = mpre_k["NwJw"].cpu(), mpre_k["Jbar_act"].cpu()
+    zero_ok = (not nw[..., lane != 0].any() and not jb[6:, :, lane == 1].any()
+               and not jb[:6, :, lane == 2].any())
+    print(f"tick_prestage (masked): crow_mask and active_cdof exact; single-support "
+          f"lanes' NwJw and dead rows of J̄ᵀ exact zeros: {zero_ok}")
+    assert zero_ok
+    for k, v in mpre_err.items():
+        assert max(v) <= PRE_TOL_MASKED[k], (k, v, PRE_TOL_MASKED[k])
+    assert max(mpre_err["torque_grav"]) <= TAU_GRAV_TOL
+
+    mpre32 = {k: ([t.float() for t in v] if isinstance(v, list) else v.float())
+              for k, v in mpre64.items()}
+    mpre32_dev = {k: ([t.to(dev) for t in v] if isinstance(v, list) else v.to(dev))
+                  for k, v in mpre32.items()}
+    mfs_dev = [f.to(dev) for f in fs_n]
+    mref_cold = mplain32.qpchain(mpre32, fs_n, None, COLD_ITERS)
+    mker_cold = mkern.qpchain(mpre32_dev, mfs_dev, None, COLD_ITERS)
+    mw_cpu = mref_cold["warm_out"]
+    mref_warm = mplain32.qpchain(mpre32, fs_n, mw_cpu, WARM_ITERS)
+    mker_warm = mkern.qpchain(mpre32_dev, mfs_dev, [(x.to(dev), l.to(dev)) for x, l in mw_cpu],
+                              WARM_ITERS)
+    torch.cuda.synchronize()
+    mqp_err = {}
+    for tag, ref, ker in (("cold", mref_cold, mker_cold), ("warm", mref_warm, mker_warm)):
+        for name in list(QP_TOL_MASKED) + ["qp_gap", "qp_primal_res"]:
+            assert torch.isfinite(ker[name]).all(), f"masked tick_qpchain: non-finite {name}"
+            mqp_err[f"{tag}.{name}"] = per_hyp(ker[name], ref[name], N_M)
+        assert float(ker["qp_primal_res"].max()) <= QP_FAIL, tag
+    print("tick_qpchain (masked) vs plain float32, per hypothesis (max abs err): "
+          + "  ".join(f"{k} " + "/".join(f"{e:.3e}" for e in v) for k, v in mqp_err.items()))
+    for tag in ("cold", "warm"):
+        for name, tol in QP_TOL_MASKED.items():
+            assert max(mqp_err[f"{tag}.{name}"]) <= tol, (tag, name, mqp_err[f"{tag}.{name}"])
+
+    mchain_k = mkern.qpchain(mpre_k, mfs_dev, None, COLD_ITERS)
+    mchain64 = mplain64.qpchain(mpre64, [f.double() for f in fs_n], None, COLD_ITERS)
+    mchain32 = mplain32.qpchain(mpre_own, fs_n, None, COLD_ITERS)
+    mchain_err = {k: per_hyp(mchain_k[k], mchain64[k], N_M) for k in CHAIN_TOL_MASKED}
+    print("tick_prestage → tick_qpchain (masked) vs plain float64 tick, per hypothesis "
+          "(max abs err, [plain float32's own] <= limit): " + "  ".join(
+              f"{k} " + "/".join(f"{e:.3e}" for e in v) + " ["
+              + "/".join(f"{e:.3e}" for e in per_hyp(mchain32[k], mchain64[k], N_M))
+              + f"] <= {CHAIN_TOL_MASKED[k]:g}" for k, v in mchain_err.items()))
+    for k, v in mchain_err.items():
+        assert max(v) <= CHAIN_TOL_MASKED[k], (k, v)
+
+    # ------------------------------------------ 9. the masked serving path
+    _, mtick = entry._model_and_tick(dev, qp_iters=COLD_ITERS, masked=True)
+    assert isinstance(mtick, FusedTick) and mtick.masked and mtick.backend == "cuda"
+    mq_d, mqd_d, mm_d = (torch.as_tensor(a, device=dev) for a in (mq, mqd, mmask))
+    mfs_d = tuple(torch.as_tensor(f, device=dev) for f in mfs)
+
+    def advance(qq, qd, res, dt):
+        qq = qq.clone()
+        qq[:, 6:6 + md] += 1e-6 * torch.tanh(res.torque_cmd)
+        return qq, qd
+
+    loop = make_control_loop(mtick, transition=advance, K=K_M, warm_start=True,
+                             warm_iters=WARM_ITERS, gap_fallback=GAP_FALLBACK)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in mtick.kernels.launches:
+        mtick.kernels.launches[k] = 0
+    t0 = time.perf_counter()
+    lr = loop(mq_d, mqd_d, mfs_d, mm_d)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    mlaunches = dict(mtick.kernels.launches)
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+    n_solve = K_M + lr.refined_ticks
+    print(f"masked serving path (make_control_loop, gap_fallback {GAP_FALLBACK:g}): {K_M} "
+          f"ticks at batch {B_M}, refined ticks {lr.refined_ticks}, launches {mlaunches}, "
+          f"peak device memory {peak_mb:.1f} MiB, {loop_s * 1e3:.3f} ms")
+    assert mlaunches == {"tick_prestage": n_solve, "tick_qpchain": n_solve}, mlaunches
+    for name, v in lr._asdict().items():
+        if isinstance(v, torch.Tensor) and v.dtype != torch.bool:
+            assert torch.isfinite(v).all(), f"masked loop: non-finite {name}"
+    assert lr.torques.shape == (K_M, B_M, md)
+    m_err, m_pres = int(lr.qp_error.sum()), float(lr.qp_primal_res.max())
+    print(f"masked serving path: qp_error ticks×lanes {m_err}  qp_primal_res max {m_pres:.3e}")
+    assert m_err == 0 and m_pres <= QP_FAIL
+
+    def plain_chain():
+        """The warm chain without the fallback: (q, max gap, max residual)."""
+        res, w_ = mtick._tick_impl(mq_d, mqd_d, mfs_d, mm_d,
+                                   warm=mtick.init_warm((B_M,)), qp_iters=COLD_ITERS)
+        qq, _ = advance(mq_d, mqd_d, res, 0.0)
+        gaps, pres_ = [], []
+        for _ in range(K_M - 1):
+            res, w_ = mtick._tick_impl(qq, mqd_d, mfs_d, mm_d, warm=w_, qp_iters=WARM_ITERS)
+            qq, _ = advance(qq, mqd_d, res, 0.0)
+            gaps.append(res.qp_gap.max())
+            pres_.append(res.qp_primal_res.max())
+        return qq, torch.stack(gaps).max(), torch.stack(pres_).max()
+
+    _, nofb_gap, nofb_pres = plain_chain()
+    print(f"masked warm chain without the fallback: qp_gap_max {float(nofb_gap):.6e}  "
+          f"qp_primal_res_max {float(nofb_pres):.6e} (recorded, not asserted)")
+
+    # ------------------------------------------------ 10. masked truth guard
+    r0m, _ = mtick._tick_impl(mq_d, mqd_d, mfs_d, mm_d, warm=mtick.init_warm((B_M,)),
+                              qp_iters=COLD_ITERS)
+    nl = 6
+    lanes_m = (mq[:nl].astype(np.float64), mqd[:nl].astype(np.float64),
+               tuple(f[:nl].astype(np.float64) for f in mfs), mmask[:nl].astype(np.float64))
+    _, mref = entry._model_and_tick("cpu", dtype=torch.float64, qp_iters=COLD_ITERS,
+                                    backend="torch", masked=True)
+    mr64, _ = mref._tick_impl(*lanes_m, warm=mref.init_warm((nl,)))
+    mt64 = MaskedTick(model, cfg, "cpu", torch.float64, backend="torch")
+    mt64r, _ = mt64._tick_impl(*lanes_m, warm=mt64.init_warm((nl,)))
+    for label, want in (("plain masked fused float64", mr64), ("MaskedTick float64", mt64r)):
+        d_grav = [maxerr(r0m.torque_grav[h:nl:3], want.torque_grav[h::3]) for h in range(3)]
+        d_cmd = [maxerr(r0m.torque_cmd[h:nl:3], want.torque_cmd[h::3]) for h in range(3)]
+        print(f"masked truth guard, FusedTick(masked, cuda) vs {label} ({nl} lanes, per "
+              f"hypothesis): τ_grav " + "/".join(f"{e:.3e}" for e in d_grav)
+              + "  τ_cmd " + "/".join(f"{e:.3e}" for e in d_cmd))
+        assert max(d_grav) <= TAU_GRAV_TOL and max(d_cmd) <= TAU_CMD_TOL, (label, d_grav, d_cmd)
+
+    # ------------------------------------------------------ 11. masked times
+    mplain_dev = TickProgram(model, cfg, dev, torch.float32, masked=True)
+    for nb in (B_M, 1):
+        qe, ce = mq_el[:, :nb].contiguous().to(dev), mcm_el[:, :nb].contiguous().to(dev)
+        fe = [f[:, :nb].contiguous().to(dev) for f in mfs_el]
+        pre_buf = mkern.prestage_packed(qe, ce)
+        pre_d = mkern.unpack_pre(pre_buf)
+        w_d = mkern.unpack_result(*mkern.qpchain_packed(pre_buf, fe, None, COLD_ITERS))["warm_out"]
+        times[("tick_prestage_masked", nb)] = interleaved(
+            lambda: mplain_dev.prestage(qe, ce), lambda: mkern.prestage_packed(qe, ce), 2, 5)
+        times[("tick_qpchain_masked", nb)] = interleaved(
+            lambda: mplain_dev.qpchain(pre_d, fe, w_d, WARM_ITERS),
+            lambda: mkern.qpchain_packed(pre_buf, fe, w_d, WARM_ITERS), 2, 5)
+        for name in ("tick_prestage_masked", "tick_qpchain_masked"):
+            p, kt = times[(name, nb)]
+            print(f"time {name} batch {nb}: kernel {kt:.3f} ms  plain (torch on the card) "
+                  f"{p:.3f} ms  [{card}]")
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0_
+
+    loop_s2 = timed(lambda: loop(mq_d, mqd_d, mfs_d, mm_d))
+    chain_s = timed(plain_chain)
+    print(f"masked sweep at batch {B_M}, {K_M} ticks (tick 0 cold at {COLD_ITERS} "
+          f"iterations, then warm at {WARM_ITERS}): fallback loop {loop_s2 * 1e3:.3f} ms -> "
+          f"{B_M * K_M / loop_s2:.1f} solves/s; plain warm chain {chain_s * 1e3:.3f} ms -> "
+          f"{B_M * K_M / chain_s:.1f} solves/s  [{card}]")
+
     # bounds at batch B: bytes of each kernel's inputs and outputs, and its
     # operations on this run's shapes
     plan = kern.plan
@@ -494,17 +736,31 @@ def main():
         "psd_inverse": bound(4 * B * (39 * 40 // 2 + 39 * 39),
                              linalg_cuda.psd_inverse_flops(39) * B),
     }
+    mplan = mkern.plan
+    m_pre, m_out, m_warm = (tc._elems(lay(mplan)) for lay in
+                            (tc.pre_layout, tc.out_layout, tc.warm_layout))
+    x_pre, x_qp = masked_extra_flops(mplan)
+    print(f"masked operations per solve: prestage {PRESTAGE_FLOPS + x_pre:.1f} "
+          f"({x_pre:+d} on the static count), qpchain {QPCHAIN_FLOPS + x_qp:.1f} ({x_qp:+d})")
+    bounds["tick_prestage_masked"] = bound(
+        4 * (B_M * (n_q + len(cfg.contacts) + m_pre) + mkern.table.numel()),
+        (PRESTAGE_FLOPS + x_pre) * B_M)
+    bounds["tick_qpchain_masked"] = bound(
+        4 * (B_M * (m_pre + n_fs + 2 * m_warm + m_out) + mkern.table.numel()),
+        (QPCHAIN_FLOPS + x_qp) * B_M)
     p0 = seen["qp_solve"][0]
     _, m0, n0 = p0["C"].shape
     me0 = m0 - p0["mirror"]
     bounds["qp_solve"] = bound(4 * B * (n0 * n0 + n0 + me0 * n0 + m0 + (n0 + m0) + (n0 + 2 * m0)),
                                qp_cuda.qp_solve_flops(n0, m0, p0["mirror"], WARM_ITERS) * B)
     for name, (ms, by) in bounds.items():
-        print(f"bound {name} at batch {B}: {ms:.6f} ms ({by})")
+        print(f"bound {name} at batch {B_M if name.endswith('masked') else B}: "
+              f"{ms:.6f} ms ({by})")
 
     def entry_(name, launches_, err, ms, plain_ms, library_ms, replaces):
+        src = name.removesuffix("_masked")
         return {"name": name, "route": "cuda",
-                "source": f"libdwbc_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+                "source": f"libdwbc_tpu_torch/csrc/{src}.cu", "replaces": replaces,
                 "launches": launches_, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                 "library_ms": library_ms}
@@ -524,6 +780,13 @@ def main():
         entry_("qp_solve", claunches["qp_solve"],
                max(e["x"] for e in qps_err.values()), times[qp_key][1], times[qp_key][0],
                None, "libdwbc_tpu/ops/pallas_qp.py:302"),
+        entry_("tick_prestage_masked", mlaunches["tick_prestage"],
+               max(mpre_err["torque_grav"]), times[("tick_prestage_masked", B_M)][1],
+               times[("tick_prestage_masked", B_M)][0], None, "libdwbc_tpu/wbc/fused.py:364"),
+        entry_("tick_qpchain_masked", mlaunches["tick_qpchain"],
+               max(max(mqp_err["cold.torque_cmd"]), max(mqp_err["warm.torque_cmd"])),
+               times[("tick_qpchain_masked", B_M)][1], times[("tick_qpchain_masked", B_M)][0],
+               None, "libdwbc_tpu/wbc/fused.py:364"),
     ]}
     print(json.dumps(record))
     print(gpu_line())

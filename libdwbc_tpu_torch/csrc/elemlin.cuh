@@ -246,6 +246,46 @@ DWBC_HD void complete_basis_tail(M<T> Ny, M<T> A, M<T> Q, M<T> R, int m, int k) 
   }
 }
 
+// Single-pass modified Gram-Schmidt over the columns of V (m×k), in place,
+// with rank dropout: a column whose residual norm is at most tol becomes
+// exact zeros (ops/elemlin.py::orthonormalize_drop).  A column that is
+// exactly zero stays exactly zero.
+template <typename T>
+DWBC_HD void orthonormalize_drop(M<T> V, int m, int k, T tol) {
+  for (int j = 0; j < k; ++j) {
+    for (int c = 0; c < j; ++c) {
+      T d = 0;
+      for (int i = 0; i < m; ++i) d += V(i, c) * V(i, j);
+      for (int i = 0; i < m; ++i) V(i, j) = V(i, j) - d * V(i, c);
+    }
+    T nn = 0;
+    for (int i = 0; i < m; ++i) nn += V(i, j) * V(i, j);
+    const T nrm = sqrt(nn);
+    const bool keep = nrm > tol;
+    for (int i = 0; i < m; ++i) V(i, j) = keep ? V(i, j) / nrm : (T)0;
+  }
+}
+
+// Shift the columns of V (m×k) whose norm exceeds tol to the left, in order
+// and in place (a column moves only into a slot already read); the tail
+// becomes exact zeros (ops/elemlin.py::compact_columns).  Returns their
+// count.
+template <typename T>
+DWBC_HD int compact_columns(M<T> V, int m, int k, T tol) {
+  int cnt = 0;
+  for (int j = 0; j < k; ++j) {
+    T nn = 0;
+    for (int i = 0; i < m; ++i) nn += V(i, j) * V(i, j);
+    if (!(sqrt(nn) > tol)) continue;
+    if (cnt != j)
+      for (int i = 0; i < m; ++i) V(i, cnt) = V(i, j);
+    ++cnt;
+  }
+  for (int j = cnt; j < k; ++j)
+    for (int i = 0; i < m; ++i) V(i, j) = (T)0;
+  return cnt;
+}
+
 // Thresholded pseudo-inverse X of a square Mm (n×n): MGS QR with drop_tol
 // 1e-7; rows with |R_ii| ≤ rcond·max|R_ii| become identity rows with a zero
 // right-hand side (a dead pivot gives a zero row of X).  Q, R scratch.

@@ -12,7 +12,14 @@
 // cold solves start from (0, 1) with a common step; an iteration freezes
 // once μ ≤ μ_tol, a step with a non-finite dx is skipped, λ is capped at
 // w_cap.  The same recurrence as libdwbc_tpu/ops/pallas_qp.py::_make_kernel
-// and libdwbc_tpu/ops/tick_kernel.py::TickProgram._ipm.
+// and libdwbc_tpu/ops/tick_kernel.py::TickProgram._ipm, with one addition in
+// the tick's diagonal-H form: a step is also skipped when the Gram's
+// Cholesky lost a pivot, i.e. one fell to the 1e-30 clamp or, in float32,
+// below 1e-6 of its diagonal entry before elimination.  In float32 near
+// convergence the Gram's entries reach λ/s ~ 1e6 and a pivot that should be
+// ~1 cancels to noise or ≤ 0; the step then moves x far from the optimum
+// while the gap stays small (seen on warm single-support lanes of the
+// masked tick).  A healthy float64 solve never reaches the clamp.
 #pragma once
 
 #include "tick_common.cuh"
@@ -180,8 +187,12 @@ DWBC_HD void ipm_iterate(const IPMWS<T>& w, M<T> H, V<T> g, V<T> x, V<T> lam,
           acc = acc + ((i < nt ? (T)1 : (T)0) + ridge);
         }
         w.L(i, j) = acc;
+        if (i == j) w.idg[i] = acc;               // the diagonal before elimination
       }
+    bool collapsed = false;
     for (int j = 0; j < n; ++j) {                 // right-looking, sqrt pivots
+      collapsed = collapsed || !(w.L(j, j) >= (T)1e-30) ||
+                  (f32 && w.L(j, j) < (T)1e-6 * w.idg[j]);
       T dj = sqrt(clamp_min(w.L(j, j), (T)1e-30));
       T inv_d = (T)1 / dj;
       w.idg[j] = inv_d;
@@ -212,7 +223,7 @@ DWBC_HD void ipm_iterate(const IPMWS<T>& w, M<T> H, V<T> g, V<T> x, V<T> lam,
       a_pc = live * vmin(alpha_max(w.s, w.ds, m), alpha_max(lam, w.dlam, m));
       a_dc = a_pc;
     }
-    bool ok = true;
+    bool ok = dense || !collapsed;
     for (int i = 0; i < n; ++i) ok = ok && isfinite(w.dx[i]);
     if (ok) {
       for (int i = 0; i < n; ++i) x[i] = x[i] + a_pc * w.dx[i];

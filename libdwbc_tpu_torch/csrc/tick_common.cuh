@@ -87,10 +87,13 @@ DWBC_HDI double rsqrt_(double x) { return 1.0 / sqrt(x); }
 //   amask[nbody,ndof] gravity[3] pt_link[npts] pt_off[npts,3]
 //   c_slot[nc] c_link[nc] c_blk[nc,10,6] spec_slot[2] spec_mode[2]
 //   tlim[mdof]
-// The configurations taken are the flagship's shape: 6D contacts, at most
-// NLEV_MAX task levels of one link task each, 6D or rotation.
+// The configurations taken are the flagship's shape: 6D contacts (in masked
+// mode a 6D candidate set), at most NLEV_MAX task levels of one link task
+// each, 6D or rotation.  Header slots 0-9 hold the dims, 10-11 the task
+// dofs per level, 12 the masked flag.
 constexpr int HDR = 32;
 constexpr int NLEV_MAX = 2;
+constexpr int H_MASKED = 12;
 constexpr int CROWS = 10;        // constraint rows of a 6D contact
 enum { SPEC_6D = 0, SPEC_ROT = 1 };
 
@@ -98,6 +101,7 @@ template <typename T>
 struct Tab {
   int nbody, ndof, mdof, npts, nc, cdof, cfree, krows, nlev, nq;
   int lev_t[NLEV_MAX];
+  bool masked;                   // a per-scenario contact mask picks the candidates
   const T *parent, *qidx, *owner, *axis, *xrot, *xtrans, *com, *inertia,
       *mass, *amask, *gravity, *pt_link, *pt_off, *c_slot, *c_link, *c_blk,
       *spec_slot, *spec_mode, *tlim;
@@ -107,6 +111,7 @@ struct Tab {
     nc = (int)t[4]; cdof = (int)t[5]; cfree = (int)t[6]; krows = (int)t[7];
     nlev = (int)t[8]; nq = (int)t[9];
     for (int h = 0; h < NLEV_MAX; ++h) lev_t[h] = (int)t[10 + h];
+    masked = t[H_MASKED] != (T)0;
     const T* o = t + HDR;
     parent = o;  o += nbody;
     qidx = o;    o += nbody;
@@ -138,12 +143,13 @@ struct Tab {
 };
 
 // ------------------------------------------ the prestage output ("pre")
-// Same order as ops/tick_cuda.py::pre_layout.
+// Same order as ops/tick_cuda.py::pre_layout.  Masked mode appends the
+// per-lane constraint-row mask (krows) and the active contact dof (1).
 template <typename T>
 struct Pre {
   V<T> tg, PC;
   M<T> Jbar_act, NwJw, Nt[NLEV_MAX], Atemp;
-  V<T> bA0, health;
+  V<T> bA0, health, crow, acdof;
   DWBC_HD Pre(Arena<T>& a, const Tab<T>& tb) {
     tg = a.vec(tb.mdof);
     PC = a.vec(tb.cdof);
@@ -153,6 +159,8 @@ struct Pre {
     Atemp = a.mat(tb.krows, tb.mdof);
     bA0 = a.vec(tb.krows);
     health = a.vec(1);
+    crow = tb.masked ? a.vec(tb.krows) : V<T>{nullptr, 0};
+    acdof = tb.masked ? a.vec(1) : V<T>{nullptr, 0};
   }
 };
 

@@ -2,13 +2,18 @@
 //
 // Replaces the first stage of the TPU kernel wbc/fused.py::FusedTick.
 // _run_pallas, i.e. libdwbc_tpu/ops/tick_kernel.py::TickProgram.prestage in
-// static mode: FK with a quaternion base (x, y, z at q[3:6], w at q[ndof]),
+// static and masked mode: FK with a quaternion base (x, y, z at q[3:6], w at q[ndof]),
 // dof frames, point jacobians, the world-origin composite-rigid-body mass
 // matrix (filled only for ancestor dof pairs), G = −A[0:3]ᵀg, A⁻¹, the
 // contact space (Mc, Λc, J̄c, P_C, rank health), the kernel basis V2
 // (complete_basis + qr_thin), the factored W-apply (Cholesky of Wfree+V2V2ᵀ
 // with a rank-cfree correction: W⁻¹ is never formed), NwJw (qr_pinv), τ_grav,
 // per-level JKT and Ntorque with the f32 relative ridge, and Atemp, bA0.
+// Masked mode (a per-scenario 0/1 mask over two 6D candidates): J_C rows ×
+// the mask, +1 on the inactive diagonal of Mc and Λc re-masked, the kernel
+// basis by orthonormalize_drop + compact_columns (exact zero columns for a
+// single-support lane), NwJw through the first (c_act − 6) active rows, and
+// the per-lane constraint-row mask and active contact dof as outputs.
 //
 // What bounds it on the H100: about 337k FLOP per scenario of serial small
 // dense factorisations, and the traffic of its intermediates (about 18k
@@ -28,8 +33,8 @@ template <typename T>
 struct PreWS {
   M<T> Rb, pb, axw, comw, ax, og, J, IC, S, A, Ainv, L, X, JC, JAinv, Mc,
       Lamc, Jbar, H6, Wf, Qb, Rres, Ny, V2T, M6, Qp, Rp, Pinv, v1, Jt, JtA,
-      JtAJc, JAN, Mt, Lam, Q, QT, WQt, VtB, QWQ, Jkt, JktLam, Pn, NN, Tmp;
-  V<T> idg, idgW, G, NCG;
+      JtAJc, JAN, Mt, Lam, Q, QT, WQt, VtB, QWQ, Jkt, JktLam, Pn, NN, Tmp, JbV;
+  V<T> idg, idgW, G, NCG, rm, live;
 
   DWBC_HD PreWS(Arena<T>& a, const Tab<T>& tb) {
     const int nb = tb.nbody, nd = tb.ndof, md = tb.mdof, cd = tb.cdof,
@@ -83,6 +88,9 @@ struct PreWS {
     Pn = a.mat(md, md);
     NN = a.mat(md, md);
     Tmp = a.mat(md, md);
+    rm = a.vec(cd);
+    JbV = a.mat(cd, cf);
+    live = a.vec(cf);
   }
 };
 
@@ -110,9 +118,11 @@ DWBC_HD void f32_ridge(M<T> Ms, int n) {
   for (int i = 0; i < n; ++i) Ms(i, i) = Ms(i, i) + (T)1e-4 * dmax;
 }
 
+// One lane; cmp is the lane's contact mask (nc, strided by B), read in
+// masked mode only.
 template <typename T>
-DWBC_HD void prestage_lane(const T* table, const T* qp, T* prep, T* wsp,
-                           long long B) {
+DWBC_HD void prestage_lane(const T* table, const T* qp, const T* cmp, T* prep,
+                           T* wsp, long long B) {
   const Tab<T> tb(table);
   const int nb = tb.nbody, nd = tb.ndof, md = tb.mdof, cd = tb.cdof,
             cf = tb.cfree;
@@ -306,16 +316,28 @@ DWBC_HD void prestage_lane(const T* table, const T* qp, T* prep, T* wsp,
 
   psd_inverse(w.Ainv, w.A, w.L, w.X, w.idg, nd);
 
-  // ---------------- contact jacobian rows (6D contacts: all six rows)
+  // ---------------- contact jacobian rows (6D contacts: all six rows;
+  // masked: times the candidate's 0/1 mask, so dead rows are exact zeros)
   for (int c = 0; c < tb.nc; ++c) {
     const int slot = (int)tb.c_slot[c];
-    for (int r = 0; r < 6; ++r)
-      for (int j = 0; j < nd; ++j) w.JC(6 * c + r, j) = w.J(6 * slot + r, j);
+    const T mk = tb.masked ? cmp[(long long)c * B] : (T)1;
+    for (int r = 0; r < 6; ++r) {
+      if (tb.masked) w.rm[6 * c + r] = mk;
+      for (int j = 0; j < nd; ++j)
+        w.JC(6 * c + r, j) = tb.masked ? w.J(6 * slot + r, j) * mk : w.J(6 * slot + r, j);
+    }
+  }
+  if (tb.masked) {          // the lane's active contact dof
+    T cact = 0;
+    for (int i = 0; i < cd; ++i) cact += w.rm[i];
+    pre.acdof[0] = cact;
   }
 
   // ---------------- contact space
   mm(w.JAinv, w.JC, w.Ainv, cd, nd, nd);
   mmT_sym(w.Mc, w.JAinv, w.JC, cd, nd);
+  if (tb.masked)            // +1 on the inactive diagonal: the active block inverts exactly
+    for (int i = 0; i < cd; ++i) w.Mc(i, i) = w.Mc(i, i) + ((T)1 - w.rm[i]);
   mTm_sym(w.H6, w.JC, w.JC, cd, 6);
   {
     T h1 = chol_health(w.Mc, w.L, w.idg, cd);
@@ -323,6 +345,9 @@ DWBC_HD void prestage_lane(const T* table, const T* qp, T* prep, T* wsp,
     pre.health[0] = vmin(h1, h2);
   }
   psd_inverse(w.Lamc, w.Mc, w.L, w.X, w.idg, cd);
+  if (tb.masked)
+    for (int i = 0; i < cd; ++i)
+      for (int j = 0; j < cd; ++j) w.Lamc(i, j) = w.Lamc(i, j) * w.rm[i] * w.rm[j];
   mm(w.Jbar, w.Lamc, w.JAinv, cd, cd, nd);
   for (int r = 0; r < cd; ++r) {
     T acc = w.Jbar(r, 0) * w.G[0];
@@ -342,10 +367,18 @@ DWBC_HD void prestage_lane(const T* table, const T* qp, T* prep, T* wsp,
       w.Wf(j, i) = w.Wf(i, j);
     }
 
-  // kernel basis V2 of the contact space and the factored W-apply
+  // kernel basis V2 of the contact space and the factored W-apply.  In a
+  // single-support lane the dead rows of J_C are exact zeros, so Q stays
+  // exactly zero there, Ny picks exact unit vectors on them, and the raw
+  // basis is exactly zero: orthonormalize_drop drops it to zero columns
   complete_basis_tail(w.Ny, w.JC, w.Qb, w.Rres, cd, 6);
   mTm(w.V2T, w.JC.sub(0, 6), w.Ny, cd, md, cf);
-  qr_thin(w.V2T, w.V2T, md, cf, (T)0);
+  if (tb.masked) {
+    orthonormalize_drop(w.V2T, md, cf, (T)1e-8);
+    compact_columns(w.V2T, md, cf, (T)1e-10);
+  } else {
+    qr_thin(w.V2T, w.V2T, md, cf, (T)0);
+  }
   for (int i = 0; i < md; ++i)
     for (int j = 0; j <= i; ++j) {
       T acc = w.V2T(i, 0) * w.V2T(j, 0);
@@ -353,9 +386,34 @@ DWBC_HD void prestage_lane(const T* table, const T* qp, T* prep, T* wsp,
       w.Wf(i, j) = w.Wf(i, j) + acc;
     }
   chol_factor(w.Wf, w.idgW, md);
-  mm(w.M6, w.Jbar.sub(0, 6), w.V2T, cf, md, cf);
+  if (!tb.masked) {
+    mm(w.M6, w.Jbar.sub(0, 6), w.V2T, cf, md, cf);
+  } else {
+    // the inner system against the first (c_act − 6) ACTIVE rows of J̄ᵀ: an
+    // integer prefix count gives row i_t of the t-th active row (the same
+    // selection as the plain version's |idx − t| < 0.5); rows and columns
+    // t ≥ c_act − 6 are dead and padded with identity
+    const T lim = pre.acdof[0] - (T)6;
+    for (int t = 0; t < cf; ++t) w.live[t] = (T)t < lim ? (T)1 : (T)0;
+    mm(w.JbV, w.Jbar.sub(0, 6), w.V2T, cd, md, cf);
+    for (int t = 0; t < cf; ++t)
+      for (int c = 0; c < cf; ++c) w.M6(t, c) = (T)0;
+    int cnt = 0;
+    for (int i = 0; i < cd; ++i) {
+      if (!(w.rm[i] > (T)0.5)) continue;
+      const int t = cnt++;
+      if (t < cf && w.live[t] != (T)0)
+        for (int c = 0; c < cf; ++c) w.M6(t, c) = w.JbV(i, c) * w.rm[i];
+    }
+    for (int t = 0; t < cf; ++t)
+      for (int c = 0; c < cf; ++c)
+        w.M6(t, c) = w.M6(t, c) * w.live[t] * w.live[c] + (t == c ? (T)1 - w.live[t] : (T)0);
+  }
   qr_pinv(w.Pinv, w.M6, w.Qp, w.Rp, cf, (T)1e-6);
   mm(pre.NwJw, w.V2T, w.Pinv, md, cf, cf);
+  if (tb.masked)
+    for (int i = 0; i < md; ++i)
+      for (int c = 0; c < cf; ++c) pre.NwJw(i, c) = pre.NwJw(i, c) * w.live[c];
 
   // τ_grav = W⁻¹·(A⁻¹[6:]·NCG)
   for (int i = 0; i < md; ++i) {
@@ -433,6 +491,9 @@ DWBC_HD void prestage_lane(const T* table, const T* qp, T* prep, T* wsp,
   }
   for (int r = 0; r < cd; ++r)
     for (int j = 0; j < md; ++j) pre.Jbar_act(r, j) = w.Jbar(r, 6 + j);
+  if (tb.masked)            // 6D candidates: every constraint row follows its contact
+    for (int c = 0; c < tb.nc; ++c)
+      for (int r = 0; r < CROWS; ++r) pre.crow[CROWS * c + r] = cmp[(long long)c * B];
 }
 
 template <typename T>
@@ -463,21 +524,24 @@ extern "C" long long dwbc_pre_elems(const float* table_host) {
 
 #ifdef __CUDACC__
 __global__ void __launch_bounds__(32)
-    tick_prestage_kernel(const float* table, const float* q, float* pre,
-                         float* ws, int B) {
+    tick_prestage_kernel(const float* table, const float* q, const float* cmask,
+                         float* pre, float* ws, int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;          // no padded lanes: a zero q would give NaNs
-  dwbc::prestage_lane<float>(table, q + b, pre + b, ws + b, (long long)B);
+  dwbc::prestage_lane<float>(table, q + b, cmask ? cmask + b : nullptr, pre + b,
+                             ws + b, (long long)B);
 }
 
-// q (nq, B), pre (pre_elems, B), ws (prestage_ws_elems, B): float32,
-// contiguous, on the device; launched on `stream`, no synchronisation.
+// q (nq, B), cmask (nc, B) in masked mode or null, pre (pre_elems, B), ws
+// (prestage_ws_elems, B): float32, contiguous, on the device; launched on
+// `stream`, no synchronisation.
 extern "C" int dwbc_tick_prestage(const float* table, const float* q,
-                                  float* pre, float* ws, int B, void* stream) {
+                                  const float* cmask, float* pre, float* ws, int B,
+                                  void* stream) {
   const int threads = 32;               // one warp per block: spread lanes over SMs
   const int blocks = (B + threads - 1) / threads;
   tick_prestage_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      table, q, pre, ws, B);
+      table, q, cmask, pre, ws, B);
   return (int)cudaGetLastError();
 }
 #endif

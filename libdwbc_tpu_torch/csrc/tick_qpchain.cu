@@ -3,11 +3,13 @@
 //
 // Replaces the second stage of the TPU kernel wbc/fused.py::FusedTick.
 // _run_pallas, i.e. libdwbc_tpu/ops/tick_kernel.py::TickProgram.qpchain and
-// TickProgram._ipm in static mode: per task level a one-sided Mehrotra
+// TickProgram._ipm in static and masked mode: per task level a one-sided Mehrotra
 // predictor-corrector IPM for min ½xᵀdiag(H)x s.t. Cx ≤ d (H = 1 on the task
 // block, 0 on the contact block; float32 ridge 1e-6), then the contact
 // redistribution QP.  The IPM itself is csrc/ipm.cuh, shared with the
-// standalone solver csrc/qp_solve.cu.
+// standalone solver csrc/qp_solve.cu.  Masked mode: the cone/ZMP rows of an
+// inactive candidate become 0·x ≤ 1, and a lane with at most 6 active
+// contact dof keeps the redistribution QP out of its gap and residual.
 //
 // What bounds it on the H100: per IPM iteration one Gram matrix (n²/2·m
 // FMAs, n ≤ 12, m = 86) and one n×n Cholesky, plus passes over the 53×n
@@ -55,20 +57,22 @@ DWBC_HD void ipm(const QPWS<T>& w, V<T> x, V<T> lam, int n, int nt, int me,
 }
 
 // Constraint rows of one QP: C = [blk; −Atemp·blk], d = [τlim − τ;
-// τlim + τ; Atemp·τ − bA0] with τ = w.tau_base.
+// τlim + τ; Atemp·τ − bA0] with τ = w.tau_base; masked: a row whose
+// crow_mask is 0 becomes 0·x ≤ 1.
 template <typename T>
 DWBC_HD void build_rows(const Tab<T>& tb, const QPWS<T>& w, const Pre<T>& pre,
                         int nv) {
   const int md = tb.mdof;
   for (int r = 0; r < tb.krows; ++r) {
+    const T cr = tb.masked ? pre.crow[r] : (T)1;
     for (int c = 0; c < nv; ++c) {
       T acc = pre.Atemp(r, 0) * w.C(0, c);
       for (int i = 1; i < md; ++i) acc += pre.Atemp(r, i) * w.C(i, c);
-      w.C(md + r, c) = -acc;
+      w.C(md + r, c) = tb.masked ? -acc * cr : -acc;
     }
     T acc = pre.Atemp(r, 0) * w.tau_base[0];
     for (int i = 1; i < md; ++i) acc += pre.Atemp(r, i) * w.tau_base[i];
-    w.d[2 * md + r] = acc - pre.bA0[r];
+    w.d[2 * md + r] = cr > (T)0.5 ? acc - pre.bA0[r] : (T)1;
   }
   for (int i = 0; i < md; ++i) {
     w.d[i] = tb.tlim[i] - w.tau_base[i];
@@ -148,6 +152,11 @@ DWBC_HD void qpchain_lane(const T* table, const T* prep, const T* fsp,
       T acc = pre.NwJw(i, 0) * wo.x[h][0];
       for (int c = 1; c < cf; ++c) acc += pre.NwJw(i, c) * wo.x[h][c];
       w.tau_contact[i] = w.tau_contact[i] + acc;
+    }
+    if (tb.masked) {        // no redistribution problem unless active_cdof > 6
+      const T live = pre.acdof[0] > (T)6.5 ? (T)1 : (T)0;
+      g = g * live;
+      p = p * live;
     }
     gap = vmax(gap, g);
     pres = vmax(pres, p);

@@ -90,7 +90,7 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [p]
         fn.restype = ll
-    lib.dwbc_tick_prestage.argtypes = [p, p, p, p, i, p]
+    lib.dwbc_tick_prestage.argtypes = [p, p, p, p, p, i, p]
     lib.dwbc_tick_prestage.restype = i
     lib.dwbc_tick_qpchain.argtypes = [p, p, p, p, p, p, p, i, i, p]
     lib.dwbc_tick_qpchain.restype = i

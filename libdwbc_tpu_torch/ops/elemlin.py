@@ -304,6 +304,34 @@ def complete_basis(A):
     return torch.cat([Q, torch.stack(chosen, 1)], 1)
 
 
+def orthonormalize_drop(V, tol=1e-8):
+    """Single-pass modified Gram-Schmidt over the columns of (n,k)+bt with
+    rank dropout: a column whose residual norm is at most ``tol`` comes back
+    as exact zeros (a rank-deficient masked kernel basis gives zeros, not
+    normalised noise)."""
+    out = []
+    for j in range(V.shape[1]):
+        v = V[:, j]
+        for u in out:
+            v = v - dot(u, v)[None] * u
+        nrm = torch.sqrt(dot(v, v))[None]
+        keep = nrm > tol
+        out.append(torch.where(keep, v / torch.where(keep, nrm, 1.0), 0.0))
+    return torch.stack(out, 1)
+
+
+def compact_columns(V, tol=1e-10):
+    """Shift the nonzero columns of (n,k)+bt to the left, in order, through a
+    0/1 selection built from prefix sums (no gather); the tail is exact
+    zeros.  Returns (V_compacted, number of nonzero columns (*bt))."""
+    k = V.shape[1]
+    nz = (torch.sqrt((V * V).sum(0)) > tol).to(V.dtype)      # (k,)+bt
+    pos = torch.cumsum(nz, 0) - 1.0                            # target slot of column j
+    t = _bt(torch.arange(k, dtype=V.dtype, device=V.device), V.ndim - 2)
+    sel = nz[:, None] * ((pos[:, None] - t[None]).abs() < 0.5).to(V.dtype)
+    return torch.einsum("ij...,jt...->it...", V, sel), nz.sum(0)
+
+
 def qr_pinv(M, rcond=1e-6):
     """Thresholded pseudo-inverse of a small square (n,n)+bt matrix: MGS QR
     (drop_tol 1e-7), rows whose |R_ii| ≤ rcond·max|R_ii| become identity

@@ -30,6 +30,7 @@ HDR = 32
 H_NBODY, H_NDOF, H_MDOF, H_NPTS, H_NC, H_CDOF, H_CFREE, H_KROWS, H_NLEV, H_NQ = range(10)
 H_LEV_T = 10            # NLEV_MAX slots: task dofs per level
 NLEV_MAX = 2
+H_MASKED = 12           # 1: the padded candidate layout with a contact mask
 SPEC_6D, SPEC_ROT = 0, 1
 
 # Max abs error of the kernels against their plain versions on the serving
@@ -41,16 +42,26 @@ PRE_TOL = {"torque_grav": 2e-2, "P_C": 5e-3, "Jbar_act": 5e-4, "NwJw": 5e-5,
            "Ntorques": 8e-2, "Atemp": 2e-4, "bA0": 5e-3, "health": 3e-6}
 QP_TOL = {"torque_grav": 1e-6, "torque_task": 2e-5, "torque_contact": 1e-6,
           "torque_cmd": 4e-5, "contact_force": 2e-3, "health": 1e-6}
+# The same limits of the masked kernels, per support hypothesis, on the
+# masked sweep's inputs (chip_smoke.py: its first 1024 lanes, seed 0), about
+# ten times what an H100 showed.  A single-support lane's float32 prestage
+# is itself ~1e-2 Nm from float64 in τ_grav, so that limit stops at
+# bench.py's 0.05 Nm truth guard.
+PRE_TOL_MASKED = {"torque_grav": 5e-2, "P_C": 1e-2, "Jbar_act": 5e-4, "NwJw": 5e-5,
+                  "Ntorques": 1e-1, "Atemp": 2e-4, "bA0": 6e-3, "health": 3e-6}
+QP_TOL_MASKED = {"torque_grav": 1e-6, "torque_task": 4e-4, "torque_contact": 1e-6,
+                 "torque_cmd": 5e-4, "contact_force": 4e-3, "health": 1e-6}
 
 
 def kernel_unsupported(plan) -> str | None:
     """Why the CUDA kernels cannot run this plan, or None if they can: they
-    take the flagship's shape (two 6D contacts, a torque limit, at most
-    NLEV_MAX levels of one 6D or rotation link task each)."""
+    take the flagship's shape (two 6D contacts, static or as the masked
+    candidate set, a torque limit, at most NLEV_MAX levels of one 6D or
+    rotation link task each)."""
     cfg = plan.cfg
     if len(cfg.contacts) != 2 or any(c.contact_type != T.CONTACT_6D
                                      for c in cfg.contacts):
-        return "the CUDA tick takes two 6D contacts"
+        return "the CUDA tick takes two 6D contacts (masked mode: two 6D candidates)"
     if plan.tlim is None:
         return "the CUDA tick needs a torque limit"
     if len(plan.task_slots) > NLEV_MAX:
@@ -74,6 +85,7 @@ def kernel_table(plan) -> np.ndarray:
          H_NLEV, H_NQ]] = [plan.nbody, plan.ndof, plan.mdof, len(plan.points),
                            len(plan.cfg.contacts), plan.cdof, plan.cfree,
                            plan.k_rows, len(plan.task_slots), plan.nq]
+    hdr[H_MASKED] = float(plan.masked)
     spec_slot = np.zeros(NLEV_MAX)
     spec_mode = np.zeros(NLEV_MAX)
     for h, [(_, slot, mode)] in enumerate(plan.task_slots):
@@ -101,6 +113,8 @@ def pre_layout(plan):
            ("Jbar_act", (plan.cdof, plan.mdof)), ("NwJw", (plan.mdof, plan.cfree))]
     lay += [(f"Ntorques.{h}", (plan.mdof, t)) for h, t in enumerate(plan.level_tdofs)]
     lay += [("Atemp", (plan.k_rows, plan.mdof)), ("bA0", (plan.k_rows,)), ("health", ())]
+    if plan.masked:
+        lay += [("crow_mask", (plan.k_rows,)), ("active_cdof", ())]
     return lay
 
 
@@ -184,15 +198,21 @@ class TickKernels(nn.Module):
             raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
     # --------------------------------------------------------- packed API
-    def prestage_packed(self, q):
-        """q (nq, B) float32 on the device → prestage buffer (pre_elems, B)."""
+    def prestage_packed(self, q, cmask=None):
+        """q (nq, B) float32 on the device, and in masked mode the 0/1
+        contact mask cmask (nc, B) → prestage buffer (pre_elems, B)."""
         B = q.shape[-1]
         self._check("q", q, (self.plan.nq, B))
+        if (cmask is not None) != self.plan.masked:
+            raise ValueError("cmask goes with a masked plan, and only there")
+        if cmask is not None:
+            self._check("cmask", cmask, (len(self.plan.cfg.contacts), B))
         lib, sz = self._lib_and_sizes()
         pre = torch.empty((sz["pre"], B), dtype=torch.float32, device=q.device)
         ws = torch.empty((sz["ws_pre"], B), dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dwbc_tick_prestage(self.table.data_ptr(), q.data_ptr(),
+                                    None if cmask is None else cmask.data_ptr(),
                                     pre.data_ptr(), ws.data_ptr(), B, stream)
         self._raise_on(rc, "tick_prestage")
         self.launches["tick_prestage"] += 1
@@ -252,11 +272,11 @@ class TickKernels(nn.Module):
                                 for h in range(len(self.plan.qp_dims)))
         return res
 
-    def prestage(self, q):
+    def prestage(self, q, cmask=None):
         """tick_prestage; the plain prestage for a CPU tensor."""
         if q.device.type == "cpu":
-            return self.prog.prestage(q)
-        return self.unpack_pre(self.prestage_packed(q))
+            return self.prog.prestage(q, cmask)
+        return self.unpack_pre(self.prestage_packed(q, cmask))
 
     def qpchain(self, pre, fstars, warm=None, iters=25):
         """tick_qpchain; the plain qpchain for CPU tensors."""
@@ -265,9 +285,9 @@ class TickKernels(nn.Module):
         return self.unpack_result(*self.qpchain_packed(self.pack_pre(pre), fstars,
                                                        warm, iters))
 
-    def tick(self, q, fstars, warm=None, iters=25):
+    def tick(self, q, fstars, warm=None, iters=25, cmask=None):
         """Both kernels back to back; the plain tick for a CPU tensor."""
         if q.device.type == "cpu":
-            return self.prog.tick(q, fstars, warm=warm, iters=iters)
-        return self.unpack_result(*self.qpchain_packed(self.prestage_packed(q),
+            return self.prog.tick(q, fstars, warm=warm, iters=iters, cmask=cmask)
+        return self.unpack_result(*self.qpchain_packed(self.prestage_packed(q, cmask),
                                                        fstars, warm, iters))

@@ -1,10 +1,11 @@
 """The fused WBC tick, element-leading, in plain PyTorch: q → τ.
 
-Counterpart of ``libdwbc_tpu/ops/tick_kernel.py::TickProgram`` in static
-mode (no masked contact sets, no on-device servo).  It is the plain version
-of the two CUDA kernels in ``csrc/`` and has the same stage boundary:
+Counterpart of ``libdwbc_tpu/ops/tick_kernel.py::TickProgram``, static and
+masked (a candidate contact set with a per-scenario contact mask), without
+the on-device servo.  It is the plain version of the two CUDA kernels in
+``csrc/`` and has the same stage boundary:
 
-* ``prestage(q) -> dict``: forward kinematics with a quaternion base, dof
+* ``prestage(q, cmask) -> dict``: forward kinematics with a quaternion base, dof
   frames, point jacobians, the world-origin composite-rigid-body mass matrix
   A, G = −A[0:3]ᵀg, A⁻¹, the contact space (J_C, Mc, Λc, J̄c, P_C, rank
   health), the kernel basis V2, the factored W-apply, NwJw, τ_grav, the
@@ -71,17 +72,35 @@ def np_constraint_block(c):
     raise ValueError(c.contact_type)
 
 
+_ROW_MASK = {               # live rows of a candidate's 6 padded jacobian rows
+    T.CONTACT_6D: np.ones(6),
+    T.CONTACT_POINT: np.array([1.0, 1, 1, 0, 0, 0]),
+    T.CONTACT_LINE: np.array([1.0, 1, 1, 0, 1, 1]),   # local-x moment dropped
+}
+_CROW_MASK = {              # live rows of a candidate's padded [ZMP(4); cone(6)]
+    T.CONTACT_6D: np.ones(10),
+    T.CONTACT_POINT: np.array([0.0, 0, 0, 0, 1, 1, 1, 1, 1, 1]),
+    T.CONTACT_LINE: np.array([1.0, 1, 0, 0, 1, 1, 1, 1, 1, 1]),
+}
+
+
 class TickPlan:
     """The static plan of one tick configuration (numpy only): the tree,
     the point-jacobian slots (contacts first, then task points), the
-    contact and constraint dims, and the QP dims per level."""
+    contact and constraint dims, and the QP dims per level.
 
-    def __init__(self, model, cfg):
+    masked=True: ``cfg.contacts`` is a candidate set, padded to 6 jacobian
+    rows and 10 constraint rows each, and a per-scenario contact mask picks
+    the active candidates (``row_mask`` and ``crow_mask`` are the static
+    per-type masks of those padded rows)."""
+
+    def __init__(self, model, cfg, masked=False):
         m = model
         if not m.floating:
             raise ValueError("fused tick: floating-base models only")
         self.model = model
         self.cfg = cfg
+        self.masked = masked
         self.nbody = int(m.nbody)
         self.ndof = int(m.ndof)
         self.nq = int(m.nq)
@@ -134,9 +153,23 @@ class TickPlan:
         self.level_tdofs = [sum(6 if mode in _SIX else 3 for _, _, mode in lv)
                             for lv in self.task_slots]
 
-        self.cdof = sum(c.contact_dof for c in cfg.contacts)
+        if masked:
+            # padded layout: every candidate gets 6 jacobian rows and the
+            # full (10, 6) [ZMP; cone] block; per-type dead rows are masked
+            # statically, inactive candidates per scenario
+            nc = len(cfg.contacts)
+            self.cdof = 6 * nc
+            self.const_blocks = [np.concatenate([
+                _np_zmp_block(c.plane_x, c.plane_y),
+                _np_force_block(c.friction_ratio, c.friction_ratio_z)], 0)
+                for c in cfg.contacts]
+            self.row_mask = np.concatenate([_ROW_MASK[c.contact_type] for c in cfg.contacts])
+            self.crow_mask = np.concatenate([_CROW_MASK[c.contact_type]
+                                             for c in cfg.contacts])
+        else:
+            self.cdof = sum(c.contact_dof for c in cfg.contacts)
+            self.const_blocks = [np_constraint_block(c) for c in cfg.contacts]
         self.cfree = max(self.cdof - 6, 0)
-        self.const_blocks = [np_constraint_block(c) for c in cfg.contacts]
         self.k_rows = sum(b.shape[0] for b in self.const_blocks)
         self.tlim = (None if cfg.torque_limit is None
                      else np.asarray(cfg.torque_limit, np.float64))
@@ -150,21 +183,25 @@ class TickPlan:
 
 
 class TickProgram(nn.Module):
-    """Plain element-leading tick for one static configuration.  The model's
-    constant tables are buffers in ``dtype`` on ``device``."""
+    """Plain element-leading tick for one configuration.  The model's
+    constant tables are buffers in ``dtype`` on ``device``.  masked=True:
+    the multi-contact-mode tick over a candidate set (see ``TickPlan``)."""
 
-    def __init__(self, model, cfg, device, dtype):
+    def __init__(self, model, cfg, device, dtype, masked=False):
         super().__init__()
         from ..convert import tick_tables
 
-        self.plan = TickPlan(model, cfg)
+        self.plan = TickPlan(model, cfg, masked=masked)
         self.dtype = dtype
         for name, t in tick_tables(model, cfg, device, dtype).items():
             self.register_buffer(name, t, persistent=False)
 
     # ----------------------------------------------------------- prestage
-    def prestage(self, q):
-        """q (nq,)+bt → dict of what the QP chain and the result need."""
+    def prestage(self, q, cmask=None):
+        """q (nq,)+bt → dict of what the QP chain and the result need.
+        cmask (nc,)+bt: per-scenario 0/1 activity of each candidate contact
+        (masked mode only); the dict then also holds ``crow_mask``
+        (k_rows,)+bt and ``active_cdof`` (*bt)."""
         P = self.plan
         dtype = q.dtype
         f32 = dtype == torch.float32
@@ -293,27 +330,38 @@ class TickProgram(nn.Module):
                 xs_[i2] = acc / U[i2, i2][None]
             out["Jcom_total"] = torch.cat([A[0:3] / M, torch.stack(xs_, 0)], 0)
 
-        # ---------------- contact jacobian rows (per contact type)
+        # ---------------- contact jacobian rows (per contact type; masked:
+        # 6 padded rows per candidate, LINE moment rows contact-local so the
+        # statically dead row is the local-x moment)
         Jc_rows = []
         for slot, c in zip(P.contact_slots, P.cfg.contacts):
             J6 = J_pts[slot]
-            if c.contact_type == T.CONTACT_6D:
-                Jc_rows.append(J6)
-            elif c.contact_type == T.CONTACT_POINT:
+            if c.contact_type == T.CONTACT_LINE:
+                Jloc = el.mm(el.transpose(R[c.link]), J6[3:6])
+                Jc_rows.append(torch.cat([J6[0:3], Jloc if P.masked else Jloc[1:3]], 0))
+            elif c.contact_type == T.CONTACT_POINT and not P.masked:
                 Jc_rows.append(J6[0:3])
             else:
-                Jloc = el.mm(el.transpose(R[c.link]), J6[3:6])
-                Jc_rows.append(torch.cat([J6[0:3], Jloc[1:3]], 0))
+                Jc_rows.append(J6)
         J_C = torch.cat(Jc_rows, 0)                      # (cdof, ndof)+bt
+        row_mask = None
+        if P.masked:
+            row_mask = torch.repeat_interleave(cmask, 6, 0) * c_(torch.as_tensor(P.row_mask))
+            J_C = J_C * row_mask[:, None]
 
         # ---------------- contact space
         JAinv = el.mm(J_C, A_inv)
         Mc = el.mmT_sym(JAinv, J_C)
+        if P.masked:
+            # +1 on the inactive diagonal: the active block inverts exactly
+            Mc = el.diag_add(Mc, list(1.0 - row_mask))
         health = torch.minimum(
             el.chol_health(Mc),
             el.chol_health(el.mTm_sym(J_C[:, 0:6], J_C[:, 0:6])),
         )
         Lambda_c = el.psd_inverse(Mc)
+        if P.masked:
+            Lambda_c = Lambda_c * row_mask[:, None] * row_mask[None]
         Jbar = el.mm(Lambda_c, JAinv)                    # J̄_cᵀ (cdof, ndof)+bt
         P_C = el.mv(Jbar, G)
         NCG = G - el.mTv(J_C, P_C)
@@ -322,11 +370,30 @@ class TickProgram(nn.Module):
         # W⁻¹ is never formed: it is applied through the Cholesky factor of
         # Wfree + V2V2ᵀ with a rank-cfree correction
         V2T = None
-        if P.cfree > 0:
+        if P.cfree > 0 and not P.masked:
             Ny = el.complete_basis(J_C[:, 0:6])[:, 6:]   # (cdof, cfree)+bt
             V2T = el.qr_thin(el.mTm(J_C[:, 6:], Ny))     # (mdof, cfree)+bt
             L_W, idg_W = el.chol_factor(Wfree + el.mmT_sym(V2T, V2T))
             NwJw = el.mm(V2T, el.qr_pinv(el.mm(Jbar[0:P.cfree, 6:], V2T)))
+        elif P.cfree > 0:
+            # masked kernel basis: rank active_cdof − 6 ≤ cfree; the dead
+            # directions are exact zero columns, compacted to the right
+            Ny = el.complete_basis(J_C[:, 0:6])[:, 6:]
+            V2T, _ = el.compact_columns(el.orthonormalize_drop(el.mTm(J_C[:, 6:], Ny)))
+            L_W, idg_W = el.chol_factor(Wfree + el.mmT_sym(V2T, V2T))
+            # NwJw normalises against the first (active_cdof − 6) ACTIVE rows
+            # of J̄ᵀ: sel[t, i] = 1 iff row i is the t-th active row and
+            # t < active_cdof − 6; the inner system's dead rows and columns
+            # are padded with identity
+            lim = row_mask.sum(0) - 6.0
+            idx = torch.cumsum(row_mask, 0) - 1.0        # (# active rows ≤ i) − 1
+            t = el._bt(torch.arange(P.cfree, dtype=dtype, device=q.device), nb)
+            live = (t < lim[None]).to(dtype)             # (cfree,)+bt
+            sel = (row_mask[None] * ((idx[None] - t[:, None]).abs() < 0.5).to(dtype)
+                   * live[:, None])                      # (cfree, cdof)+bt
+            inner = el.mm(sel, el.mm(Jbar[:, 6:], V2T)) * live[:, None] * live[None]
+            inner = el.diag_add(inner, list(1.0 - live))
+            NwJw = el.mm(V2T, el.qr_pinv(inner)) * live[None]
         else:
             L_W, idg_W = el.chol_factor(Wfree)
             NwJw = None
@@ -376,13 +443,16 @@ class TickProgram(nn.Module):
         for k, c in enumerate(P.cfg.contacts):
             blk = P.const_blocks[k]
             RT = el.transpose(R[c.link])
-            if c.contact_type == T.CONTACT_6D:
-                CMi = torch.cat([el.mm_sd(blk[:, 0:3], RT), el.mm_sd(blk[:, 3:6], RT)], 1)
-            elif c.contact_type == T.CONTACT_POINT:
+            if c.contact_type == T.CONTACT_LINE:
+                # the moment rows of J_C are already contact-local: they pass
+                # through (masked: all three, of which local x is dead)
+                CMi = torch.cat([el.mm_sd(blk[:, 0:3], RT),
+                                 el.smat(blk[:, 3:6] if P.masked else blk[:, 3:5], zero)], 1)
+            elif c.contact_type == T.CONTACT_POINT and not P.masked:
                 CMi = el.mm_sd(blk, RT)
-            else:  # LINE: the moment columns pass through
-                CMi = torch.cat([el.mm_sd(blk[:, 0:3], RT), el.smat(blk[:, 3:5], zero)], 1)
-            dd = c.contact_dof
+            else:
+                CMi = torch.cat([el.mm_sd(blk[:, 0:3], RT), el.mm_sd(blk[:, 3:6], RT)], 1)
+            dd = 6 if P.masked else c.contact_dof
             Atemp_rows.append(el.mm(CMi, Jbar[r:r + dd, 6:]))
             bA0_rows.append(el.mv(CMi, P_C[r:r + dd]))
             r += dd
@@ -397,6 +467,12 @@ class TickProgram(nn.Module):
             bA0=torch.cat(bA0_rows, 0),                  # (k_rows,)+bt
             health=health,
         )
+        if P.masked:
+            out["crow_mask"] = (torch.repeat_interleave(cmask, 10, 0)
+                                * c_(torch.as_tensor(P.crow_mask)))
+            # per-lane active contact dof: the reference runs the
+            # redistribution QP only when it exceeds 6
+            out["active_cdof"] = row_mask.sum(0)
         return out
 
     # ------------------------------------------------------------ the IPM
@@ -430,11 +506,18 @@ class TickProgram(nn.Module):
             return el.mTv(C, fold(v, -1.0))
 
         def chol_d(K):
-            """Right-looking Cholesky, sqrt pivots clamped at 1e-30."""
+            """Right-looking Cholesky, sqrt pivots clamped at 1e-30; also,
+            per lane, whether a pivot was lost: fell to the clamp, or at
+            float32 below 1e-6 of its diagonal entry before elimination."""
             L = torch.zeros_like(K)
             inv_diag = []
             S = K
+            collapsed = torch.zeros_like(K[0, 0], dtype=torch.bool)
             for j in range(n):
+                lost = ~(S[0, 0] >= 1e-30)
+                if f32:
+                    lost = lost | (S[0, 0] < 1e-6 * K[j, j])
+                collapsed = collapsed | lost
                 dj = torch.sqrt(torch.clamp_min(S[0, 0], 1e-30))
                 inv_d = 1.0 / dj
                 col = torch.cat([dj[None], S[1:, 0] * inv_d[None]], 0)
@@ -443,7 +526,7 @@ class TickProgram(nn.Module):
                     ct = col[1:]
                     S = S[1:, 1:] - ct[:, None] * ct[None]
                 inv_diag.append(inv_d)
-            return L, torch.stack(inv_diag, 0)
+            return L, torch.stack(inv_diag, 0), collapsed
 
         def cho_solve_vec(L, inv_diag, b):
             return el.cho_solve_mat(L, inv_diag, b[:, None])[:, 0]
@@ -454,11 +537,11 @@ class TickProgram(nn.Module):
             r_p = matvec_C(x) + s_ - d
             w = torch.clamp(lam * inv_s, 0.0, w_cap)
             K = el.diag_add(el.mTm(C * fold(w, 1.0)[:, None], C), Hr_list)
-            L, inv_diag = chol_d(K)
-            return inv_s, r_d, r_p, w, L, inv_diag
+            L, inv_diag, collapsed = chol_d(K)
+            return inv_s, r_d, r_p, w, L, inv_diag, collapsed
 
         def newton(fac, s_, lam, sigma_mu):
-            inv_s, r_d, r_p, w, L, inv_diag = fac
+            inv_s, r_d, r_p, w, L, inv_diag, _ = fac
             r_c = s_ * lam - sigma_mu
             rhs = -r_d - matvec_CT(w * r_p - r_c * inv_s)
             dx = cho_solve_vec(L, inv_diag, rhs)
@@ -500,7 +583,12 @@ class TickProgram(nn.Module):
             else:
                 a_pc = live * torch.minimum(alpha_max(s_, ds), alpha_max(lam, dlam))
                 a_dc = a_pc
-            ok = (dx * 0.0).sum(0) == 0.0               # skip a non-finite step
+            # skip a non-finite step, and one from a Gram factorization that
+            # lost a pivot: in float32 near convergence λ/s ~ 1e6 cancels a
+            # pivot of ~1 to noise or ≤ 0, and the step then moves x far from
+            # the optimum at a small gap (warm single-support masked lanes).
+            # A healthy float64 solve never reaches the clamp
+            ok = ((dx * 0.0).sum(0) == 0.0) & ~fac[6]
             x = torch.where(ok, x + a_pc[None] * dx, x)
             s_ = torch.where(ok, s_ + a_pc[None] * ds, s_)
             # dual cap: keeps gap and the warm carry finite on ε-infeasible rows
@@ -526,10 +614,16 @@ class TickProgram(nn.Module):
         tlim = (self.tlim.to(tg.dtype).reshape((-1,) + (1,) * (tg.ndim - 1))
                 if use_lim else None)
 
+        crow = pre.get("crow_mask")
+
         def rows(blk, tau):
-            """Stored constraint rows [blk; −Atemp·blk] and bounds."""
+            """Stored constraint rows [blk; −Atemp·blk] and bounds; masked:
+            the rows of inactive candidates become 0·x ≤ 1."""
             D = -el.mm(Atemp, blk)
             ub_c = el.mv(Atemp, tau) - bA0
+            if crow is not None:
+                D = D * crow[:, None]
+                ub_c = torch.where(crow > 0.5, ub_c, torch.ones_like(ub_c))
             if not use_lim:
                 return D, ub_c
             d = torch.cat([tlim - tau, tlim + tau, ub_c], 0)
@@ -564,6 +658,13 @@ class TickProgram(nn.Module):
                                           mirror)
             warm_out.append((x, lam))
             tau_contact = tau_contact + el.mv(NwJw, x)
+            if crow is not None:
+                # a single-support lane has no redistribution problem (the
+                # reference skips the QP unless active_cdof > 6): the padded
+                # QP still runs, but its ε-infeasible dead rows must not
+                # reach the lane's diagnostics
+                live_redis = (pre["active_cdof"] > 6.5).to(g_.dtype)
+                g_, p_ = g_ * live_redis, p_ * live_redis
             gap = torch.maximum(gap, g_)
             pres = torch.maximum(pres, p_)
 
@@ -580,6 +681,9 @@ class TickProgram(nn.Module):
             warm_out=tuple(warm_out),
         )
 
-    def tick(self, q, fstars, warm=None, iters=25):
-        """Full tick, element-leading: q (nq,)+bt → result dict."""
-        return self.qpchain(self.prestage(q), fstars, warm=warm, iters=iters)
+    def tick(self, q, fstars, warm=None, iters=25, cmask=None):
+        """Full tick, element-leading: q (nq,)+bt → result dict.  cmask
+        (nc,)+bt is required in masked mode and refused otherwise."""
+        if (cmask is not None) != self.plan.masked:
+            raise ValueError("a contact mask goes with masked mode, and only there")
+        return self.qpchain(self.prestage(q, cmask), fstars, warm=warm, iters=iters)

@@ -1,11 +1,14 @@
 """FusedTick: the whole WBC tick as two CUDA kernel launches.
 
-Counterpart of ``libdwbc_tpu/wbc/fused.py::FusedTick`` in static mode (no
-masked contact sets, no servo): the same ``_tick_impl`` / ``init_warm``
-serving contract and the same warm-state shapes, with batch-major inputs and
-results.  ``backend="cuda"`` runs ``tick_prestage`` then ``tick_qpchain``
-(``ops/tick_cuda.py``); ``backend="torch"`` runs the plain element-leading
-program (``ops/tick_kernel.py``) on any device.
+Counterpart of ``libdwbc_tpu/wbc/fused.py::FusedTick`` without the servo:
+the same ``_tick_impl`` / ``init_warm`` serving contract and the same
+warm-state shapes, with batch-major inputs and results.  ``masked=True`` is
+the multi-contact-mode tick: ``cfg.contacts`` is a candidate set and each
+call takes a per-scenario ``contact_mask`` (the ``MaskedTick`` signature, so
+``make_control_loop`` drives either).  ``backend="cuda"`` runs
+``tick_prestage`` then ``tick_qpchain`` (``ops/tick_cuda.py``);
+``backend="torch"`` runs the plain element-leading program
+(``ops/tick_kernel.py``) on any device.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ class FusedTick(nn.Module):
     """One WBC tick for a fixed configuration; the model's constant tables
     are buffers on ``device``."""
 
-    def __init__(self, model, cfg, device, dtype=torch.float32, backend="cuda"):
+    def __init__(self, model, cfg, device, dtype=torch.float32, backend="cuda",
+                 masked=False):
         super().__init__()
         device = torch.device(device)
         if backend not in ("torch", "cuda"):
@@ -38,7 +42,8 @@ class FusedTick(nn.Module):
         self.cfg = cfg
         self.dtype = dtype
         self.backend = backend
-        self.prog = TickProgram(model, cfg, device, dtype)
+        self.masked = masked
+        self.prog = TickProgram(model, cfg, device, dtype, masked=masked)
         if backend == "cuda":
             from ..ops.tick_cuda import TickKernels
 
@@ -57,11 +62,14 @@ class FusedTick(nn.Module):
             for nv, rows in self.prog.plan.qp_dims
         )
 
-    def _tick_impl(self, q, qdot, fstars, warm=None, qp_iters=None):
-        """q (B, nq) or (nq,), f* per level (B, t) or (t,), warm per QP
-        (x, λ) or None → TickResult, and the warm state out when warm was
-        given.  qdot is accepted for interface parity; the tick compensates
-        gravity, not Coriolis, and runs no servo."""
+    def _tick_impl(self, q, qdot, fstars, contact_mask=None, warm=None, qp_iters=None):
+        """q (B, nq) or (nq,), f* per level (B, t) or (t,), contact_mask
+        (B, nc) or (nc,) in masked mode (a 1-D mask serves the whole batch),
+        warm per QP (x, λ) or None → TickResult, and the warm state out when
+        warm was given.  qdot is accepted for interface parity; the tick
+        compensates gravity, not Coriolis, and runs no servo."""
+        if (contact_mask is not None) != self.masked:
+            raise ValueError("contact_mask goes with FusedTick(masked=True), and only there")
         iters = self.cfg.qp_iters if qp_iters is None else qp_iters
 
         def as_t(x):
@@ -77,11 +85,19 @@ class FusedTick(nn.Module):
                 warm = tuple((as_t(x)[None], as_t(l)[None]) for x, l in warm)
         q_el = q.T.contiguous()
         fs_el = [f.T.contiguous() for f in fstars]
+        cm_el = None
+        if self.masked:
+            cmask = as_t(contact_mask)
+            if cmask.ndim == 1:
+                cmask = cmask[:, None].expand(cmask.shape[0], q_el.shape[1])
+            else:
+                cmask = cmask.T
+            cm_el = cmask.contiguous()
         w_el = None
         if warm is not None:
             w_el = [(as_t(x).T.contiguous(), as_t(l).T.contiguous()) for x, l in warm]
         ticker = self.kernels if self.backend == "cuda" else self.prog
-        out = ticker.tick(q_el, fs_el, warm=w_el, iters=iters)
+        out = ticker.tick(q_el, fs_el, warm=w_el, iters=iters, cmask=cm_el)
 
         def bm(t):
             return t.movedim(-1, 0)
@@ -104,5 +120,5 @@ class FusedTick(nn.Module):
             wout = tuple((x[0], l[0]) for x, l in wout)
         return (result, wout) if warm is not None else result
 
-    def forward(self, q, qdot, fstars, warm=None, qp_iters=None):
-        return self._tick_impl(q, qdot, fstars, warm=warm, qp_iters=qp_iters)
+    def forward(self, q, qdot, fstars, contact_mask=None, warm=None, qp_iters=None):
+        return self._tick_impl(q, qdot, fstars, contact_mask, warm=warm, qp_iters=qp_iters)

@@ -10,8 +10,10 @@
 
 The ± torque-limit rows come as a mirrored pair over the m actuated dofs,
 so ``mirror=m`` is passed to the solver (the ``qp_solve`` kernel folds
-them).  The JAX module's ``constraint_row_mask`` (masked ticks) and
-``limit_rows`` (reduced path) wait for the slices that port those callers.
+them).  ``constraint_row_mask`` (masked ticks) lifts the cone/ZMP rows of
+inactive contacts to ub = +inf, which the solver turns into 0·x ≤ 1.  The
+JAX module's ``limit_rows`` (reduced path) waits for the slice that ports
+its caller.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from typing import NamedTuple
 import torch
 
 from ..ops.qp import solve_qp
+
+_INF = 1.0e30
 
 
 def contact_constraint_blocks(const_mats, rot_blocks):
@@ -40,6 +44,13 @@ def contact_constraint_blocks(const_mats, rot_blocks):
         r += k_i
         c += d_i
     return A_const, A_rot
+
+
+def _mask_rows(ub_c, row_mask):
+    """Inactive contacts' cone/ZMP rows → ub = +inf (dropped by solve_qp)."""
+    if row_mask is None:
+        return ub_c
+    return torch.where(row_mask > 0.5, ub_c, torch.full_like(ub_c, _INF))
 
 
 class TaskQPResult(NamedTuple):
@@ -64,6 +75,7 @@ def solve_task_level_qp(
     iters: int = 25,
     warm=None,
     backend: str = "torch",
+    constraint_row_mask=None,  # (...,k) 1 = live cone/ZMP row (masked ticks)
 ) -> TaskQPResult:
     """One hierarchy level's QP (src/dwbc.cpp:941-1127)."""
     m, t = Ntorque_task.shape[-2], Ntorque_task.shape[-1]
@@ -89,7 +101,7 @@ def solve_task_level_qp(
     Atemp = CM @ J_C_INV_T[..., :, -m:]
     rows.append(-torch.cat([Atemp @ Ntorque_task, Atemp @ NwJw], dim=-1))
     bA = (CM @ P_C[..., None])[..., 0] - (Atemp @ tau_base[..., None])[..., 0]
-    ubs.append(-bA)
+    ubs.append(_mask_rows(-bA, constraint_row_mask))
 
     batch = torch.broadcast_shapes(*(r.shape[:-2] for r in rows))
     A = torch.cat([r.expand(batch + r.shape[-2:]) for r in rows], dim=-2)
@@ -112,6 +124,7 @@ def solve_contact_redistribution_qp(
     tangential_weight: bool = False,
     warm=None,
     backend: str = "torch",
+    constraint_row_mask=None,
 ):
     """Final redistribution QP over f_c,red (src/dwbc.cpp:1396-1561).
     tangential_weight=True minimizes the tangential contact-force components
@@ -144,8 +157,9 @@ def solve_contact_redistribution_qp(
 
     CM = -(A_const @ A_rot)
     rows.append(CM @ JT_act @ NwJw)
-    ubs.append((CM @ P_C[..., None])[..., 0]
-               - (CM @ JT_act @ torque_input[..., None])[..., 0])
+    ubs.append(_mask_rows((CM @ P_C[..., None])[..., 0]
+                          - (CM @ JT_act @ torque_input[..., None])[..., 0],
+                          constraint_row_mask))
 
     batch = torch.broadcast_shapes(*(r.shape[:-2] for r in rows))
     A = torch.cat([r.expand(batch + r.shape[-2:]) for r in rows], dim=-2)

@@ -48,8 +48,10 @@ void qpsolve64(const double* H, const double* g, const double* C, const double* 
                                 s + bm, l + bm, w + b, B, n, m, mr, iters, ridge);
   }
 }
-void pre64(const double* t, const double* q, double* p, double* w, int B) {
-  for (int b = 0; b < B; ++b) dwbc::prestage_lane<double>(t, q + b, p + b, w + b, B);
+void pre64(const double* t, const double* q, const double* cm, double* p, double* w,
+           int B) {
+  for (int b = 0; b < B; ++b)
+    dwbc::prestage_lane<double>(t, q + b, cm ? cm + b : nullptr, p + b, w + b, B);
 }
 void qp64(const double* t, const double* p, const double* f, const double* wi,
           double* o, double* wo, double* w, int B, int iters) {
@@ -57,6 +59,13 @@ void qp64(const double* t, const double* p, const double* f, const double* wi,
     dwbc::qpchain_lane<double>(t, p + b, f + b, wi ? wi + b : nullptr, o + b,
                                wo + b, w + b, B, iters);
 }
+void qp32(const float* t, const float* p, const float* f, const float* wi,
+          float* o, float* wo, float* w, int B, int iters) {
+  for (int b = 0; b < B; ++b)
+    dwbc::qpchain_lane<float>(t, p + b, f + b, wi ? wi + b : nullptr, o + b,
+                              wo + b, w + b, B, iters);
+}
+long long qpws32(const float* t) { return dwbc::qpchain_ws_elems(t); }
 void sizes64(const double* t, long long* out) {
   out[0] = dwbc::prestage_ws_elems(t); out[1] = dwbc::pre_elems(t);
   out[2] = dwbc::qpchain_ws_elems(t); out[3] = dwbc::out_elems(t);
@@ -130,20 +139,22 @@ def setup(request):
             np.ascontiguousarray(q.T), [np.ascontiguousarray(f.T) for f in fs])
 
 
-@pytest.fixture(scope="module")
-def run(lanes, setup):
+def _lane_run(lanes, prog, tab, q_el, fs_el, cm_el=None):
+    """The prestage lanes on q (and the contact mask), and the QP-chain
+    lanes, cold at 25 iterations then warm at 7, on the plain prestage."""
     from libdwbc_tpu_torch.ops import tick_cuda as tc
 
-    prog, tab, q_el, fs_el = setup
     plan = prog.plan
     sz = (ctypes.c_longlong * 5)()
     lanes.sizes64(_ptr(tab), sz)
     ws_pre, n_pre, ws_qp, n_out, n_warm = list(sz)
     pre = np.zeros((n_pre, B))
-    lanes.pre64(_ptr(tab), _ptr(q_el), _ptr(pre), _ptr(np.full((ws_pre, B), np.nan)), B)
+    lanes.pre64(_ptr(tab), _ptr(q_el), _ptr(cm_el), _ptr(pre),
+                _ptr(np.full((ws_pre, B), np.nan)), B)
     fsb = np.ascontiguousarray(np.concatenate(fs_el, 0))
     k = tc.TickKernels(prog)
-    ref_pre = prog.prestage(torch.as_tensor(q_el))
+    ref_pre = prog.prestage(torch.as_tensor(q_el),
+                            None if cm_el is None else torch.as_tensor(cm_el))
     # the QP chain's lanes take the plain prestage, the same input as the
     # plain QP chain they are held against: the two prestages differ by
     # ~1e-12, and 25 IPM iterations turn that into ~1e-6 on the dual of a
@@ -166,7 +177,13 @@ def run(lanes, setup):
         warm=tc._unpack(torch.as_tensor(out_warm), tc.out_layout(plan)),
         ref_pre=ref_pre,
         fs=[torch.as_tensor(f) for f in fs_el],
+        cm=None if cm_el is None else torch.as_tensor(cm_el),
     )
+
+
+@pytest.fixture(scope="module")
+def run(lanes, setup):
+    return _lane_run(lanes, *setup)
 
 
 def test_buffer_sizes_match_wrapper_layouts(run, setup):
@@ -206,6 +223,137 @@ def test_qpchain_lanes_match_plain(run, setup, mode):
         for (x, lam), (rx, rlam) in zip(got["warm_out"], ref["warm_out"]):
             assert float((x - rx).abs().max()) <= 1e-8
             assert float((lam - rlam).abs().max()) <= 1e-6 * (1 + float(rlam.abs().max()))
+
+
+# ---------------------------------------------------- masked mode
+HYPOTHESES = ("both feet", "left foot", "right foot")   # lanes 0, 1, 2
+
+
+@pytest.fixture(scope="module", params=["sweep", "turned_base"])
+def msetup(request):
+    """The masked flagship (the two feet as candidates) on three lanes, one
+    per support hypothesis: the masked sweep's inputs, and a turned, moved
+    base with larger joint offsets."""
+    from libdwbc_tpu_torch.entry import _masked_inputs
+    from libdwbc_tpu_torch.model.compile import RobotModel
+    from libdwbc_tpu_torch.ops.tick_cuda import kernel_table
+    from libdwbc_tpu_torch.ops.tick_kernel import TickProgram
+    from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
+
+    m = RobotModel.load(MODEL)
+    prog = TickProgram(m, standard_tocabi_config(m), "cpu", torch.float64, masked=True)
+    q, _, fs, masks = (np.asarray(a, np.float64) if not isinstance(a, tuple)
+                       else tuple(np.asarray(f, np.float64) for f in a)
+                       for a in _masked_inputs(m, B, seed=4))
+    if request.param == "turned_base":
+        q[:, 6:39] += 0.1 * np.random.default_rng(12).standard_normal((B, 33))
+        q = np.stack([_rot_q(qb, ax, ang) for qb, ax, ang in
+                      zip(q, ([0, 0, 1], [1, 0, 0], [1, 1, 1]), (0.7, 0.2, -0.3))])
+    return (prog, np.ascontiguousarray(kernel_table(prog.plan)), np.ascontiguousarray(q.T),
+            [np.ascontiguousarray(f.T) for f in fs], np.ascontiguousarray(masks.T))
+
+
+@pytest.fixture(scope="module")
+def mrun(lanes, msetup):
+    return _lane_run(lanes, *msetup)
+
+
+def test_masked_buffer_sizes_match_wrapper_layouts(mrun, msetup):
+    from libdwbc_tpu_torch.ops import tick_cuda as tc
+
+    plan = msetup[0].plan
+    assert mrun["sizes"] == dict(pre=tc._elems(tc.pre_layout(plan)),
+                                 out=tc._elems(tc.out_layout(plan)),
+                                 warm=tc._elems(tc.warm_layout(plan)))
+    assert tc.pre_layout(plan)[-2:] == [("crow_mask", (20,)), ("active_cdof", ())]
+
+
+@pytest.mark.parametrize("field", ["torque_grav", "P_C", "Jbar_act", "NwJw", "Ntorques",
+                                   "Atemp", "bA0", "health", "crow_mask", "active_cdof"])
+def test_masked_prestage_lanes_match_plain(mrun, field):
+    """Per hypothesis within 1e-10; the masks exactly; in a single-support
+    lane NwJw and the dead foot's rows of J̄ᵀ exactly zero."""
+    got, want = mrun["pre"][field], mrun["ref_pre"][field]
+    if field == "Ntorques":
+        got, want = (torch.cat([t.flatten(0, -2) for t in x], 0) for x in (got, want))
+    got, want = got.movedim(-1, 0), want.movedim(-1, 0)
+    for b, hyp in enumerate(HYPOTHESES):
+        err = float((got[b] - want[b]).abs().max())
+        if field in ("crow_mask", "active_cdof"):
+            assert torch.equal(got[b], want[b]), (hyp, field)
+        assert err <= 1e-10, f"{hyp}: {field} {err:.3e}"
+    if field == "NwJw":
+        assert not got[1].any() and not got[2].any()
+    if field == "Jbar_act":
+        assert not got[1][6:].any() and not got[2][:6].any()
+
+
+@pytest.mark.parametrize("mode", ["cold", "warm"])
+def test_masked_qpchain_lanes_match_plain(mrun, msetup, mode):
+    """Per hypothesis within 1e-10; the warm state out as in the static test
+    (the duals of weakly active rows carry the prestage roundoff, ~1e-9)."""
+    prog = msetup[0]
+    cold = prog.qpchain(mrun["ref_pre"], mrun["fs"], None, 25)
+    ref = cold if mode == "cold" else prog.qpchain(mrun["ref_pre"], mrun["fs"],
+                                                   cold["warm_out"], 7)
+    got = mrun[mode]
+    for name in ("torque_grav", "torque_task", "torque_contact", "torque_cmd",
+                 "contact_force", "qp_gap", "qp_primal_res", "health"):
+        for b, hyp in enumerate(HYPOTHESES):
+            err = float((got[name][..., b] - ref[name][..., b]).abs().max())
+            assert err <= 1e-10, f"{mode} {hyp}: {name} {err:.3e}"
+    if mode == "cold":
+        for (x, lam), (rx, rlam) in zip(got["warm_out"], ref["warm_out"]):
+            assert float((x - rx).abs().max()) <= 1e-10
+            assert float((lam - rlam).abs().max()) <= 1e-6 * (1 + float(rlam.abs().max()))
+
+
+def test_float32_masked_warm_lanes_stay_near_float64(lanes):
+    """The QP chain's lanes in float32 (as the kernel runs them, built by
+    the host compiler) on 1024 lanes of the masked sweep, cold at 12
+    iterations then warm at 7, against the plain float64 QP chain from the
+    same prestage and warm state: every lane within 1e-3 Nm in τ_cmd.  A
+    step from a Gram factorization that lost a pivot would move a warm
+    single-support lane's δf* far from its optimum at a tiny gap."""
+    from libdwbc_tpu_torch.entry import _masked_inputs
+    from libdwbc_tpu_torch.model.compile import RobotModel
+    from libdwbc_tpu_torch.ops import tick_cuda as tc
+    from libdwbc_tpu_torch.ops.tick_kernel import TickProgram
+    from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
+
+    n = 1024
+    m = RobotModel.load(MODEL)
+    cfg = standard_tocabi_config(m, qp_iters=12)
+    p32 = TickProgram(m, cfg, "cpu", torch.float32, masked=True)
+    p64 = TickProgram(m, cfg, "cpu", torch.float64, masked=True)
+    q, _, fs, masks = _masked_inputs(m, n, seed=0)
+    fs_el = [torch.as_tensor(np.ascontiguousarray(f.T)) for f in fs]
+    pre = p32.prestage(torch.as_tensor(np.ascontiguousarray(q.T)),
+                       torch.as_tensor(np.ascontiguousarray(masks.T)))
+    k = tc.TickKernels(p32)
+    tab = np.ascontiguousarray(tc.kernel_table(p32.plan).astype(np.float32))
+    pre_in = np.ascontiguousarray(k.pack_pre(pre).numpy())
+    fsb = np.ascontiguousarray(np.concatenate([f.numpy() for f in fs_el], 0))
+    lanes.qpws32.restype = ctypes.c_longlong
+    ws = np.zeros((lanes.qpws32(_ptr(tab)), n), np.float32)
+    n_out, n_warm = tc._elems(tc.out_layout(p32.plan)), tc._elems(tc.warm_layout(p32.plan))
+
+    def qp(iters, warm_buf):
+        out, wout = np.zeros((n_out, n), np.float32), np.zeros((n_warm, n), np.float32)
+        lanes.qp32(_ptr(tab), _ptr(pre_in), _ptr(fsb), _ptr(warm_buf), _ptr(out),
+                   _ptr(wout), _ptr(ws), n, iters)
+        return out, wout
+
+    _, wout = qp(12, None)
+    out, _ = qp(7, wout)
+    warm_in = k.unpack_result(torch.as_tensor(np.zeros((n_out, n), np.float32)),
+                              torch.as_tensor(wout))["warm_out"]
+    ref = p64.qpchain({key: ([t.double() for t in v] if isinstance(v, list) else v.double())
+                       for key, v in pre.items()}, [f.double() for f in fs_el],
+                      [(x.double(), lam.double()) for x, lam in warm_in], 7)
+    got = tc._unpack(torch.as_tensor(out), tc.out_layout(p32.plan))
+    err = (got["torque_cmd"].double() - ref["torque_cmd"]).abs().amax(0)
+    assert float(err.max()) <= 1e-3, f"{int((err > 1e-3).sum())} lanes, max {float(err.max()):.3e}"
 
 
 # ------------------------------------------------ psd_inverse and qp_solve

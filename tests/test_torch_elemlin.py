@@ -36,6 +36,9 @@ def _inputs():
     P6 = rng.standard_normal((NB, 6, 6))
     D6 = P6.copy()
     D6[:, :, 4] = D6[:, :, 0] - 2.0 * D6[:, :, 2]        # rank 5
+    Z85 = R85.copy()
+    Z85[:, :, 1] = 0.0                                  # an exact zero column too
+    Z85[:, :, 3] = Z85[:, :, 0]                         # and a dependent one
     return dict(
         A64=_el(rng.standard_normal((NB, 6, 4))),
         B45=_el(rng.standard_normal((NB, 4, 5))),
@@ -55,6 +58,7 @@ def _inputs():
         C126=_el(rng.standard_normal((NB, 12, 6))),
         P6=_el(P6),
         D6=_el(D6),
+        Z85=_el(Z85),
     )
 
 
@@ -102,6 +106,11 @@ CASES = {
     "complete_basis": lambda el, t: [el.complete_basis(t("C126"))],
     "qr_pinv": lambda el, t: [el.qr_pinv(t("P6"))],
     "qr_pinv_rank_deficient": lambda el, t: [el.qr_pinv(t("D6"))],
+    "orthonormalize_drop": lambda el, t: [el.orthonormalize_drop(t("C126"))],
+    "orthonormalize_drop_rank_deficient": lambda el, t: [el.orthonormalize_drop(t("Z85"))],
+    "compact_columns": lambda el, t: list(el.compact_columns(t("Z85"))),
+    "compact_columns_dropped": lambda el, t: list(
+        el.compact_columns(el.orthonormalize_drop(t("Z85")))),
 }
 
 
@@ -130,3 +139,15 @@ def test_qr_pinv_dead_pivot_is_zero_row():
     """The rank-deficient case really exercises the dead-pivot rule."""
     X_ = tel.qr_pinv(torch.as_tensor(X["D6"]))
     assert (X_.abs().amax(dim=(1, 2)) == 0).sum() == 1
+
+
+def test_dropped_columns_are_exact_zeros():
+    """orthonormalize_drop returns the zero and the dependent column of Z85
+    as exact zeros, and compact_columns moves the three live columns left in
+    order and leaves an exactly zero tail."""
+    V = tel.orthonormalize_drop(torch.as_tensor(X["Z85"]))
+    assert not V[:, 1].any() and not V[:, 3].any()
+    assert (V[:, [0, 2, 4]].square().sum(0) - 1.0).abs().max() <= 1e-12
+    C, count = tel.compact_columns(V)
+    assert torch.equal(count, torch.full((NB,), 3.0, dtype=torch.float64))
+    assert torch.equal(C[:, 0:3], V[:, [0, 2, 4]]) and not C[:, 3:].any()

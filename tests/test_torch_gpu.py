@@ -278,3 +278,126 @@ def test_compiled_tick_cuda_serving(case, dev):
         err = float((getattr(r0, name)[:4].cpu().double() - getattr(r64, name)).abs().max())
         print(f"CompiledTick(cuda) vs float64 {name}: {err:.3e}")
         assert err <= 0.05
+
+
+# ------------------------------------------------------------ masked mode
+HYPOTHESES = ("both feet", "left foot", "right foot")
+
+
+@pytest.fixture(scope="module")
+def mcase(dev):
+    """The masked sweep's first 96 lanes: the three support hypotheses cycle
+    over the lanes."""
+    from libdwbc_tpu_torch.entry import _masked_inputs
+    from libdwbc_tpu_torch.model.compile import RobotModel
+    from libdwbc_tpu_torch.ops.tick_cuda import TickKernels
+    from libdwbc_tpu_torch.ops.tick_kernel import TickProgram
+    from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
+
+    m = RobotModel.load(MODEL)
+    cfg = standard_tocabi_config(m, qp_iters=12)
+    q, qd, fs, masks = _masked_inputs(m, 96, seed=5)
+    return dict(
+        model=m, cfg=cfg, q=q, qd=qd, fs=fs, masks=masks,
+        kern=TickKernels(TickProgram(m, cfg, dev, torch.float32, masked=True)),
+        plain64=TickProgram(m, cfg, "cpu", torch.float64, masked=True),
+        plain32=TickProgram(m, cfg, "cpu", torch.float32, masked=True),
+        q_el=torch.as_tensor(np.ascontiguousarray(q.T)),
+        cm_el=torch.as_tensor(np.ascontiguousarray(masks.T)),
+        fs_el=[torch.as_tensor(np.ascontiguousarray(f.T)) for f in fs],
+    )
+
+
+def test_masked_prestage_kernel_matches_plain_float64(mcase, dev):
+    """Every field per hypothesis within PRE_TOL_MASKED; the masks exactly;
+    in every single-support lane NwJw and the dead foot's rows of J̄ᵀ exactly
+    zero."""
+    from libdwbc_tpu_torch.ops.tick_cuda import PRE_TOL_MASKED
+
+    kern = mcase["kern"]
+    n0 = kern.launches["tick_prestage"]
+    got = kern.prestage(mcase["q_el"].to(dev), mcase["cm_el"].to(dev))
+    torch.cuda.synchronize()
+    assert kern.launches["tick_prestage"] == n0 + 1
+    ref = mcase["plain64"].prestage(mcase["q_el"].double(), mcase["cm_el"].double())
+    lane = np.arange(mcase["q"].shape[0]) % 3
+    for k, tol in PRE_TOL_MASKED.items():
+        pairs = zip(got[k], ref[k]) if k == "Ntorques" else [(got[k], ref[k])]
+        for g, r in pairs:
+            assert torch.isfinite(g).all(), k
+            d = (g.cpu().double() - r).abs().flatten(0, -2) if g.ndim > 1 else \
+                (g.cpu().double() - r).abs()[None]
+            for h, hyp in enumerate(HYPOTHESES):
+                err = float(d[:, lane == h].max())
+                print(f"masked prestage {hyp} {k}: {err:.3e}")
+                assert err <= tol, (hyp, k, err, tol)
+    for k in ("crow_mask", "active_cdof"):
+        assert torch.equal(got[k].cpu().double(), ref[k]), k
+    nw, jb = got["NwJw"].cpu(), got["Jbar_act"].cpu()
+    assert not nw[..., lane != 0].any()
+    assert not jb[6:, :, lane == 1].any() and not jb[:6, :, lane == 2].any()
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_masked_qpchain_kernel_matches_plain_float32(mcase, dev, warm):
+    from libdwbc_tpu_torch.ops.tick_cuda import QP_TOL_MASKED
+
+    kern, plain = mcase["kern"], mcase["plain32"]
+    pre = plain.prestage(mcase["q_el"], mcase["cm_el"])
+    w_cpu = plain.qpchain(pre, mcase["fs_el"], None, 12)["warm_out"] if warm else None
+    iters = 7 if warm else 12
+    ref = plain.qpchain(pre, mcase["fs_el"], w_cpu, iters)
+    n0 = kern.launches["tick_qpchain"]
+    got = kern.qpchain({k: ([t.to(dev) for t in v] if isinstance(v, list) else v.to(dev))
+                        for k, v in pre.items()},
+                       [f.to(dev) for f in mcase["fs_el"]],
+                       None if w_cpu is None else [(x.to(dev), l.to(dev)) for x, l in w_cpu],
+                       iters)
+    torch.cuda.synchronize()
+    assert kern.launches["tick_qpchain"] == n0 + 1
+    for k, tol in QP_TOL_MASKED.items():
+        err = float((got[k].cpu() - ref[k]).abs().max())
+        print(f"masked qpchain {'warm' if warm else 'cold'} {k}: {err:.3e}")
+        assert err <= tol, (k, err, tol)
+    assert float(got["qp_primal_res"].max()) <= 1e-3
+
+
+def test_masked_fused_tick_cuda_serving(mcase, dev):
+    """Two launches per tick, warm carry at the padded shapes, an unbatched
+    tick with a 1-D mask, and the loop's launch count: 2 × (ticks + re-solves)."""
+    from libdwbc_tpu_torch.wbc.fused import FusedTick
+    from libdwbc_tpu_torch.wbc.loop import make_control_loop
+
+    tick = FusedTick(mcase["model"], mcase["cfg"], dev, backend="cuda", masked=True)
+    q, qd, m = (torch.as_tensor(mcase[k], device=dev) for k in ("q", "qd", "masks"))
+    fs = tuple(torch.as_tensor(f, device=dev) for f in mcase["fs"])
+    r0, w = tick._tick_impl(q, qd, fs, m, warm=tick.init_warm((q.shape[0],)), qp_iters=12)
+    r1 = tick._tick_impl(q[1], qd[1], tuple(f[1] for f in fs), m[1])
+    torch.cuda.synchronize()
+    assert tick.kernels.launches == {"tick_prestage": 2, "tick_qpchain": 2}
+    assert not bool(r0.qp_error.any()) and not bool(r1.qp_error)
+    assert float((r1.torque_cmd - r0.torque_cmd[1]).abs().max()) <= 1e-3
+    assert [tuple(x.shape) for x, _ in w] == [(q.shape[0], n) for n in (12, 9, 6)]
+    with pytest.raises(ValueError):
+        tick._tick_impl(q, qd, fs)
+    loop = make_control_loop(tick, K=4, warm_start=True, warm_iters=7, gap_fallback=1e-3)
+    for k in tick.kernels.launches:
+        tick.kernels.launches[k] = 0
+    lr = loop(q, qd, fs, m)
+    torch.cuda.synchronize()
+    n = 4 + lr.refined_ticks
+    assert tick.kernels.launches == {"tick_prestage": n, "tick_qpchain": n}
+    assert not bool(lr.qp_error.any()) and float(lr.qp_primal_res.max()) <= 1e-3
+
+
+def test_masked_fused_cuda_refuses_point_candidates(mcase, dev):
+    import dataclasses
+
+    from libdwbc_tpu_torch.wbc import types as T
+    from libdwbc_tpu_torch.wbc.fused import FusedTick
+
+    cfg = mcase["cfg"]
+    point = dataclasses.replace(cfg.contacts[1], contact_type=T.CONTACT_POINT)
+    with pytest.raises(NotImplementedError):
+        FusedTick(mcase["model"], dataclasses.replace(cfg, contacts=(cfg.contacts[0], point)),
+                  dev, backend="cuda", masked=True)

@@ -21,7 +21,8 @@ MODULES = ("libdwbc_tpu_torch", "libdwbc_tpu_torch.convert", "libdwbc_tpu_torch.
            "libdwbc_tpu_torch.ops.tick_cuda", "libdwbc_tpu_torch.ops._build",
            "libdwbc_tpu_torch.wbc.dynamics", "libdwbc_tpu_torch.wbc.hqp",
            "libdwbc_tpu_torch.wbc.fused", "libdwbc_tpu_torch.wbc.pipeline",
-           "libdwbc_tpu_torch.wbc.types")
+           "libdwbc_tpu_torch.wbc.types", "libdwbc_tpu_torch.wbc.masked",
+           "libdwbc_tpu_torch.wbc.loop")
 
 
 def test_port_imports_no_jax():
@@ -33,6 +34,10 @@ def test_port_imports_no_jax():
             "model, tick = entry._model_and_tick('cpu', backend='torch', fused=False)\n"
             "q, qd, fs = entry._example_inputs(model)\n"
             "tick._tick_impl(q, qd, fs)\n"
+            "from libdwbc_tpu_torch.wbc.loop import make_control_loop\n"
+            "model, tick = entry._model_and_tick('cpu', backend='torch', masked=True)\n"
+            "q, qd, fs, m = entry._masked_inputs(model, 3)\n"
+            "make_control_loop(tick, K=2, warm_start=True, gap_fallback=1e-3)(q, qd, fs, m)\n"
             "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
             "assert not any(k.startswith('libdwbc_tpu.') or k == 'libdwbc_tpu' for k in sys.modules)\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -59,6 +64,26 @@ def test_cuda_backend_raises_without_a_card(flagship):
         FusedTick(m, cfg, device="cpu", backend="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         FusedTick(m, cfg, device="cuda", backend="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FusedTick(m, cfg, device="cpu", backend="cuda", masked=True)
+
+
+def test_masked_kernels_refuse_point_candidates(flagship):
+    """The CUDA tick takes the flagship's two 6D candidates only: a POINT
+    candidate is refused when the kernel table is built (FusedTick(masked,
+    backend="cuda") builds it), never sent to the plain version."""
+    import dataclasses
+
+    from libdwbc_tpu_torch.ops.tick_cuda import kernel_table
+    from libdwbc_tpu_torch.ops.tick_kernel import TickPlan
+    from libdwbc_tpu_torch.wbc import types as T
+
+    m, cfg = flagship
+    assert kernel_table(TickPlan(m, cfg, masked=True))[12] == 1.0
+    point = dataclasses.replace(cfg.contacts[1], contact_type=T.CONTACT_POINT)
+    with pytest.raises(NotImplementedError, match="6D candidate"):
+        kernel_table(TickPlan(m, dataclasses.replace(cfg, contacts=(cfg.contacts[0], point)),
+                              masked=True))
 
 
 def test_unknown_backend_raises(flagship):
@@ -69,14 +94,14 @@ def test_unknown_backend_raises(flagship):
         FusedTick(m, cfg, device="cpu", backend="pallas")
 
 
-@pytest.mark.parametrize("stage", ["prestage", "qpchain", "tick"])
+@pytest.mark.parametrize("stage", ["prestage", "qpchain", "tick", "masked_tick"])
 def test_wrapper_routes_cpu_tensors_to_plain_version(flagship, stage):
     from libdwbc_tpu_torch.entry import _example_inputs
     from libdwbc_tpu_torch.ops.tick_cuda import TickKernels
     from libdwbc_tpu_torch.ops.tick_kernel import TickProgram
 
     m, cfg = flagship
-    prog = TickProgram(m, cfg, "cpu", torch.float32)
+    prog = TickProgram(m, cfg, "cpu", torch.float32, masked=stage == "masked_tick")
     kern = TickKernels(prog)
     q, _, fs = _example_inputs(m)
     q_el = torch.as_tensor(np.tile(q, (3, 1)).T.copy())
@@ -88,24 +113,40 @@ def test_wrapper_routes_cpu_tensors_to_plain_version(flagship, stage):
         pre = prog.prestage(q_el)
         got, want = kern.qpchain(pre, fs_el, None, 12), prog.qpchain(pre, fs_el, None, 12)
         keys = ["torque_cmd", "qp_gap"]
-    else:
+    elif stage == "tick":
         got, want = kern.tick(q_el, fs_el, None, 12), prog.tick(q_el, fs_el, None, 12)
         keys = ["torque_cmd", "contact_force"]
+    else:
+        cm = torch.tensor([[1.0, 1.0, 0.0], [1.0, 0.0, 1.0]])
+        got, want = (kern.tick(q_el, fs_el, None, 12, cmask=cm),
+                     prog.tick(q_el, fs_el, None, 12, cmask=cm))
+        keys = ["torque_cmd", "qp_gap"]
+        with pytest.raises(ValueError):
+            kern.tick(q_el, fs_el, None, 12)
     for k in keys:
         assert torch.equal(got[k], want[k]), k
     assert kern.launches == {"tick_prestage": 0, "tick_qpchain": 0}
 
 
 def test_pack_unpack_round_trip(flagship):
+    _round_trip(flagship, masked=False)
+
+
+def test_masked_pack_unpack_round_trip(flagship):
+    _round_trip(flagship, masked=True)
+
+
+def _round_trip(flagship, masked):
     from libdwbc_tpu_torch.entry import _example_inputs
     from libdwbc_tpu_torch.ops import tick_cuda as tc
     from libdwbc_tpu_torch.ops.tick_kernel import TickProgram
 
     m, cfg = flagship
-    prog = TickProgram(m, cfg, "cpu", torch.float32)
+    prog = TickProgram(m, cfg, "cpu", torch.float32, masked=masked)
     kern = tc.TickKernels(prog)
     q, _, _ = _example_inputs(m)
-    pre = prog.prestage(torch.as_tensor(np.tile(q, (2, 1)).T.copy()))
+    pre = prog.prestage(torch.as_tensor(np.tile(q, (2, 1)).T.copy()),
+                        torch.tensor([[1.0, 0.0], [1.0, 1.0]]) if masked else None)
     buf = kern.pack_pre(pre)
     assert buf.shape == (tc._elems(tc.pre_layout(prog.plan)), 2)
     back = kern.unpack_pre(buf)
