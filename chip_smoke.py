@@ -61,7 +61,40 @@ Phases, each fatal on failure (nothing is caught):
    τ_grav and τ_cmd within 0.05 Nm;
 11. times of the masked kernels at B = 4096 and B = 1 against their plain
    versions on the card, and the solves/s of the fallback loop and of the
-   plain warm chain at B = 4096.
+   plain warm chain at B = 4096;
+12. the servo'd kernels against their plain versions on the servo'd inputs
+   (entry._servo_inputs: batch 1024, seed 0, moving states, a pelvis 6D and
+   a link-15 rotation servo on per-lane clocks before, inside and after
+   their trajectories): tick_prestage (servo) vs the plain servo'd prestage
+   in float64 on the CPU (every field within PRE_TOL, the servo'd f* and
+   the task-link states within tick_cuda.SERVO_TOL), tick_qpchain reading
+   its f* from a servo'd prestage buffer vs the plain float32 qpchain, cold
+   and warm, and the two chained vs the plain float64 servo'd tick, each
+   lane within the larger of QP_TOL (CHAIN_TOL) and tick_cuda.SERVO_OWN ×
+   its own float32 distance from float64, at most tick_cuda.
+   SERVO_LANES_OVER of the lanes beyond; then the same on the masked
+   sweep's first 1024 lanes with the same servos (the *_MASKED limits);
+13. the servo'd serving path at full width, its launch counts set to 0
+   just before each run and read just after: make_control_loop(FusedTick(
+   backend="cuda"), transition=forward_dynamics_transition(CompiledTick(
+   backend="cuda")), K = 150, dt = 1 ms, warm, 7 warm iterations,
+   gap_fallback 1e-3) over B = 1024 standing robots, each lane's pelvis
+   stepping 1 cm in its own horizontal direction over 0.12 s with the torso
+   held, then one unbatched robot (the 1 kHz lane): every output finite,
+   launches exactly 2 × (K + refined ticks) of the tick kernels and K of
+   psd_inverse, on every lane the final pelvis error below half the initial
+   one; the lane-ticks flagged with qp_error no more than those of the same
+   loop through the plain float32 tick on the card (within the spread of
+   two rollouts) and no more, at no larger primal residual, than through
+   the plain float32 tick on the JAX package's IPM recurrence (beside them
+   the same loop in float64 on the card, recorded); the peak device memory
+   and the per-tick split into ticks and transition;
+14. the truth guard on 4 servo'd lanes: FusedTick(cuda) tick 0 vs the plain
+   servo'd fused tick and vs CompiledTick(servos=), both float64 on the CPU;
+   τ_grav within 0.05 Nm, τ_cmd per lane within 0.05 Nm, or twice the plain
+   float32 tick's own error where that exceeds 0.05 Nm;
+15. times of the servo'd kernels at B = 1024 and B = 1 against their plain
+   versions on the card, and their bounds (servo_extra_flops).
 
 The last lines are the kernels' JSON record (with each kernel's bound: the
 larger of its bytes over the card's memory rate and its operations over the
@@ -200,6 +233,24 @@ def masked_extra_flops(plan):
            + md * cf)               # NwJw × live
     qp = kr * sum(nv for nv, _ in plan.qp_dims) + 2   # cone rows × crow; the gate
     return pre, qp
+
+
+def servo_extra_flops(plan):
+    """Operations per solve that the servo branch adds to the static
+    prestage count with every level servo'd (a multiply-add is 2), read off
+    csrc/tick_prestage.cu::servo_lane and csrc/servo.cuh; tick_qpchain only
+    reads its f* from elsewhere and adds none."""
+    vel = 15 + 21 * (plan.nbody - 1)   # ω₀ = R₀·q̇[3:6]; per body ω and v += ω×Δp
+    state = 30                          # per level: R·offset, the point and its velocity
+    quintic = 61                        # powers, coefficients, pos/vel/acc, the clamps
+    servo = (4 * quintic                # three position axes and the time scaling
+             + 33                       # position errors, their clamps, f*_pos
+             + 2 * 18 + 48 + 33         # two matrix→quaternion, slerp, quaternion→matrix
+             + 45 + 17 + 36             # R_des·R_initᵀ, its log, GetPhi
+             + 36)                      # w_traj, rotation errors, clamps, f*_rot
+    blend = sum(4 * t for t in plan.level_tdofs)
+    nlev = len(plan.level_tdofs)
+    return vel + nlev * (state + servo) + blend
 
 
 def per_hyp(got, want, n):
@@ -722,6 +773,323 @@ def main():
           f"{B_M * K_M / loop_s2:.1f} solves/s; plain warm chain {chain_s * 1e3:.3f} ms -> "
           f"{B_M * K_M / chain_s:.1f} solves/s  [{card}]")
 
+    # ------------------------------- 12. the servo'd kernels vs their plain versions
+    from libdwbc_tpu_torch.ops.tick_cuda import SERVO_TOL, SERVO_ELEMS, TASK_STATE
+    from libdwbc_tpu_torch.wbc.loop import forward_dynamics_transition
+    from libdwbc_tpu_torch.wbc.pipeline import servos_to
+
+    sq, sqd, sfs, servos = entry._servo_inputs(model, B, seed=0)
+    stick = FusedTick(model, cfg, dev, backend="cuda")
+    skern = stick.kernels
+    s64 = FusedTick(model, cfg, "cpu", torch.float64, backend="torch")
+    s32 = FusedTick(model, cfg, "cpu", torch.float32, backend="torch")
+    sq_el, sqd_el = (torch.as_tensor(np.ascontiguousarray(a.T)) for a in (sq, sqd))
+    sfs_el = [torch.as_tensor(np.ascontiguousarray(f.T)) for f in sfs]
+    sv_dev, sv64, sv32 = (t._servos_el(servos, B) for t in (stick, s64, s32))
+
+    def cast(x, fn):
+        """fn on every tensor of a (nested) prestage dict."""
+        if isinstance(x, dict):
+            return {k: cast(v, fn) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(cast(v, fn) for v in x)
+        return fn(x)
+
+    def servo_fields(pre):
+        """The servo section of a prestage dict: f* and the task states,
+        each over the levels, (elem, lanes)."""
+        out = {"fstars": torch.cat([f.reshape(-1, f.shape[-1]) for f in pre["fstars"]], 0)}
+        for i, (name, _) in enumerate(TASK_STATE):
+            out[name] = torch.cat([pre["task_states"][(h, 0)][i].reshape(-1, B)
+                                   for h in range(len(pre["fstars"]))], 0)
+        return out
+
+    def check_servo(tag, kern_, p64, p32, q_el_, cm_el_, pre_tol, qp_tol, chain_tol, split):
+        """Phase 12 on one plan: the servo'd prestage, the QP chain on a
+        servo'd buffer and the two chained, each against its plain version;
+        returns (servo f* error, QP chain τ_cmd error) for the record."""
+        d = (lambda t: t.to(dev))
+        cm_d = None if cm_el_ is None else d(cm_el_)
+        pre_k = kern_.prestage(d(q_el_), cm_d, d(sqd_el), [d(f) for f in sfs_el], sv_dev)
+        torch.cuda.synchronize()
+        cm64 = None if cm_el_ is None else cm_el_.double()
+        pre64 = p64.prestage_servo(q_el_.double(), cm64, sqd_el.double(),
+                          [f.double() for f in sfs_el], sv64)
+        own = p32.prestage_servo(q_el_, cm_el_, sqd_el, sfs_el, sv32)
+        errs, own_errs = {}, {}
+        for name in pre_tol:
+            got, o, want = pre_k[name], own[name], pre64[name]
+            if name == "Ntorques":
+                got, o, want = (torch.cat([t.reshape(-1, B) for t in x], 0)
+                                for x in (got, o, want))
+            assert torch.isfinite(got).all(), f"servo'd prestage ({tag}): non-finite {name}"
+            errs[name], own_errs[name] = split(got, want), split(o, want)
+        sk, so, s64_ = servo_fields(pre_k), servo_fields(own), servo_fields(pre64)
+        for name in SERVO_TOL:
+            assert torch.isfinite(sk[name]).all(), f"servo'd prestage ({tag}): non-finite {name}"
+            errs[name], own_errs[name] = split(sk[name], s64_[name]), split(so[name], s64_[name])
+        limits = dict(pre_tol, **SERVO_TOL)
+        print(f"tick_prestage (servo, {tag}) vs plain float64 (max abs err, [plain float32's "
+              "own] <= limit): " + "  ".join(
+                  f"{k} " + "/".join(f"{e:.3e}" for e in v) + " ["
+                  + "/".join(f"{e:.3e}" for e in own_errs[k]) + f"] <= {limits[k]:g}"
+                  for k, v in errs.items()))
+        for k, v in errs.items():
+            assert max(v) <= limits[k], (tag, k, v, limits[k])
+
+        # The servo's f* drive the QPs onto active constraints, where float32
+        # is far from float64 and two float32 solves of one recurrence part
+        # by roundoff on a few lanes: each lane is held to the larger of the
+        # flagship's limit and SERVO_OWN × its own float32 distance from
+        # float64, at most SERVO_LANES_OVER of the lanes beyond
+        # (tick_cuda.servo_lanes_over).  Beside the kernel's count stands
+        # that of the plain float32 QP chain against itself with its inputs
+        # moved by one ulp: the lanes roundoff alone puts beyond their bar.
+        pre32 = cast(pre64, lambda t: t.float())
+        pre32_d = cast(pre32, d)
+        ref_c = p32.qpchain(pre32, pre32["fstars"], None, COLD_ITERS)
+        ker_c = kern_.qpchain(pre32_d, None, None, COLD_ITERS)
+        w_cpu = ref_c["warm_out"]
+        ref_w = p32.qpchain(pre32, pre32["fstars"], w_cpu, WARM_ITERS)
+        ker_w = kern_.qpchain(pre32_d, None, [(d(x), d(l)) for x, l in w_cpu], WARM_ITERS)
+        pre32_64 = cast(pre32, lambda t: t.double())
+        ref64_c = p64.qpchain(pre32_64, pre32_64["fstars"], None, COLD_ITERS)
+        ref64_w = p64.qpchain(pre32_64, pre32_64["fstars"],
+                              [(x.double(), l.double()) for x, l in w_cpu], WARM_ITERS)
+        gen = torch.Generator().manual_seed(1)
+        pre_ulp = cast(pre32, lambda t: t + (torch.randint(0, 3, t.shape, generator=gen) - 1)
+                       .to(t.dtype) * t.abs() * 2.0 ** -23)
+        # the masks stay exact; τ_grav passes through the QP chain unchanged
+        pre_ulp.update({k: pre32[k] for k in ("crow_mask", "active_cdof", "torque_grav")
+                        if k in pre32})
+        ulp_c = p32.qpchain(pre_ulp, pre_ulp["fstars"], None, COLD_ITERS)
+        ulp_w = p32.qpchain(pre_ulp, pre_ulp["fstars"], w_cpu, WARM_ITERS)
+        torch.cuda.synchronize()
+        qerr, lines, over_all = {}, [], []
+        for mode, ref, ker, r64, ulp in (("cold", ref_c, ker_c, ref64_c, ulp_c),
+                                         ("warm", ref_w, ker_w, ref64_w, ulp_w)):
+            for name in list(qp_tol) + ["qp_gap", "qp_primal_res"]:
+                assert torch.isfinite(ker[name]).all(), f"servo'd tick_qpchain: non-finite {name}"
+                qerr[f"{mode}.{name}"] = split(ker[name], ref[name])
+            for name, tol in qp_tol.items():
+                own_ = tc.lane_err(ref[name], r64[name])
+                over, allowed = tc.servo_lanes_over(tc.lane_err(ker[name], ref[name]), own_, tol)
+                self_over, _ = tc.servo_lanes_over(tc.lane_err(ulp[name], ref[name]), own_, tol)
+                lines.append(f"{mode}.{name} " + "/".join(f"{e:.3e}" for e in qerr[f"{mode}.{name}"])
+                             + f" [own max {float(own_.max()):.3e} median "
+                             f"{float(own_.median()):.3e}] lanes beyond {over} [plain vs itself "
+                             f"{self_over}] <= {allowed}")
+                over_all.append((mode, name, over, allowed))
+        print(f"tick_qpchain (servo, {tag}) vs plain float32 (max abs err, [plain float32 vs "
+              f"float64 on the same prestage, per lane], lanes beyond max(limit, "
+              f"{tc.SERVO_OWN:g} × own)): " + "  ".join(lines))
+        ch_k = kern_.qpchain(pre_k, None, None, COLD_ITERS)
+        ch64 = p64.qpchain(pre64, pre64["fstars"], None, COLD_ITERS)
+        ch32 = p32.qpchain(own, own["fstars"], None, COLD_ITERS)
+        lines = []
+        for k, tol in chain_tol.items():
+            own_ = tc.lane_err(ch32[k], ch64[k])
+            over, allowed = tc.servo_lanes_over(tc.lane_err(ch_k[k], ch64[k]), own_, tol)
+            lines.append(f"{k} " + "/".join(f"{e:.3e}" for e in split(ch_k[k], ch64[k]))
+                         + f" [own max {float(own_.max()):.3e} median {float(own_.median()):.3e}]"
+                         f" lanes beyond {over} <= {allowed}")
+            over_all.append(("chain", k, over, allowed))
+        print(f"tick_prestage → tick_qpchain (servo, {tag}) vs plain float64 servo'd tick (max "
+              f"abs err, [plain float32's own per lane], lanes beyond max(limit, "
+              f"{tc.SERVO_OWN:g} × own)): " + "  ".join(lines))
+        for mode, name, over, allowed in over_all:
+            assert over <= allowed, (tag, mode, name, over, allowed)
+        return max(errs["fstars"]), max(max(qerr["cold.torque_cmd"]), max(qerr["warm.torque_cmd"]))
+
+    sfs_err, sqp_err = check_servo("static", skern, s64.prog, s32.prog, sq_el, None, PRE_TOL,
+                                   QP_TOL, CHAIN_TOL, lambda g, w: [maxerr(g, w)])
+    m64 = FusedTick(model, cfg, "cpu", torch.float64, backend="torch", masked=True)
+    m32 = FusedTick(model, cfg, "cpu", torch.float32, backend="torch", masked=True)
+    msfs_err, msqp_err = check_servo("masked, " + "/".join(HYPOTHESES), mkern, m64.prog,
+                                     m32.prog, q_n, cm_n, PRE_TOL_MASKED, QP_TOL_MASKED,
+                                     CHAIN_TOL_MASKED, lambda g, w: per_hyp(g, w, N_M))
+
+    # ------------------------------------------ 13. the servo'd serving path
+    K_S, DT = 150, 1e-3
+    _, ctrans = entry._model_and_tick(dev, qp_iters=COLD_ITERS, fused=False)
+    trans = forward_dynamics_transition(ctrans)
+
+    def tracking(nb, dtype=torch.float32):
+        """The loop's inputs on the card: (q, q̇, f*, servos, targets);
+        nb = 1 gives one unbatched robot."""
+        tq, tqd, tfs, tsv, target = entry._tracking_inputs(
+            model, nb, dtype=np.float64 if dtype == torch.float64 else np.float32)
+        args = [torch.as_tensor(a, device=dev) for a in (tq, tqd)]
+        args.append(tuple(torch.as_tensor(f, device=dev) for f in tfs))
+        if nb == 1:
+            args = [args[0][0], args[1][0], tuple(f[0] for f in args[2])]
+        return args, servos_to(tsv, dtype, dev), tq, target
+
+    def pelvis_ratio(q0_, qf, target):
+        """Per lane: final pelvis error / initial pelvis error."""
+        p0_ = entry._link_frames(model, q0_)[0].numpy()
+        pf = entry._link_frames(model, qf.detach().cpu().double().reshape(-1, model.nq))[0].numpy()
+        return np.linalg.norm(pf - target, axis=1) / np.linalg.norm(p0_ - target, axis=1)
+
+    def run_loop(tk, nb, label, count, transition=trans):
+        """One K_S-tick servo'd loop; with count, the launch counters set to
+        0 just before and checked just after."""
+        args, sv, tq, target = tracking(nb, tk.dtype)
+        loop = make_control_loop(tk, transition=transition, K=K_S, dt=DT, warm_start=True,
+                                 warm_iters=WARM_ITERS, gap_fallback=GAP_FALLBACK)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        if count:
+            for k in tk.kernels.launches:
+                tk.kernels.launches[k] = 0
+            linalg_cuda.launches["psd_inverse"] = 0
+        t0_ = time.perf_counter()
+        lr = loop(*args, servos=sv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0_
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        for name, v in lr._asdict().items():
+            if isinstance(v, torch.Tensor) and v.dtype != torch.bool:
+                assert torch.isfinite(v).all(), f"servo'd loop ({label}): non-finite {name}"
+        ratio = pelvis_ratio(tq, lr.q_final, target)
+        n_err, pres = int(lr.qp_error.sum()), float(lr.qp_primal_res.max())
+        err_lanes = int(lr.qp_error.reshape(K_S, -1).any(0).sum())
+        print(f"servo'd serving path ({label}): {K_S} ticks at batch {nb}, refined ticks "
+              f"{lr.refined_ticks}, {wall * 1e3:.3f} ms, peak device memory {peak:.1f} MiB; "
+              f"pelvis error final / initial max {ratio.max():.4f} mean {ratio.mean():.4f}; "
+              f"qp_error ticks×lanes {n_err} on {err_lanes} lanes, qp_primal_res max "
+              f"{pres:.3e} (recorded)")
+        out = dict(lr=lr, wall=wall, peak=peak, ratio=ratio, n_err=n_err, pres=pres)
+        if count:
+            n_solve = K_S + lr.refined_ticks
+            out["launches"] = dict(tk.kernels.launches)
+            out["psd"] = linalg_cuda.launches["psd_inverse"]
+            print(f"servo'd serving path ({label}): launches {out['launches']}, psd_inverse "
+                  f"{out['psd']}")
+            assert out["launches"] == {"tick_prestage": n_solve, "tick_qpchain": n_solve}, \
+                out["launches"]
+            assert out["psd"] == K_S, out["psd"]
+        return out
+
+    serve_b = run_loop(stick, B, "kernels, batch 1024", True)
+    serve_1 = run_loop(stick, 1, "kernels, unbatched", True)
+    plain_dev32 = FusedTick(model, cfg, dev, torch.float32, backend="torch")
+    serve_plain = run_loop(plain_dev32, B, "plain float32 tick on the card, batch 1024", False)
+    jax_dev32 = FusedTick(model, cfg, dev, torch.float32, backend="torch")
+    jax_dev32.prog.hold_lost_pivots = False
+    serve_jax = run_loop(jax_dev32, B, "plain float32 tick on the JAX package's IPM "
+                         "recurrence, batch 1024", False)
+    # float64 throughout, tick and transition: what float32 falls short of
+    _, ctrans64 = entry._model_and_tick(dev, torch.float64, qp_iters=COLD_ITERS,
+                                        backend="torch", fused=False)
+    serve_64 = run_loop(FusedTick(model, cfg, dev, torch.float64, backend="torch"), B,
+                        "plain float64 tick and transition on the card, batch 1024", False,
+                        forward_dynamics_transition(ctrans64))
+    for run in (serve_b, serve_1, serve_plain, serve_64):
+        assert (run["ratio"] < 0.5).all(), (int((run["ratio"] >= 0.5).sum()),
+                                            float(run["ratio"].max()))
+    # Float32 leaves a few of this loop's QPs unsolved where float64 solves
+    # them all: the kernels may flag no more lane-ticks than the plain
+    # float32 tick, within the spread of two rollouts that part on roundoff
+    # (a quarter, and 0.1% of the lane-ticks), and no more, with no larger
+    # primal residual, than the JAX package's recurrence, which steps from
+    # the clamped factor of a Gram that lost a pivot
+    assert serve_b["n_err"] <= 1.25 * serve_plain["n_err"] + 1e-3 * K_S * B, (
+        serve_b["n_err"], serve_plain["n_err"])
+    assert serve_b["n_err"] <= serve_jax["n_err"], (serve_b["n_err"], serve_jax["n_err"])
+    assert serve_b["pres"] <= max(QP_FAIL, serve_jax["pres"]), (serve_b["pres"],
+                                                                 serve_jax["pres"])
+
+    def split_times(tk, nb):
+        """The loop again with CUDA events around every tick call and every
+        transition: (device ms in ticks, in transitions, wall ms), per tick."""
+        args, sv, _, _ = tracking(nb)
+        ev = {"tick": [], "transition": []}
+
+        def timed(name, fn):
+            def f(*a, **k):
+                e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                e0.record()
+                out = fn(*a, **k)
+                e1.record()
+                ev[name].append((e0, e1))
+                return out
+            return f
+
+        tk._tick_impl = timed("tick", tk._tick_impl)
+        try:
+            loop = make_control_loop(tk, transition=timed("transition", trans), K=K_S, dt=DT,
+                                     warm_start=True, warm_iters=WARM_ITERS,
+                                     gap_fallback=GAP_FALLBACK)
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            loop(*args, servos=sv)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0_) * 1e3
+        finally:
+            del tk._tick_impl
+        return tuple(sum(a.elapsed_time(b) for a, b in ev[k]) / K_S
+                     for k in ("tick", "transition")) + (wall / K_S,)
+
+    split_b, split_1 = split_times(stick, B), split_times(stick, 1)
+    for nb, (t_tick, t_tr, t_wall) in ((B, split_b), (1, split_1)):
+        print(f"servo'd serving path per tick at batch {nb}: wall {t_wall:.3f} ms, of which "
+              f"ticks {t_tick:.3f} ms and transition {t_tr:.3f} ms (CUDA events), the rest "
+              f"{t_wall - t_tick - t_tr:.3f} ms  [{card}]")
+    print(f"servo'd serving path: {B * K_S / serve_b['wall']:.1f} solves/s at batch {B} "
+          f"(the counted run, re-solves included), {K_S / serve_1['wall']:.1f} ticks/s "
+          f"unbatched  [{card}]")
+
+    # ------------------------------------------------ 14. servo'd truth guard
+    gq, gqd, gfs, gsv = entry._servo_inputs(model, 4, seed=0)
+    rg, _ = stick._tick_impl(gq, gqd, gfs, warm=stick.init_warm((4,)), qp_iters=COLD_ITERS,
+                             servos=gsv)
+    g64 = (gq.astype(np.float64), gqd.astype(np.float64), tuple(f.astype(np.float64) for f in gfs))
+    gsv64 = servos_to(gsv, torch.float64, "cpu")
+    _, gref = entry._model_and_tick("cpu", dtype=torch.float64, qp_iters=COLD_ITERS,
+                                    backend="torch")
+    gr64, _ = gref._tick_impl(*g64, warm=gref.init_warm((4,)), servos=gsv64)
+    _, gcref = entry._model_and_tick("cpu", dtype=torch.float64, qp_iters=COLD_ITERS,
+                                     backend="torch", fused=False)
+    gc64, _ = gcref._tick_impl(*g64, warm=gcref.init_warm((4,)), servos=gsv64)
+    # τ_cmd, per lane: 0.05 Nm where the plain float32 tick is within that
+    # of float64, else twice the plain float32 tick's own error (the QPs sit
+    # on active constraints, where float32 itself is further off)
+    gp32 = FusedTick(model, cfg, "cpu", torch.float32, backend="torch")
+    go32, _ = gp32._tick_impl(gq, gqd, gfs, warm=gp32.init_warm((4,)), servos=gsv)
+    for label, want in (("plain servo'd fused float64", gr64), ("CompiledTick(servos=) float64", gc64)):
+        d_grav = maxerr(rg.torque_grav, want.torque_grav)
+        d_cmd = tc.lane_err(rg.torque_cmd.T, want.torque_cmd.T)
+        own_cmd = tc.lane_err(go32.torque_cmd.T, want.torque_cmd.T)
+        bar = torch.where(own_cmd <= TAU_CMD_TOL, torch.full_like(own_cmd, TAU_CMD_TOL),
+                          2 * own_cmd)
+        print(f"servo'd truth guard, FusedTick(cuda) vs {label} (4 lanes): τ_grav {d_grav:.3e}  "
+              f"τ_cmd per lane {' '.join(f'{v:.3e}' for v in d_cmd.tolist())} [plain float32's "
+              f"own {' '.join(f'{v:.3e}' for v in own_cmd.tolist())}]")
+        assert d_grav <= TAU_GRAV_TOL, (label, d_grav)
+        assert (d_cmd <= bar).all(), (label, d_cmd, own_cmd)
+
+    # ---------------------------------------------------- 15. servo'd times
+    for nb in (B, 1):
+        qe, qde = sq_el[:, :nb].contiguous().to(dev), sqd_el[:, :nb].contiguous().to(dev)
+        fe = [f[:, :nb].contiguous().to(dev) for f in sfs_el]
+        sve = tuple(tuple({k: v[..., :nb].contiguous() for k, v in dd.items()} for dd in lvl)
+                    for lvl in sv_dev)
+        pre_buf = skern.prestage_packed(qe, None, qde, fe, sve)
+        pre_d = skern.unpack_pre(pre_buf)
+        w_d = skern.unpack_result(*skern.qpchain_packed(pre_buf, None, None, COLD_ITERS))["warm_out"]
+        sprog = stick.prog
+        times[("tick_prestage_servo", nb)] = interleaved(
+            lambda: sprog.prestage_servo(qe, None, qde, fe, sve),
+            lambda: skern.prestage_packed(qe, None, qde, fe, sve), 2, 5)
+        times[("tick_qpchain_servo", nb)] = interleaved(
+            lambda: sprog.qpchain(pre_d, pre_d["fstars"], w_d, WARM_ITERS),
+            lambda: skern.qpchain_packed(pre_buf, None, w_d, WARM_ITERS), 2, 5)
+        for name in ("tick_prestage_servo", "tick_qpchain_servo"):
+            p, kt = times[(name, nb)]
+            print(f"time {name} batch {nb}: kernel {kt:.3f} ms  plain (torch on the card) "
+                  f"{p:.3f} ms  [{card}]")
+
     # bounds at batch B: bytes of each kernel's inputs and outputs, and its
     # operations on this run's shapes
     plan = kern.plan
@@ -753,12 +1121,22 @@ def main():
     me0 = m0 - p0["mirror"]
     bounds["qp_solve"] = bound(4 * B * (n0 * n0 + n0 + me0 * n0 + m0 + (n0 + m0) + (n0 + 2 * m0)),
                                qp_cuda.qp_solve_flops(n0, m0, p0["mirror"], WARM_ITERS) * B)
+    s_pre = tc._elems(tc.pre_layout(plan, servo=True))
+    n_sv = SERVO_ELEMS * len(plan.level_tdofs)
+    x_servo = servo_extra_flops(plan)
+    print(f"servo'd operations per solve: prestage {PRESTAGE_FLOPS + x_servo:.1f} "
+          f"({x_servo:+d} on the static count), qpchain {QPCHAIN_FLOPS:.1f} (+0)")
+    bounds["tick_prestage_servo"] = bound(
+        4 * (B * (n_q + model.ndof + n_fs + n_sv + s_pre) + kern.table.numel()),
+        (PRESTAGE_FLOPS + x_servo) * B)
+    bounds["tick_qpchain_servo"] = bound(
+        4 * (B * (s_pre + 2 * n_warm + n_out) + kern.table.numel()), QPCHAIN_FLOPS * B)
     for name, (ms, by) in bounds.items():
         print(f"bound {name} at batch {B_M if name.endswith('masked') else B}: "
               f"{ms:.6f} ms ({by})")
 
     def entry_(name, launches_, err, ms, plain_ms, library_ms, replaces):
-        src = name.removesuffix("_masked")
+        src = name.removesuffix("_masked").removesuffix("_servo")
         return {"name": name, "route": "cuda",
                 "source": f"libdwbc_tpu_torch/csrc/{src}.cu", "replaces": replaces,
                 "launches": launches_, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -787,6 +1165,13 @@ def main():
                max(max(mqp_err["cold.torque_cmd"]), max(mqp_err["warm.torque_cmd"])),
                times[("tick_qpchain_masked", B_M)][1], times[("tick_qpchain_masked", B_M)][0],
                None, "libdwbc_tpu/wbc/fused.py:364"),
+        entry_("tick_prestage_servo", serve_b["launches"]["tick_prestage"],
+               max(sfs_err, msfs_err),
+               times[("tick_prestage_servo", B)][1], times[("tick_prestage_servo", B)][0], None,
+               "libdwbc_tpu/wbc/fused.py:364"),
+        entry_("tick_qpchain_servo", serve_b["launches"]["tick_qpchain"], max(sqp_err, msqp_err),
+               times[("tick_qpchain_servo", B)][1], times[("tick_qpchain_servo", B)][0], None,
+               "libdwbc_tpu/wbc/fused.py:364"),
     ]}
     print(json.dumps(record))
     print(gpu_line())

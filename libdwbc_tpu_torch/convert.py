@@ -8,7 +8,9 @@
 * ``tick_tables`` builds the plain tick's constant buffers;
 * ``to_numpy``, ``result_to_numpy`` and ``warm_to_numpy`` carry results
   and warm state (``TickResult``, ``QPSolution``, per-QP (x, λ)) of either
-  package across as numpy arrays, and ``warm_from_numpy`` back in.
+  package across as numpy arrays, and ``warm_from_numpy`` back in;
+* ``servos_from_numpy`` carries nested per-level / per-spec ``ServoParams``
+  (fields as numpy arrays, or any arrays) in.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 
 from .model.compile import RobotModel
 from .wbc import types as T
-from .wbc.pipeline import PipelineConfig
+from .wbc.pipeline import PipelineConfig, ServoParams
 
 
 def model_from_numpy(arrays: dict, meta: dict) -> RobotModel:
@@ -151,3 +153,17 @@ def warm_from_numpy(warm, device, dtype) -> tuple:
     return tuple((torch.tensor(np.asarray(x), dtype=dtype, device=device),
                   torch.tensor(np.asarray(lam), dtype=dtype, device=device))
                  for x, lam in warm)
+
+
+def servos_from_numpy(nested, dtype=None, device=None) -> tuple:
+    """The port's nested servos from nested per-level / per-spec objects
+    with the ``ServoParams`` fields (a JAX ``ServoParams`` with its fields as
+    numpy arrays, say): each field a tensor that owns a copy, in ``dtype``
+    (default: the array's) on ``device``; None entries pass through."""
+    def one(sp):
+        return ServoParams(**{f: torch.tensor(np.asarray(getattr(sp, f)), dtype=dtype,
+                                              device=device)
+                              for f in ServoParams._fields})
+
+    return tuple(None if lvl is None else tuple(None if sp is None else one(sp) for sp in lvl)
+                 for lvl in nested)

@@ -12,19 +12,29 @@
 // cold solves start from (0, 1) with a common step; an iteration freezes
 // once μ ≤ μ_tol, a step with a non-finite dx is skipped, λ is capped at
 // w_cap.  The same recurrence as libdwbc_tpu/ops/pallas_qp.py::_make_kernel
-// and libdwbc_tpu/ops/tick_kernel.py::TickProgram._ipm, with one addition in
-// the tick's diagonal-H form: a step is also skipped when the Gram's
-// Cholesky lost a pivot, i.e. one fell to the 1e-30 clamp or, in float32,
-// below 1e-6 of its diagonal entry before elimination.  In float32 near
-// convergence the Gram's entries reach λ/s ~ 1e6 and a pivot that should be
-// ~1 cancels to noise or ≤ 0; the step then moves x far from the optimum
-// while the gap stays small (seen on warm single-support lanes of the
-// masked tick).  A healthy float64 solve never reaches the clamp.
+// and libdwbc_tpu/ops/tick_kernel.py::TickProgram._ipm, with one change in
+// the tick's diagonal-H form, for a pivot of the Gram's Cholesky that is
+// lost (fell to the 1e-30 clamp or, in float32, below 1e-6 of its diagonal
+// entry before elimination).  In float32 near convergence the Gram's
+// entries reach λ/s ~ 1e6 and a pivot that should be ~1 cancels to noise or
+// ≤ 0; a step from the clamped factor then moves x far from the optimum at
+// a small gap (warm single-support lanes of the masked tick).  So a lane
+// whose μ and largest |r_p| are both within kLostPivotNear skips that step;
+// any other lane takes the step with the lost pivot's reciprocal 0 and its
+// column out of the elimination, i.e. holds that variable (dx = 0) and
+// moves the others (Wright's modified Cholesky for IPMs): on active
+// constraints far from convergence (the servo'd loop) the Gram is as
+// ill-conditioned, and a skipped step would stall the lane.
 #pragma once
 
 #include "tick_common.cuh"
 
 namespace dwbc {
+
+// μ and max |r_p| at or below which a lane stops on a lost pivot: the
+// tick's failure bars (PipelineConfig.qp_fail_gap / qp_fail_pres), as
+// ops/tick_kernel.py::LOST_PIVOT_NEAR.
+constexpr double kLostPivotNear = 1e-3;
 
 // Workspace of one IPM: the stored rows C (srows × nv), the Cholesky factor
 // L (nv × nv) and its reciprocal diagonal, and the m-vectors.
@@ -160,9 +170,12 @@ DWBC_HD void ipm_iterate(const IPMWS<T>& w, M<T> H, V<T> g, V<T> x, V<T> lam,
 
     // factor: residuals, scaling w = λ/s, Gram Cᵀdiag(w)C + H + ridge
     cx_full(w, x, w.r_p, n, me, mr);
+    T rp_max = 0;                                 // NaN-propagating, as torch's amax
     for (int r = 0; r < m; ++r) {
       w.inv_s[r] = (T)1 / clamp_min(w.s[r], s_floor);
       w.r_p[r] = w.r_p[r] + w.s[r] - w.d[r];
+      const T a = fabs(w.r_p[r]);
+      if (a > rp_max || isnan(a)) rp_max = isnan(rp_max) ? rp_max : a;
       w.wv[r] = clamp_max(clamp_min(lam[r] * w.inv_s[r], (T)0), w_cap);
     }
     ctv_full(w, lam, w.r_d, n, me, mr);
@@ -191,10 +204,11 @@ DWBC_HD void ipm_iterate(const IPMWS<T>& w, M<T> H, V<T> g, V<T> x, V<T> lam,
       }
     bool collapsed = false;
     for (int j = 0; j < n; ++j) {                 // right-looking, sqrt pivots
-      collapsed = collapsed || !(w.L(j, j) >= (T)1e-30) ||
-                  (f32 && w.L(j, j) < (T)1e-6 * w.idg[j]);
+      const bool lost = !dense && (!(w.L(j, j) >= (T)1e-30) ||
+                                   (f32 && w.L(j, j) < (T)1e-6 * w.idg[j]));
+      collapsed = collapsed || lost;
       T dj = sqrt(clamp_min(w.L(j, j), (T)1e-30));
-      T inv_d = (T)1 / dj;
+      T inv_d = lost ? (T)0 : (T)1 / dj;
       w.idg[j] = inv_d;
       w.L(j, j) = dj;
       for (int i = j + 1; i < n; ++i) w.L(i, j) = w.L(i, j) * inv_d;
@@ -223,7 +237,7 @@ DWBC_HD void ipm_iterate(const IPMWS<T>& w, M<T> H, V<T> g, V<T> x, V<T> lam,
       a_pc = live * vmin(alpha_max(w.s, w.ds, m), alpha_max(lam, w.dlam, m));
       a_dc = a_pc;
     }
-    bool ok = dense || !collapsed;
+    bool ok = !(collapsed && mu <= (T)kLostPivotNear && rp_max <= (T)kLostPivotNear);
     for (int i = 0; i < n; ++i) ok = ok && isfinite(w.dx[i]);
     if (ok) {
       for (int i = 0; i < n; ++i) x[i] = x[i] + a_pc * w.dx[i];

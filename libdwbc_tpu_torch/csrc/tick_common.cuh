@@ -138,19 +138,30 @@ struct Tab {
     for (int h = 0; h < nlev; ++h) t = lev_t[h] > t ? lev_t[h] : t;
     return t;
   }
+  DWBC_HDI int tsum() const {                               // Σ task dofs
+    int t = 0;
+    for (int h = 0; h < nlev; ++h) t += lev_t[h];
+    return t;
+  }
   DWBC_HDI int mrows() const { return 2 * mdof + krows; }   // QP rows m
   DWBC_HDI int srows() const { return mdof + krows; }       // stored rows
 };
 
 // ------------------------------------------ the prestage output ("pre")
 // Same order as ops/tick_cuda.py::pre_layout.  Masked mode appends the
-// per-lane constraint-row mask (krows) and the active contact dof (1).
+// per-lane constraint-row mask (krows) and the active contact dof (1).  A
+// servo'd call appends the f* of every level (Σ lev_t rows: the servo's
+// blend on servo'd levels, the caller's f* on the others), which the QP
+// chain then reads, and per level the task link's state: pos (3), vel (3),
+// rot (9, row-major), w (3).
+constexpr int TSTATE = 18;
+
 template <typename T>
 struct Pre {
   V<T> tg, PC;
   M<T> Jbar_act, NwJw, Nt[NLEV_MAX], Atemp;
-  V<T> bA0, health, crow, acdof;
-  DWBC_HD Pre(Arena<T>& a, const Tab<T>& tb) {
+  V<T> bA0, health, crow, acdof, fstar, tstate[NLEV_MAX];
+  DWBC_HD Pre(Arena<T>& a, const Tab<T>& tb, bool servo) {
     tg = a.vec(tb.mdof);
     PC = a.vec(tb.cdof);
     Jbar_act = a.mat(tb.cdof, tb.mdof);
@@ -161,6 +172,8 @@ struct Pre {
     health = a.vec(1);
     crow = tb.masked ? a.vec(tb.krows) : V<T>{nullptr, 0};
     acdof = tb.masked ? a.vec(1) : V<T>{nullptr, 0};
+    fstar = servo ? a.vec(tb.tsum()) : V<T>{nullptr, 0};
+    for (int h = 0; h < tb.nlev; ++h) tstate[h] = servo ? a.vec(TSTATE) : V<T>{nullptr, 0};
   }
 };
 

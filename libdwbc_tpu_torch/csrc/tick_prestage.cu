@@ -14,6 +14,12 @@
 // basis by orthonormalize_drop + compact_columns (exact zero columns for a
 // single-support lane), NwJw through the first (c_act − 6) active rows, and
 // the per-lane constraint-row mask and active contact dof as outputs.
+// Servo'd calls (a nonzero level mask smask): the per-body velocities from
+// q̇, each level's task-link state, and on every servo'd level the
+// trajectory-PD f* (csrc/servo.cuh) blended into the caller's f*, written
+// to the prestage buffer's servo section for tick_qpchain; the servo branch
+// of libdwbc_tpu/ops/tick_kernel.py (prestage with servo_req,
+// _apply_servos_el).
 //
 // What bounds it on the H100: about 337k FLOP per scenario of serial small
 // dense factorisations, and the traffic of its intermediates (about 18k
@@ -26,6 +32,7 @@
 // thread latency-bound on its own serial chain.  Warp-per-scenario or
 // shared-memory tiles are the later work.
 #include "elemlin.cuh"
+#include "servo.cuh"
 
 namespace dwbc {
 
@@ -35,6 +42,7 @@ struct PreWS {
       Lamc, Jbar, H6, Wf, Qb, Rres, Ny, V2T, M6, Qp, Rp, Pinv, v1, Jt, JtA,
       JtAJc, JAN, Mt, Lam, Q, QT, WQt, VtB, QWQ, Jkt, JktLam, Pn, NN, Tmp, JbV;
   V<T> idg, idgW, G, NCG, rm, live;
+  M<T> wb, vb;                   // per-body angular and origin velocity (servo'd calls)
 
   DWBC_HD PreWS(Arena<T>& a, const Tab<T>& tb) {
     const int nb = tb.nbody, nd = tb.ndof, md = tb.mdof, cd = tb.cdof,
@@ -91,6 +99,8 @@ struct PreWS {
     rm = a.vec(cd);
     JbV = a.mat(cd, cf);
     live = a.vec(cf);
+    wb = a.mat(nb, 3);
+    vb = a.mat(nb, 3);
   }
 };
 
@@ -118,17 +128,92 @@ DWBC_HD void f32_ridge(M<T> Ms, int n) {
   for (int i = 0; i < n; ++i) Ms(i, i) = Ms(i, i) + (T)1e-4 * dmax;
 }
 
-// One lane; cmp is the lane's contact mask (nc, strided by B), read in
-// masked mode only.
+// The servo branch: per-body velocities, every level's task-link state, and
+// the f* of every level into the prestage buffer's servo section.  smask
+// bit h: level h is servo'd, its ServoIn the next block of the servo buffer.
 template <typename T>
-DWBC_HD void prestage_lane(const T* table, const T* qp, const T* cmp, T* prep,
-                           T* wsp, long long B) {
+DWBC_HD void servo_lane(const Tab<T>& tb, PreWS<T>& w, const Pre<T>& pre, V<T> qd,
+                        V<T> fs, const T* svp, int smask, long long B) {
+  for (int r = 0; r < 3; ++r) {
+    T acc = w.Rb(0, 3 * r) * qd[3];
+    for (int k = 1; k < 3; ++k) acc += w.Rb(0, 3 * r + k) * qd[3 + k];
+    w.wb(0, r) = acc;
+    w.vb(0, r) = qd[r];
+  }
+  for (int i = 1; i < tb.nbody; ++i) {
+    const int par = (int)tb.parent[i];
+    const T qdi = qd[(int)tb.qidx[i]];
+    T d[3];
+    for (int r = 0; r < 3; ++r) {
+      w.wb(i, r) = w.wb(par, r) + w.axw(i, r) * qdi;
+      d[r] = w.pb(i, r) - w.pb(par, r);
+    }
+    w.vb(i, 0) = w.vb(par, 0) + (w.wb(par, 1) * d[2] - w.wb(par, 2) * d[1]);
+    w.vb(i, 1) = w.vb(par, 1) + (w.wb(par, 2) * d[0] - w.wb(par, 0) * d[2]);
+    w.vb(i, 2) = w.vb(par, 2) + (w.wb(par, 0) * d[1] - w.wb(par, 1) * d[0]);
+  }
+  Arena<T> sa{const_cast<T*>(svp), B, 0};
+  int foff = 0;
+  for (int h = 0; h < tb.nlev; ++h) {
+    // the task link's point (origin or offset) and its velocity
+    const int slot = (int)tb.spec_slot[h];
+    const int link = (int)tb.pt_link[slot];
+    const T* off = tb.pt_off + 3 * slot;
+    T pos[3], vel[3], rot[9], wv[3], rr[3];
+    for (int r = 0; r < 9; ++r) rot[r] = w.Rb(link, r);
+    for (int r = 0; r < 3; ++r) {
+      T acc = rot[3 * r] * off[0];
+      for (int c = 1; c < 3; ++c) acc += rot[3 * r + c] * off[c];
+      rr[r] = acc;
+      wv[r] = w.wb(link, r);
+      pos[r] = w.pb(link, r) + rr[r];
+    }
+    vel[0] = w.vb(link, 0) + (wv[1] * rr[2] - wv[2] * rr[1]);
+    vel[1] = w.vb(link, 1) + (wv[2] * rr[0] - wv[0] * rr[2]);
+    vel[2] = w.vb(link, 2) + (wv[0] * rr[1] - wv[1] * rr[0]);
+    V<T> ts = pre.tstate[h];
+    for (int r = 0; r < 3; ++r) {
+      ts[r] = pos[r];
+      ts[3 + r] = vel[r];
+      ts[15 + r] = wv[r];
+    }
+    for (int r = 0; r < 9; ++r) ts[6 + r] = rot[r];
+
+    const int t = tb.lev_t[h];
+    if (!((smask >> h) & 1)) {
+      for (int r = 0; r < t; ++r) pre.fstar[foff + r] = fs[foff + r];
+    } else {
+      const ServoIn<T> sp(sa);
+      T f6[6];
+      servo_fstar(sp, pos, vel, rot, wv, f6);
+      const T up = sp.use_pos[0], ur = sp.use_rot[0];
+      if ((int)tb.spec_mode[h] == SPEC_ROT) {
+        for (int r = 0; r < 3; ++r)
+          pre.fstar[foff + r] = ur * f6[3 + r] + ((T)1 - ur) * fs[foff + r];
+      } else {
+        for (int r = 0; r < 3; ++r) {
+          pre.fstar[foff + r] = up * f6[r] + ((T)1 - up) * fs[foff + r];
+          pre.fstar[foff + 3 + r] = ur * f6[3 + r] + ((T)1 - ur) * fs[foff + 3 + r];
+        }
+      }
+    }
+    foff += t;
+  }
+}
+
+// One lane; cmp is the lane's contact mask (nc, strided by B), read in
+// masked mode only; qdp (ndof), fsp (Σ task dofs) and svp (SERVO_ELEMS per
+// servo'd level) are read only when smask is nonzero.
+template <typename T>
+DWBC_HD void prestage_lane(const T* table, const T* qp, const T* cmp, const T* qdp,
+                           const T* fsp, const T* svp, int smask, T* prep, T* wsp,
+                           long long B) {
   const Tab<T> tb(table);
   const int nb = tb.nbody, nd = tb.ndof, md = tb.mdof, cd = tb.cdof,
             cf = tb.cfree;
   V<T> q{const_cast<T*>(qp), B};
   Arena<T> pa{prep, B, 0};
-  Pre<T> pre(pa, tb);
+  Pre<T> pre(pa, tb, smask != 0);
   Arena<T> wa{wsp, B, 0};
   PreWS<T> w(wa, tb);
 
@@ -494,6 +579,9 @@ DWBC_HD void prestage_lane(const T* table, const T* qp, const T* cmp, T* prep,
   if (tb.masked)            // 6D candidates: every constraint row follows its contact
     for (int c = 0; c < tb.nc; ++c)
       for (int r = 0; r < CROWS; ++r) pre.crow[CROWS * c + r] = cmp[(long long)c * B];
+  if (smask != 0)
+    servo_lane(tb, w, pre, V<T>{const_cast<T*>(qdp), B}, V<T>{const_cast<T*>(fsp), B}, svp,
+               smask, B);
 }
 
 template <typename T>
@@ -505,10 +593,10 @@ long long prestage_ws_elems(const T* table) {
 }
 
 template <typename T>
-long long pre_elems(const T* table) {
+long long pre_elems(const T* table, bool servo) {
   const Tab<T> tb(table);
   Arena<T> a{nullptr, 0, 0};
-  Pre<T> p(a, tb);
+  Pre<T> p(a, tb, servo);
   return a.off;
 }
 
@@ -518,30 +606,36 @@ extern "C" long long dwbc_prestage_ws_elems(const float* table_host) {
   return dwbc::prestage_ws_elems(table_host);
 }
 
-extern "C" long long dwbc_pre_elems(const float* table_host) {
-  return dwbc::pre_elems(table_host);
+extern "C" long long dwbc_pre_elems(const float* table_host, int servo) {
+  return dwbc::pre_elems(table_host, servo != 0);
 }
 
 #ifdef __CUDACC__
 __global__ void __launch_bounds__(32)
     tick_prestage_kernel(const float* table, const float* q, const float* cmask,
-                         float* pre, float* ws, int B) {
+                         const float* qdot, const float* fs, const float* servo,
+                         int smask, float* pre, float* ws, int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;          // no padded lanes: a zero q would give NaNs
-  dwbc::prestage_lane<float>(table, q + b, cmask ? cmask + b : nullptr, pre + b,
-                             ws + b, (long long)B);
+  dwbc::prestage_lane<float>(table, q + b, cmask ? cmask + b : nullptr,
+                             smask ? qdot + b : nullptr, smask ? fs + b : nullptr,
+                             smask ? servo + b : nullptr, smask, pre + b, ws + b,
+                             (long long)B);
 }
 
-// q (nq, B), cmask (nc, B) in masked mode or null, pre (pre_elems, B), ws
-// (prestage_ws_elems, B): float32, contiguous, on the device; launched on
+// q (nq, B), cmask (nc, B) in masked mode or null, pre (pre_elems(servo =
+// smask != 0), B), ws (prestage_ws_elems, B); with a nonzero level mask
+// smask also qdot (ndof, B), fs (Σ task dofs, B) and servo (SERVO_ELEMS ×
+// servo'd levels, B): float32, contiguous, on the device; launched on
 // `stream`, no synchronisation.
 extern "C" int dwbc_tick_prestage(const float* table, const float* q,
-                                  const float* cmask, float* pre, float* ws, int B,
-                                  void* stream) {
+                                  const float* cmask, const float* qdot,
+                                  const float* fs, const float* servo, int smask,
+                                  float* pre, float* ws, int B, void* stream) {
   const int threads = 32;               // one warp per block: spread lanes over SMs
   const int blocks = (B + threads - 1) / threads;
   tick_prestage_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      table, q, cmask, pre, ws, B);
+      table, q, cmask, qdot, fs, servo, smask, pre, ws, B);
   return (int)cudaGetLastError();
 }
 #endif

@@ -86,8 +86,9 @@ DWBC_HD void qpchain_lane(const T* table, const T* prep, const T* fsp,
                           long long B, int iters) {
   const Tab<T> tb(table);
   const int md = tb.mdof, cf = tb.cfree, me = tb.srows();
+  const bool servo = fsp == nullptr;   // as ops/tick_cuda.py::PackedPre.servo
   Arena<T> pa{const_cast<T*>(prep), B, 0};
-  const Pre<T> pre(pa, tb);
+  const Pre<T> pre(pa, tb, servo);
   Arena<T> oa{outp, B, 0};
   Out<T> out(oa, tb);
   Arena<T> woa{warm_out, B, 0};
@@ -104,7 +105,7 @@ DWBC_HD void qpchain_lane(const T* table, const T* prep, const T* fsp,
       for (int r = 0; r < tb.mrows(); ++r) wo.lam[h][r] = wi.lam[h][r];
     }
   }
-  V<T> fs{const_cast<T*>(fsp), B};
+  const V<T> fs = servo ? pre.fstar : V<T>{const_cast<T*>(fsp), B};
 
   for (int i = 0; i < md; ++i) {
     w.tau_task[i] = (T)0;
@@ -223,13 +224,14 @@ __global__ void __launch_bounds__(32)
                         float* ws, int B, int iters) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  dwbc::qpchain_lane<float>(table, pre + b, fs + b,
+  dwbc::qpchain_lane<float>(table, pre + b, fs ? fs + b : nullptr,
                             warm_in ? warm_in + b : nullptr, out + b,
                             warm_out + b, ws + b, (long long)B, iters);
 }
 
-// pre (pre_elems, B), fs (Σ task dofs, B), warm_in (warm_elems, B) or null
-// for a cold tick, out (out_elems, B), warm_out (warm_elems, B), ws
+// pre (pre_elems, B), fs (Σ task dofs, B), or fs null and pre (pre_elems
+// with the servo section, B) for a servo'd tick, warm_in (warm_elems, B) or
+// null for a cold tick, out (out_elems, B), warm_out (warm_elems, B), ws
 // (qpchain_ws_elems, B): float32, contiguous, on the device; launched on
 // `stream`, no synchronisation.
 extern "C" int dwbc_tick_qpchain(const float* table, const float* pre,

@@ -7,7 +7,10 @@ double support with 6D feet on links 6 and 12, a 6D pelvis task over a
 rotation task on link 15, torques limited to ±300 Nm.  Its masked form
 takes the two feet as a candidate set and one support hypothesis per
 scenario (``_masked_inputs``: the 4096-scenario sweep of
-``benchmarks/masked_bench.py``).
+``benchmarks/masked_bench.py``).  Its servo'd form drives both task levels
+by the on-device trajectory-PD servo (``_servo_inputs``: moving states
+with per-lane targets and clocks; ``_tracking_inputs``: a standing robot
+whose pelvis steps 1 cm, for the closed loop).
 """
 
 from __future__ import annotations
@@ -17,9 +20,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .kin.engine import Kinematics
+from .kin.rotations import axis_angle_matrix
 from .model.compile import RobotModel
 from .wbc.fused import FusedTick
-from .wbc.pipeline import CompiledTick, standard_tocabi_config
+from .wbc.pipeline import CompiledTick, make_servo, standard_tocabi_config
 
 MODEL_PATH = Path(__file__).resolve().parent.parent / "models" / "tocabi.npz"
 
@@ -82,3 +87,62 @@ def _masked_inputs(model, B=4096, seed=0):
               np.tile(np.array([0.05, 0, 0], np.float32), (B, 1)))
     masks = np.array([[1, 1], [1, 0], [0, 1]], np.float32)[np.arange(B) % 3]
     return qs, qds, fstars, masks
+
+
+def _link_frames(model, q):
+    """(pelvis position (B, 3), pelvis rotation (B, 3, 3), link-15 rotation
+    (B, 3, 3)) of the states q (B, nq), in float64."""
+    fk = Kinematics(model).fk(torch.as_tensor(np.asarray(q, np.float64)))
+    return fk.p[:, 0], fk.R[:, 0], fk.R[:, 15]
+
+
+def _servo_inputs(model, B=1024, seed=0, dtype=np.float32):
+    """The servo'd flagship's inputs (q, q̇, f* in numpy, servos as
+    ``ServoParams`` of CPU tensors), all in ``dtype``: the standing q with
+    0.02·N(0,1) on the joints and q̇ = 0.05·N(0,1) on all dofs (the base
+    moves); a pelvis 6D servo (level 0) to a per-lane target, its position
+    p₀ + U[−0.02, 0.02]³ and its rotation R₀ turned about z by U[−0.05,
+    0.05] rad, gains 400 / 40, position error clamped at 0.1; a rotation
+    servo of link 15 (level 1) holding its rotation, gains 200 / 20; the
+    trajectories over t0 = 0, tf = 0.2 and a per-lane clock t in
+    U[−0.05, 0.25], so lanes sit before, inside and after them."""
+    rng = np.random.default_rng(seed)
+    q0, _, f0 = _example_inputs(model, np.float64)
+    q = np.tile(q0, (B, 1))
+    q[:, 6:6 + model.model_dof] += 0.02 * rng.standard_normal((B, model.model_dof))
+    qd = 0.05 * rng.standard_normal((B, model.ndof))
+    fs = tuple(np.tile(f, (B, 1)) + 0.05 * rng.standard_normal((B, f.shape[0])) for f in f0)
+    p0, R0, R15 = _link_frames(model, q)
+    turn = axis_angle_matrix(torch.tensor([0.0, 0.0, 1.0], dtype=torch.float64),
+                             torch.as_tensor(rng.uniform(-0.05, 0.05, B)))
+    t = torch.as_tensor(rng.uniform(-0.05, 0.25, B))
+    dp = torch.as_tensor(rng.uniform(-0.02, 0.02, (B, 3)))
+    tdt = torch.from_numpy(np.zeros((), dtype)).dtype
+    pelvis = make_servo(pos_init=p0, pos_des=p0 + dp, rot_init=R0, rot_des=turn @ R0,
+                        t=t, t0=0.0, tf=0.2, pos_p=400.0, pos_d=40.0, rot_p=400.0,
+                        rot_d=40.0, max_p_err=0.1, dtype=tdt)
+    torso = make_servo(rot_init=R15, rot_des=R15, t=t, t0=0.0, tf=0.2, rot_p=200.0,
+                       rot_d=20.0, dtype=tdt)
+    return (q.astype(dtype), qd.astype(dtype), tuple(f.astype(dtype) for f in fs),
+            ((pelvis,), (torso,)))
+
+
+def _tracking_inputs(model, B=1024, step=0.01, tf=0.12, dtype=np.float32):
+    """The closed loop's inputs (q, q̇, f* in numpy, servos): B standing
+    robots at rest, lane b's pelvis servo'd to a ``step`` m move in the
+    horizontal direction 2πb/B over [0, tf] (gains 400 / 40, rotation
+    held), link 15's rotation held (gains 100 / 20, tf 0.01).  Returns also
+    the pelvis targets (B, 3)."""
+    q0, qd0, f0 = _example_inputs(model, np.float64)
+    q, qd = np.tile(q0, (B, 1)), np.tile(qd0, (B, 1))
+    fs = tuple(np.zeros((B, f.shape[0])) for f in f0)
+    p0, R0, R15 = _link_frames(model, q)
+    phi = 2.0 * np.pi * np.arange(B) / B
+    target = p0 + step * torch.as_tensor(np.stack([np.cos(phi), np.sin(phi), 0.0 * phi], 1))
+    tdt = torch.from_numpy(np.zeros((), dtype)).dtype
+    pelvis = make_servo(pos_init=p0, pos_des=target, rot_init=R0, rot_des=R0, t0=0.0, tf=tf,
+                        pos_p=400.0, pos_d=40.0, rot_p=400.0, rot_d=40.0, dtype=tdt)
+    torso = make_servo(rot_init=R15, rot_des=R15, t0=0.0, tf=0.01, rot_p=100.0, rot_d=20.0,
+                       dtype=tdt)
+    return (q.astype(dtype), qd.astype(dtype), tuple(f.astype(dtype) for f in fs),
+            ((pelvis,), (torso,)), target.numpy())

@@ -7,6 +7,13 @@ rule: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel, or the call raises (dtype other than float32, a wrong shape,
 device or layout, a failed build, a refused launch).  Nothing falls back.
 
+A servo'd tick is still these two launches: ``tick_prestage`` also takes
+q̇, the caller's f* and the servo buffer (``pack_servos``), and writes the
+servo'd f* into a section of its output, from which ``tick_qpchain`` reads
+them.  A packed prestage (``PackedPre``) carries whether it has that
+section; its layout, its packing and the f* the QP chain reads follow from
+that one flag.
+
 Each wrapper adds one to ``launches[name]`` where it launches its kernel.
 Outputs and workspace are allocated here with ``torch.empty``; the kernels
 run on the current stream, allocate nothing and do not synchronise.
@@ -16,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -23,7 +31,7 @@ from torch import nn
 
 from ..wbc import types as T
 from . import _build
-from .tick_kernel import _POS, _SIX
+from .tick_kernel import _POS, _SIX, SERVO_ELEM_SHAPES
 
 # ---- packed kernel table: header slots and caps (csrc/tick_common.cuh)
 HDR = 32
@@ -51,6 +59,29 @@ PRE_TOL_MASKED = {"torque_grav": 5e-2, "P_C": 1e-2, "Jbar_act": 5e-4, "NwJw": 5e
                   "Ntorques": 1e-1, "Atemp": 2e-4, "bA0": 6e-3, "health": 3e-6}
 QP_TOL_MASKED = {"torque_grav": 1e-6, "torque_task": 4e-4, "torque_contact": 1e-6,
                  "torque_cmd": 5e-4, "contact_force": 4e-3, "health": 1e-6}
+
+# The servo'd prestage's extra outputs against the plain float64 prestage
+# and _apply_servos_el, on the servo'd inputs of chip_smoke.py
+# (entry._servo_inputs, batch 1024, seed 0; masked: per hypothesis): the
+# servo'd f* and the task-link states, about ten times what an H100 showed
+# (5.8e-5, 2.8e-9, 7.3e-9, 1.05e-7, 1.5e-8; plain float32's own alike).
+SERVO_TOL = {"fstars": 6e-4, "task_pos": 3e-8, "task_vel": 8e-8, "task_rot": 1.1e-6,
+             "task_w": 2e-7}
+
+# Servo'd QP chains sit on active constraints, where float32 itself is far
+# from float64 (chip_smoke.py phase 12 prints each lane's distance) and two
+# float32 solves of the same recurrence part by roundoff on a few lanes
+# (phase 12 also prints on how many the plain float32 QP chain parts from
+# itself when its inputs move by one ulp).  A servo'd comparison therefore
+# holds each lane to the larger of the flagship's limit and SERVO_OWN times
+# that lane's float32 distance from float64, and lets at most
+# SERVO_LANES_OVER of the lanes exceed it.
+SERVO_OWN, SERVO_LANES_OVER = 4.0, 0.1
+
+# the ServoParams fields in the order of the servo buffer (csrc/servo.cuh::ServoIn)
+SERVO_FIELDS = tuple(sorted(SERVO_ELEM_SHAPES))
+SERVO_ELEMS = sum(math.prod(SERVO_ELEM_SHAPES[f]) for f in SERVO_FIELDS)
+TASK_STATE = (("task_pos", (3,)), ("task_vel", (3,)), ("task_rot", (3, 3)), ("task_w", (3,)))
 
 
 def kernel_unsupported(plan) -> str | None:
@@ -106,15 +137,20 @@ def kernel_table(plan) -> np.ndarray:
     return np.concatenate([np.asarray(s, np.float64).ravel() for s in sections])
 
 
-def pre_layout(plan):
+def pre_layout(plan, servo=False):
     """(name, elem shape) of the prestage buffer, in kernel order
-    (csrc/tick_common.cuh::Pre)."""
+    (csrc/tick_common.cuh::Pre); servo: with the servo section (the f* of
+    every level, then every level's task-link state)."""
     lay = [("torque_grav", (plan.mdof,)), ("P_C", (plan.cdof,)),
            ("Jbar_act", (plan.cdof, plan.mdof)), ("NwJw", (plan.mdof, plan.cfree))]
     lay += [(f"Ntorques.{h}", (plan.mdof, t)) for h, t in enumerate(plan.level_tdofs)]
     lay += [("Atemp", (plan.k_rows, plan.mdof)), ("bA0", (plan.k_rows,)), ("health", ())]
     if plan.masked:
         lay += [("crow_mask", (plan.k_rows,)), ("active_cdof", ())]
+    if servo:
+        lay += [(f"fstars.{h}", (t,)) for h, t in enumerate(plan.level_tdofs)]
+        lay += [(f"{name}.{h}", shape) for h in range(len(plan.level_tdofs))
+                for name, shape in TASK_STATE]
     return lay
 
 
@@ -134,6 +170,67 @@ def warm_layout(plan):
 
 def _elems(layout):
     return sum(math.prod(shape) for _, shape in layout)
+
+
+def lane_err(a, b):
+    """Max abs difference of two (elem..., lanes) tensors, per lane (float64,
+    on the CPU)."""
+    d = a.detach().double().cpu() - b.detach().double().cpu()
+    return d.abs().reshape(-1, d.shape[-1]).amax(0)
+
+
+def servo_lanes_over(err, own, tol):
+    """(lanes whose err exceeds max(tol, SERVO_OWN·own), lanes allowed to):
+    err and own per lane."""
+    over = int((err > torch.clamp_min(SERVO_OWN * own, tol)).sum())
+    return over, int(SERVO_LANES_OVER * err.numel())
+
+
+class PackedPre(NamedTuple):
+    """A prestage buffer (elements, B) and whether it carries the servo
+    section (every level's f* and task-link state), from which
+    tick_qpchain then reads its f*."""
+    buf: torch.Tensor
+    servo: bool
+
+
+def servo_mask(servos, plan):
+    """The kernel's level mask of a servo request (bit h: level h servo'd),
+    or raise where the kernel cannot take it."""
+    if servos is None:
+        return 0
+    if len(servos) > len(plan.task_slots):
+        raise ValueError(f"servos for {len(servos)} levels, the tick has "
+                         f"{len(plan.task_slots)}")
+    mask = 0
+    for h, lvl in enumerate(servos):
+        if lvl is None:
+            continue
+        if len(lvl) != len(plan.task_slots[h]):
+            raise ValueError(f"level {h}: {len(lvl)} servo entries for "
+                             f"{len(plan.task_slots[h])} task specs")
+        if lvl[0] is not None:
+            mask |= 1 << h
+    return mask
+
+
+def pack_servos(servos, plan, B):
+    """The servo buffer (SERVO_ELEMS per servo'd level, B): each servo'd
+    level's fields (element-leading dicts, (elem...)+(B,)) in SERVO_FIELDS
+    order, levels in order.  Values pass as they are: a +inf clamp stays
+    +inf."""
+    parts, mask = [], servo_mask(servos, plan)
+    for h in range(len(plan.task_slots)):
+        if (mask >> h) & 1:
+            d = servos[h][0]
+            for f in SERVO_FIELDS:
+                t = d[f]
+                want = SERVO_ELEM_SHAPES[f] + (B,)
+                if tuple(t.shape) != want:
+                    raise ValueError(f"servo level {h} {f}: shape {tuple(t.shape)}, "
+                                     f"expected {want}")
+                parts.append(t.reshape(-1, B))
+    return torch.cat(parts, 0).contiguous()
 
 
 def _unpack(buf, layout):
@@ -167,11 +264,13 @@ class TickKernels(nn.Module):
         lib = _build.library()
         if self._sizes is None:
             host = self._table_host.ctypes.data_as(ctypes.c_void_p)
-            sizes = dict(pre=lib.dwbc_pre_elems(host), out=lib.dwbc_out_elems(host),
+            sizes = dict(pre=lib.dwbc_pre_elems(host, 0),
+                         pre_servo=lib.dwbc_pre_elems(host, 1), out=lib.dwbc_out_elems(host),
                          warm=lib.dwbc_warm_elems(host),
                          ws_pre=lib.dwbc_prestage_ws_elems(host),
                          ws_qp=lib.dwbc_qpchain_ws_elems(host))
             want = dict(pre=_elems(pre_layout(self.plan)),
+                        pre_servo=_elems(pre_layout(self.plan, servo=True)),
                         out=_elems(out_layout(self.plan)),
                         warm=_elems(warm_layout(self.plan)))
             for k, v in want.items():
@@ -198,52 +297,80 @@ class TickKernels(nn.Module):
             raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
     # --------------------------------------------------------- packed API
-    def prestage_packed(self, q, cmask=None):
+    def prestage_packed(self, q, cmask=None, qdot=None, fstars=None, servos=None):
         """q (nq, B) float32 on the device, and in masked mode the 0/1
-        contact mask cmask (nc, B) → prestage buffer (pre_elems, B)."""
+        contact mask cmask (nc, B) → ``PackedPre``.  With servos (per level
+        None or a per-spec tuple of element-leading dicts; the kernel takes
+        a servo on a level's one task): also qdot (ndof, B) and f* per level
+        (t, B), and the buffer carries the servo section."""
         B = q.shape[-1]
-        self._check("q", q, (self.plan.nq, B))
-        if (cmask is not None) != self.plan.masked:
+        plan = self.plan
+        self._check("q", q, (plan.nq, B))
+        if (cmask is not None) != plan.masked:
             raise ValueError("cmask goes with a masked plan, and only there")
         if cmask is not None:
-            self._check("cmask", cmask, (len(self.plan.cfg.contacts), B))
+            self._check("cmask", cmask, (len(plan.cfg.contacts), B))
+        smask = servo_mask(servos, plan)
+        fs = sv = None
+        if smask:
+            if qdot is None or fstars is None:
+                raise ValueError("a servo'd prestage needs qdot and f*")
+            self._check("qdot", qdot, (plan.ndof, B))
+            self._check_fstars(fstars, B)
+            fs = torch.cat(list(fstars), 0)
+            sv = pack_servos(servos, plan, B)
+            self._check("servo buffer", sv, (SERVO_ELEMS * bin(smask).count("1"), B))
         lib, sz = self._lib_and_sizes()
-        pre = torch.empty((sz["pre"], B), dtype=torch.float32, device=q.device)
+        pre = torch.empty((sz["pre_servo" if smask else "pre"], B), dtype=torch.float32,
+                          device=q.device)
         ws = torch.empty((sz["ws_pre"], B), dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dwbc_tick_prestage(self.table.data_ptr(), q.data_ptr(),
                                     None if cmask is None else cmask.data_ptr(),
+                                    None if not smask else qdot.data_ptr(),
+                                    None if not smask else fs.data_ptr(),
+                                    None if not smask else sv.data_ptr(), smask,
                                     pre.data_ptr(), ws.data_ptr(), B, stream)
         self._raise_on(rc, "tick_prestage")
         self.launches["tick_prestage"] += 1
-        return pre
+        return PackedPre(pre, smask != 0)
 
-    def qpchain_packed(self, pre, fstars, warm, iters):
-        """Prestage buffer, f* per level, warm (x, λ) per QP or None →
-        (result buffer (out_elems, B), warm buffer (warm_elems, B))."""
-        B = pre.shape[-1]
-        lib, sz = self._lib_and_sizes()
-        self._check("pre", pre, (sz["pre"], B))
+    def _check_fstars(self, fstars, B):
         if len(fstars) != len(self.plan.level_tdofs):
             raise ValueError(f"{len(fstars)} f* for {len(self.plan.level_tdofs)} task levels")
+        for h, (f, t) in enumerate(zip(fstars, self.plan.level_tdofs)):
+            self._check(f"fstars[{h}]", f, (t, B))
+
+    def qpchain_packed(self, pre, fstars, warm, iters):
+        """``PackedPre``, f* per level (None for a servo'd buffer, whose
+        servo section holds them), warm (x, λ) per QP or None → (result
+        buffer (out_elems, B), warm buffer (warm_elems, B))."""
+        buf = pre.buf
+        B = buf.shape[-1]
+        lib, sz = self._lib_and_sizes()
+        self._check("pre", buf, (sz["pre_servo" if pre.servo else "pre"], B))
+        if (fstars is None) != pre.servo:
+            raise ValueError("a servo'd prestage buffer brings its own f*, any other "
+                             "needs the caller's")
         if warm is not None and len(warm) != len(self.plan.qp_dims):
             raise ValueError(f"warm state for {len(warm)} QPs, the tick has "
                              f"{len(self.plan.qp_dims)}")
-        for h, (f, t) in enumerate(zip(fstars, self.plan.level_tdofs)):
-            self._check(f"fstars[{h}]", f, (t, B))
-        fs = torch.cat(list(fstars), 0)
+        fs = None                   # null: the kernel reads the servo section
+        if not pre.servo:
+            self._check_fstars(fstars, B)
+            fs = torch.cat(list(fstars), 0)
         win = None
         if warm is not None:
             for h, ((x, lam), (nv, m)) in enumerate(zip(warm, self.plan.qp_dims)):
                 self._check(f"warm[{h}].x", x, (nv, B))
                 self._check(f"warm[{h}].lam", lam, (m, B))
             win = torch.cat([t for xl in warm for t in xl], 0)
-        out = torch.empty((sz["out"], B), dtype=torch.float32, device=pre.device)
-        wout = torch.empty((sz["warm"], B), dtype=torch.float32, device=pre.device)
-        ws = torch.empty((sz["ws_qp"], B), dtype=torch.float32, device=pre.device)
-        stream = torch.cuda.current_stream(pre.device).cuda_stream
+        out = torch.empty((sz["out"], B), dtype=torch.float32, device=buf.device)
+        wout = torch.empty((sz["warm"], B), dtype=torch.float32, device=buf.device)
+        ws = torch.empty((sz["ws_qp"], B), dtype=torch.float32, device=buf.device)
+        stream = torch.cuda.current_stream(buf.device).cuda_stream
         rc = lib.dwbc_tick_qpchain(
-            self.table.data_ptr(), pre.data_ptr(), fs.data_ptr(),
+            self.table.data_ptr(), buf.data_ptr(), None if fs is None else fs.data_ptr(),
             None if win is None else win.data_ptr(), out.data_ptr(),
             wout.data_ptr(), ws.data_ptr(), B, int(iters), stream)
         self._raise_on(rc, "tick_qpchain")
@@ -251,19 +378,39 @@ class TickKernels(nn.Module):
         return out, wout
 
     # ---------------------------------- the plain version's interface
-    def unpack_pre(self, buf):
-        d = _unpack(buf, pre_layout(self.plan))
-        d["Ntorques"] = [d.pop(f"Ntorques.{h}") for h in range(len(self.plan.level_tdofs))]
+    # A servo'd prestage dict also holds "fstars" (the f* of every level)
+    # and "task_states" {(level, 0): (pos, vel, rot, w)}.
+    def unpack_pre(self, pre):
+        """``PackedPre`` → prestage dict."""
+        nlev = len(self.plan.level_tdofs)
+        d = _unpack(pre.buf, pre_layout(self.plan, pre.servo))
+        d["Ntorques"] = [d.pop(f"Ntorques.{h}") for h in range(nlev)]
+        if pre.servo:
+            d["fstars"] = [d.pop(f"fstars.{h}") for h in range(nlev)]
+            d["task_states"] = {(h, 0): tuple(d.pop(f"{n}.{h}") for n, _ in TASK_STATE)
+                                for h in range(nlev)}
         return d
 
     def pack_pre(self, pre):
+        """``PackedPre`` of a prestage dict; a servo'd dict (one that holds
+        its "fstars") gets the servo section (a level without a task state
+        gets zeros there, which the QP chain does not read)."""
         B = pre["torque_grav"].shape[-1]
+        servo = "fstars" in pre
         parts = []
-        for name, _ in pre_layout(self.plan):
-            t = (pre["Ntorques"][int(name.split(".")[1])]
-                 if name.startswith("Ntorques.") else pre[name])
+        for name, shape in pre_layout(self.plan, servo):
+            key, _, h = name.partition(".")
+            if key in ("Ntorques", "fstars"):
+                t = pre[key][int(h)]
+            elif key.startswith("task_"):
+                st = pre["task_states"].get((int(h), 0))
+                t = (torch.zeros(shape + (B,), dtype=pre["torque_grav"].dtype,
+                                 device=pre["torque_grav"].device) if st is None
+                     else st[[n for n, _ in TASK_STATE].index(key)])
+            else:
+                t = pre[name]
             parts.append(t.reshape(-1, B))
-        return torch.cat(parts, 0)
+        return PackedPre(torch.cat(parts, 0), servo)
 
     def unpack_result(self, out, wout):
         res = _unpack(out, out_layout(self.plan))
@@ -272,22 +419,29 @@ class TickKernels(nn.Module):
                                 for h in range(len(self.plan.qp_dims)))
         return res
 
-    def prestage(self, q, cmask=None):
-        """tick_prestage; the plain prestage for a CPU tensor."""
+    def prestage(self, q, cmask=None, qdot=None, fstars=None, servos=None):
+        """tick_prestage; for a CPU tensor the plain prestage (with servos
+        ``prestage_servo``)."""
         if q.device.type == "cpu":
-            return self.prog.prestage(q, cmask)
-        return self.unpack_pre(self.prestage_packed(q, cmask))
+            if servos is None:
+                return self.prog.prestage(q, cmask)
+            return self.prog.prestage_servo(q, cmask, qdot, fstars, servos)
+        return self.unpack_pre(self.prestage_packed(q, cmask, qdot, fstars, servos))
 
     def qpchain(self, pre, fstars, warm=None, iters=25):
-        """tick_qpchain; the plain qpchain for CPU tensors."""
+        """tick_qpchain; the plain qpchain for CPU tensors.  A servo'd
+        prestage dict brings its own f*."""
         if pre["torque_grav"].device.type == "cpu":
-            return self.prog.qpchain(pre, fstars, warm=warm, iters=iters)
-        return self.unpack_result(*self.qpchain_packed(self.pack_pre(pre), fstars,
-                                                       warm, iters))
+            return self.prog.qpchain(pre, pre.get("fstars", fstars), warm=warm, iters=iters)
+        packed = self.pack_pre(pre)
+        return self.unpack_result(*self.qpchain_packed(
+            packed, None if packed.servo else fstars, warm, iters))
 
-    def tick(self, q, fstars, warm=None, iters=25, cmask=None):
+    def tick(self, q, fstars, warm=None, iters=25, cmask=None, qdot=None, servos=None):
         """Both kernels back to back; the plain tick for a CPU tensor."""
         if q.device.type == "cpu":
-            return self.prog.tick(q, fstars, warm=warm, iters=iters, cmask=cmask)
-        return self.unpack_result(*self.qpchain_packed(self.prestage_packed(q, cmask),
-                                                       fstars, warm, iters))
+            return self.prog.tick(q, fstars, warm=warm, iters=iters, cmask=cmask, qdot=qdot,
+                                  servos=servos)
+        pre = self.prestage_packed(q, cmask, qdot, fstars, servos)
+        return self.unpack_result(*self.qpchain_packed(pre, None if pre.servo else fstars,
+                                                       warm, iters))

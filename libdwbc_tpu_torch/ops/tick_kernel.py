@@ -1,15 +1,20 @@
 """The fused WBC tick, element-leading, in plain PyTorch: q → τ.
 
 Counterpart of ``libdwbc_tpu/ops/tick_kernel.py::TickProgram``, static and
-masked (a candidate contact set with a per-scenario contact mask), without
-the on-device servo.  It is the plain version of the two CUDA kernels in
-``csrc/`` and has the same stage boundary:
+masked (a candidate contact set with a per-scenario contact mask), with the
+on-device trajectory-PD servo.  It is the plain version of the two CUDA
+kernels in ``csrc/`` and has the same stage boundary:
 
-* ``prestage(q, cmask) -> dict``: forward kinematics with a quaternion base, dof
+* ``prestage(q, cmask, qdot, servo_req) -> dict``: forward kinematics with a quaternion base, dof
   frames, point jacobians, the world-origin composite-rigid-body mass matrix
   A, G = −A[0:3]ᵀg, A⁻¹, the contact space (J_C, Mc, Λc, J̄c, P_C, rank
   health), the kernel basis V2, the factored W-apply, NwJw, τ_grav, the
-  per-level JKT and Ntorque, and the constraint rows Atemp, bA0;
+  per-level JKT and Ntorque, and the constraint rows Atemp, bA0; with a
+  servo request also the per-body velocities and each servo'd task link's
+  (pos, vel, rot, w);
+* ``_apply_servos_el(pre, fstars, servos)``: each servo'd task link's f*
+  rows from its trajectory PD (``_servo_fstar_el``), blended by use_pos /
+  use_rot;
 * ``qpchain(pre, fstars, warm, iters) -> dict``: the per-level one-sided
   Mehrotra IPMs with mirrored ±τ-limit rows, the redistribution QP, the
   torque sums and the contact force.
@@ -35,6 +40,158 @@ _POS = (T.TASK_LINK_POSITION, T.TASK_LINK_POSITION_COM_FRAME,
 _COM_FRAME = (T.TASK_LINK_6D_COM_FRAME, T.TASK_LINK_POSITION_COM_FRAME)
 _CUSTOM = (T.TASK_LINK_6D_CUSTOM_FRAME, T.TASK_LINK_POSITION_CUSTOM_FRAME,
            T.TASK_LINK_ROTATION_CUSTOM_FRAME)
+
+
+# μ and max |r_p| at or below which the tick IPM stops on a lost Gram pivot
+# (TickProgram._ipm): the tick's failure bars, PipelineConfig.qp_fail_gap /
+# qp_fail_pres (csrc/ipm.cuh::kLostPivotNear)
+LOST_PIVOT_NEAR = 1e-3
+
+# elem shapes of ServoParams fields (wbc/pipeline.py::ServoParams): FusedTick
+# tells batched from unbatched leaves by them, and the CUDA prestage reads a
+# servo'd task's fields in their sorted order (68 values)
+SERVO_ELEM_SHAPES = dict(
+    t=(), t0=(), tf=(), use_pos=(), use_rot=(),
+    pos_init=(3,), vel_init=(3,), pos_des=(3,), vel_des=(3,),
+    w_init=(3,), w_des=(3,), pos_p=(3,), pos_d=(3,), pos_a=(3,),
+    rot_p=(3,), rot_d=(3,), rot_init=(3, 3), rot_des=(3, 3),
+    max_p_err=(6,), max_d_err=(6,),
+)
+
+
+# ---------------------------------------------------------------------------
+# Element-leading rotation and servo primitives: (elem...)+bt counterparts of
+# kin/rotations.py, utils/traj.py::quintic_spline and
+# wbc/pipeline.py::servo_fstar
+# ---------------------------------------------------------------------------
+
+def _quat_to_matrix_el(qv):
+    """(4,)+bt (x, y, z, w) → (3, 3)+bt."""
+    x, y, z, w = qv[0], qv[1], qv[2], qv[3]
+    n = x * x + y * y + z * z + w * w
+    s = torch.where(n > 0, 2.0 / n, torch.zeros_like(n))
+    xs, ys, zs = x * s, y * s, z * s
+    wx, wy, wz = w * xs, w * ys, w * zs
+    xx, xy, xz = x * xs, x * ys, x * zs
+    yy, yz, zz = y * ys, y * zs, z * zs
+    return torch.stack([
+        torch.stack([1.0 - (yy + zz), xy - wz, xz + wy], 0),
+        torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx], 0),
+        torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], 0),
+    ], 0)
+
+
+def _matrix_to_quat_el(R):
+    """(3, 3)+bt → (4,)+bt with w ≥ 0; the four candidates in the order of
+    kin/rotations.py::matrix_to_quat."""
+    m00, m01, m02 = R[0, 0], R[0, 1], R[0, 2]
+    m10, m11, m12 = R[1, 0], R[1, 1], R[1, 2]
+    m20, m21, m22 = R[2, 0], R[2, 1], R[2, 2]
+    tr = m00 + m11 + m22
+
+    def root(x):
+        return torch.sqrt(torch.clamp_min(x, 1e-30)) / 2.0
+
+    qw0 = root(1.0 + tr)
+    q0 = torch.stack([(m21 - m12) / (4 * qw0), (m02 - m20) / (4 * qw0),
+                      (m10 - m01) / (4 * qw0), qw0], 0)
+    qx1 = root(1.0 + m00 - m11 - m22)
+    q1 = torch.stack([qx1, (m01 + m10) / (4 * qx1), (m02 + m20) / (4 * qx1),
+                      (m21 - m12) / (4 * qx1)], 0)
+    qy2 = root(1.0 - m00 + m11 - m22)
+    q2 = torch.stack([(m01 + m10) / (4 * qy2), qy2, (m12 + m21) / (4 * qy2),
+                      (m02 - m20) / (4 * qy2)], 0)
+    qz3 = root(1.0 - m00 - m11 + m22)
+    q3 = torch.stack([(m02 + m20) / (4 * qz3), (m12 + m21) / (4 * qz3), qz3,
+                      (m10 - m01) / (4 * qz3)], 0)
+    use0 = (tr > 0.0)[None]
+    usex = ((m00 >= m11) & (m00 >= m22))[None]
+    usey = (m11 >= m22)[None]
+    q = torch.where(use0, q0, torch.where(usex, q1, torch.where(usey, q2, q3)))
+    return torch.where(q[3:4] < 0, -q, q)
+
+
+def _quat_slerp_el(q0, q1, t):
+    """(4,)+bt, (4,)+bt, (*bt) → (4,)+bt."""
+    d = (q0 * q1).sum(0)
+    q1 = torch.where(d[None] < 0, -q1, q1)
+    d = torch.clamp(d.abs(), -1.0, 1.0)
+    theta = torch.arccos(d)
+    sin_theta = torch.sin(theta)
+    small = sin_theta < 1e-8
+    denom = torch.where(small, 1.0, sin_theta)
+    w0 = torch.where(small, 1.0 - t, torch.sin((1.0 - t) * theta) / denom)
+    w1 = torch.where(small, t, torch.sin(t * theta) / denom)
+    out = w0[None] * q0 + w1[None] * q1
+    return out / torch.sqrt((out * out).sum(0))[None]
+
+
+def _rotation_log_el(R):
+    """(3, 3)+bt → angle·axis (3,)+bt."""
+    tr = R[0, 0] + R[1, 1] + R[2, 2]
+    theta = torch.arccos(torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0))
+    v = torch.stack([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]], 0)
+    sin_t = torch.sin(theta)
+    small = sin_t.abs() < 1e-8
+    scale = torch.where(small, 0.5, theta / (2.0 * torch.where(small, 1.0, sin_t)))
+    return v * scale[None]
+
+
+def _get_phi_el(Rc, Rd):
+    """½ Σ_i col_i(Rc) × col_i(Rd) (DWBC::GetPhi)."""
+    s = el.cross(Rc[:, 0], Rd[:, 0])
+    s = s + el.cross(Rc[:, 1], Rd[:, 1])
+    s = s + el.cross(Rc[:, 2], Rd[:, 2])
+    return 0.5 * s
+
+
+def _quintic_el(t, t0, tf, x0, v0, xf, vf):
+    """Quintic with zero end accelerations on (k,)+bt end points and (*bt)
+    clocks (quintic_spline with a0 = af = 0)."""
+    ts = tf - t0
+    ts3, ts4, ts5 = ts**3, ts**4, ts**5
+    b1 = xf - x0 - v0 * ts[None]
+    b2 = vf - v0
+    a4 = (20.0 * b1 - 8.0 * b2 * ts[None]) / (2.0 * ts3)[None]
+    a5 = (-30.0 * b1 + 14.0 * b2 * ts[None]) / (2.0 * ts4)[None]
+    a6 = (12.0 * b1 - 6.0 * b2 * ts[None]) / (2.0 * ts5)[None]
+    tc = (torch.minimum(torch.maximum(t, t0), tf) - t0)[None]
+    pos = x0 + v0 * tc + a4 * tc**3 + a5 * tc**4 + a6 * tc**5
+    vel = v0 + 3 * a4 * tc**2 + 4 * a5 * tc**3 + 5 * a6 * tc**4
+    acc = 6 * a4 * tc + 12 * a5 * tc**2 + 20 * a6 * tc**3
+    before, after = (t < t0)[None], (t > tf)[None]
+    pos = torch.where(before, x0, torch.where(after, xf, pos))
+    vel = torch.where(before, v0, torch.where(after, vf, vel))
+    acc = torch.where(before | after, 0.0, acc)
+    return pos, vel, acc
+
+
+def _servo_fstar_el(sp, pos, vel, rot, w):
+    """The trajectory and PD servo of one task link, element-leading: sp
+    holds the ServoParams fields as (elem...)+bt tensors.  Returns (6,)+bt
+    [f*_pos; f*_rot]."""
+    def clip(x, lim):
+        return torch.minimum(torch.maximum(x, -lim), lim)
+
+    pos_traj, vel_traj, acc_traj = _quintic_el(
+        sp["t"], sp["t0"], sp["tf"], sp["pos_init"], sp["vel_init"], sp["pos_des"],
+        sp["vel_des"])
+    p_err = clip(pos_traj - pos, sp["max_p_err"][0:3])
+    d_err = clip(vel_traj - vel, sp["max_d_err"][0:3])
+    f_pos = sp["pos_a"] * acc_traj + sp["pos_p"] * p_err + sp["pos_d"] * d_err
+
+    z = torch.zeros_like(sp["t"])[None]
+    s_sc, sd_sc, _ = _quintic_el(sp["t"], sp["t0"], sp["tf"], z, z, z + 1.0, z)
+    s_sc, sd_sc = s_sc[0], sd_sc[0]
+    q0 = _matrix_to_quat_el(sp["rot_init"])
+    qf = _matrix_to_quat_el(sp["rot_des"])
+    rot_traj = _quat_to_matrix_el(_quat_slerp_el(q0, qf, s_sc))
+    aa = _rotation_log_el(el.mmT(sp["rot_des"], sp["rot_init"]))
+    w_traj = aa * sd_sc[None] + torch.where(s_sc[None] >= 1.0, sp["w_des"], 0.0)
+    r_err = clip(_get_phi_el(rot, rot_traj), sp["max_p_err"][3:6])
+    wd_err = clip(w_traj - w, sp["max_d_err"][3:6])
+    f_rot = sp["rot_p"] * r_err + sp["rot_d"] * wd_err
+    return torch.cat([f_pos, f_rot], 0)
 
 
 def _np_zmp_block(lx, ly):
@@ -185,7 +342,11 @@ class TickPlan:
 class TickProgram(nn.Module):
     """Plain element-leading tick for one configuration.  The model's
     constant tables are buffers in ``dtype`` on ``device``.  masked=True:
-    the multi-contact-mode tick over a candidate set (see ``TickPlan``)."""
+    the multi-contact-mode tick over a candidate set (see ``TickPlan``).
+
+    ``hold_lost_pivots`` (default True): the IPM's handling of a lost Gram
+    pivot (``_ipm``); False runs the JAX package's recurrence, which steps
+    from the clamped factor, for comparisons."""
 
     def __init__(self, model, cfg, device, dtype, masked=False):
         super().__init__()
@@ -193,15 +354,19 @@ class TickProgram(nn.Module):
 
         self.plan = TickPlan(model, cfg, masked=masked)
         self.dtype = dtype
+        self.hold_lost_pivots = True
         for name, t in tick_tables(model, cfg, device, dtype).items():
             self.register_buffer(name, t, persistent=False)
 
     # ----------------------------------------------------------- prestage
-    def prestage(self, q, cmask=None):
+    def prestage(self, q, cmask=None, qdot=None, servo_req=None):
         """q (nq,)+bt → dict of what the QP chain and the result need.
         cmask (nc,)+bt: per-scenario 0/1 activity of each candidate contact
         (masked mode only); the dict then also holds ``crow_mask``
-        (k_rows,)+bt and ``active_cdof`` (*bt)."""
+        (k_rows,)+bt and ``active_cdof`` (*bt).  servo_req: per level, per
+        task spec, whether the spec is servo'd; the dict then holds
+        ``task_states[(level, spec)] = (pos, vel, rot, w)`` of each, from the
+        per-body velocities of qdot (ndof,)+bt."""
         P = self.plan
         dtype = q.dtype
         f32 = dtype == torch.float32
@@ -329,6 +494,37 @@ class TickProgram(nn.Module):
                     acc = acc - U[i2, k2][None] * xs_[k2]
                 xs_[i2] = acc / U[i2, i2][None]
             out["Jcom_total"] = torch.cat([A[0:3] / M, torch.stack(xs_, 0)], 0)
+
+        # ---------------- servo'd task links' states (pipeline._task_state)
+        if servo_req is not None and any(any(lv) for lv in servo_req):
+            if qdot is None:
+                raise ValueError("a servo'd tick needs qdot")
+            # per-body angular and origin velocities, world frame
+            w_b, v_b = [el.mv(R0, qdot[3:6])], [qdot[0:3]]
+            for i in range(1, P.nbody):
+                par = P.parent[i]
+                w_b.append(w_b[par] + axis_w[i] * qdot[P.q_index[i]][None])
+                v_b.append(v_b[par] + el.cross(w_b[par], p[i] - p[par]))
+            tstates = {}
+            for h, lv in enumerate(servo_req):
+                for j, need in enumerate(lv):
+                    if not need:
+                        continue
+                    kind, slot, _ = P.task_slots[h][j]
+                    if kind == "tot":
+                        M = float(P.model.total_mass)
+                        skm = el.mm(R0, A[3:6, 0:3]) / M
+                        cpos = torch.stack([skm[2, 1], skm[0, 2], skm[1, 0]], 0) + q[0:3]
+                        cvel = el.mv(out["Jcom_total"], qdot)[0:3]
+                        tstates[(h, j)] = (cpos, cvel, el.eye(3, zero), torch.zeros_like(cpos))
+                        continue
+                    link, pt = P.points[slot]
+                    ppos, pvel = p[link], v_b[link]
+                    if any(pt):
+                        rr = el.mv(R[link], c_(self.pt_off[slot]))
+                        ppos, pvel = ppos + rr, pvel + el.cross(w_b[link], rr)
+                    tstates[(h, j)] = (ppos, pvel, R[link], w_b[link])
+            out["task_states"] = tstates
 
         # ---------------- contact jacobian rows (per contact type; masked:
         # 6 padded rows per candidate, LINE moment rows contact-local so the
@@ -482,6 +678,7 @@ class TickProgram(nn.Module):
         over the m = me + mirror rows.  Returns (x, s, lam, gap, pres)."""
         dtype = C.dtype
         f32 = dtype == torch.float32
+        hold = self.hold_lost_pivots
         n, me = C.shape[1], C.shape[0]
         mr = mirror
         m = me + mr
@@ -507,19 +704,26 @@ class TickProgram(nn.Module):
 
         def chol_d(K):
             """Right-looking Cholesky, sqrt pivots clamped at 1e-30; also,
-            per lane, whether a pivot was lost: fell to the clamp, or at
-            float32 below 1e-6 of its diagonal entry before elimination."""
+            per lane, whether a pivot was lost: fell to the clamp or, at
+            float32, below 1e-6 of its diagonal entry before elimination (in
+            float32 near convergence λ/s ~ 1e6 cancels a pivot of ~1 to
+            noise or ≤ 0; on active constraints far from it the Gram is as
+            ill-conditioned).  A lost pivot's reciprocal is 0 and its column
+            leaves the elimination, so a step holds that variable (its dx is
+            0) and moves the others (Wright's modified Cholesky for IPMs)."""
             L = torch.zeros_like(K)
             inv_diag = []
             S = K
             collapsed = torch.zeros_like(K[0, 0], dtype=torch.bool)
             for j in range(n):
-                lost = ~(S[0, 0] >= 1e-30)
-                if f32:
-                    lost = lost | (S[0, 0] < 1e-6 * K[j, j])
-                collapsed = collapsed | lost
                 dj = torch.sqrt(torch.clamp_min(S[0, 0], 1e-30))
                 inv_d = 1.0 / dj
+                if hold:
+                    lost = ~(S[0, 0] >= 1e-30)
+                    if f32:
+                        lost = lost | (S[0, 0] < 1e-6 * K[j, j])
+                    collapsed = collapsed | lost
+                    inv_d = torch.where(lost, torch.zeros_like(inv_d), inv_d)
                 col = torch.cat([dj[None], S[1:, 0] * inv_d[None]], 0)
                 L[j:, j] = col
                 if j < n - 1:
@@ -583,12 +787,12 @@ class TickProgram(nn.Module):
             else:
                 a_pc = live * torch.minimum(alpha_max(s_, ds), alpha_max(lam, dlam))
                 a_dc = a_pc
-            # skip a non-finite step, and one from a Gram factorization that
-            # lost a pivot: in float32 near convergence λ/s ~ 1e6 cancels a
-            # pivot of ~1 to noise or ≤ 0, and the step then moves x far from
-            # the optimum at a small gap (warm single-support masked lanes).
-            # A healthy float64 solve never reaches the clamp
-            ok = ((dx * 0.0).sum(0) == 0.0) & ~fac[6]
+            # skip a non-finite step, and on a lost pivot the step of a lane
+            # already within the failure bars (the guard against moving
+            # a converged lane along float32 noise); any other lane steps
+            # with the lost pivot's variable held (chol_d)
+            near = (mu <= LOST_PIVOT_NEAR) & (fac[2].abs().amax(0) <= LOST_PIVOT_NEAR)
+            ok = ((dx * 0.0).sum(0) == 0.0) & ~(fac[6] & near)
             x = torch.where(ok, x + a_pc[None] * dx, x)
             s_ = torch.where(ok, s_ + a_pc[None] * ds, s_)
             # dual cap: keeps gap and the warm carry finite on ε-infeasible rows
@@ -681,9 +885,63 @@ class TickProgram(nn.Module):
             warm_out=tuple(warm_out),
         )
 
-    def tick(self, q, fstars, warm=None, iters=25, cmask=None):
+    # ------------------------------------------------------------ servos
+    def servo_request(self, servos):
+        """Per level, per task spec: whether ``servos`` (per level None or
+        a tuple of per-spec dict-or-None) servos that spec."""
+        return tuple(
+            tuple(False for _ in slots) if h >= len(servos) or servos[h] is None
+            else tuple(sp is not None for sp in servos[h])
+            for h, slots in enumerate(self.plan.task_slots))
+
+    def _apply_servos_el(self, pre, fstars, servos):
+        """f* per level with the rows of each servo'd task link replaced by
+        its trajectory-PD output (pipeline._apply_servos, element-leading).
+        servos: per level None or a per-spec tuple of dict-or-None, each
+        dict the ServoParams fields as (elem...)+bt tensors."""
+        out_fs = []
+        for h, slots in enumerate(self.plan.task_slots):
+            f = fstars[h]
+            lvl = servos[h] if h < len(servos) else None
+            if lvl is None:
+                out_fs.append(f)
+                continue
+            rows, off = [], 0
+            for j, (_, _, mode) in enumerate(slots):
+                nr = 6 if mode in _SIX else 3
+                fj = f[off:off + nr]
+                off += nr
+                sp = lvl[j]
+                if sp is None:
+                    rows.append(fj)
+                    continue
+                f6 = _servo_fstar_el(sp, *pre["task_states"][(h, j)])
+                up, ur = sp["use_pos"][None], sp["use_rot"][None]
+                if mode in _SIX:
+                    rows.append(torch.cat([up * f6[0:3] + (1.0 - up) * fj[0:3],
+                                           ur * f6[3:6] + (1.0 - ur) * fj[3:6]], 0))
+                elif mode in _POS:
+                    rows.append(up * f6[0:3] + (1.0 - up) * fj)
+                else:
+                    rows.append(ur * f6[3:6] + (1.0 - ur) * fj)
+            out_fs.append(torch.cat(rows, 0))
+        return tuple(out_fs)
+
+    def prestage_servo(self, q, cmask, qdot, fstars, servos):
+        """The servo'd prestage as the CUDA kernel returns it: the fields
+        and task states of ``prestage``, and under "fstars" the f* of every
+        level with the servo's blend."""
+        pre = self.prestage(q, cmask, qdot=qdot, servo_req=self.servo_request(servos))
+        pre["fstars"] = list(self._apply_servos_el(pre, fstars, servos))
+        return pre
+
+    def tick(self, q, fstars, warm=None, iters=25, cmask=None, qdot=None, servos=None):
         """Full tick, element-leading: q (nq,)+bt → result dict.  cmask
-        (nc,)+bt is required in masked mode and refused otherwise."""
+        (nc,)+bt is required in masked mode and refused otherwise; servos
+        (see ``_apply_servos_el``) need qdot (ndof,)+bt."""
         if (cmask is not None) != self.plan.masked:
             raise ValueError("a contact mask goes with masked mode, and only there")
-        return self.qpchain(self.prestage(q, cmask), fstars, warm=warm, iters=iters)
+        if servos is None:
+            return self.qpchain(self.prestage(q, cmask), fstars, warm=warm, iters=iters)
+        pre = self.prestage_servo(q, cmask, qdot, fstars, servos)
+        return self.qpchain(pre, pre["fstars"], warm=warm, iters=iters)

@@ -37,8 +37,8 @@ from . import dynamics as dyn
 from . import types as T
 from .dynamics import ContactSpace, _psd_inv
 from .hqp import solve_contact_redistribution_qp, solve_task_level_qp
-from .pipeline import (_SIX_MODES, TickResult, _plan_jacobians, _resolve_task_jacobian,
-                       qp_error_flag)
+from .pipeline import (_SIX_MODES, TickResult, _apply_servos, _plan_jacobians,
+                       _resolve_task_jacobian, qp_error_flag, servos_to)
 
 
 def _orthonormalize_drop(V):
@@ -193,9 +193,7 @@ class MaskedTick(nn.Module):
                    servos=None):
         """q (B, nq) or (nq,), q̇ alike, f* per level, contact_mask
         (B, nc) or (nc,), warm per QP (x, λ) or None → TickResult, and the
-        warm state out when warm was given."""
-        if servos is not None:
-            raise NotImplementedError("the on-device servo is not ported yet")
+        warm state out when warm was given.  servos: as ``CompiledTick``'s."""
         cfg, bk = self.cfg, self.backend
         m = self.model.model_dof
         nc = len(cfg.contacts)
@@ -207,6 +205,7 @@ class MaskedTick(nn.Module):
         fstars = tuple(as_t(f) for f in fstars)
         if warm is not None:
             warm = tuple((as_t(x), as_t(lam)) for x, lam in warm)
+        servos = servos_to(servos, self.dtype, self.device)
         st = self.kin.update(q, qdot, J_bodies=self._J_bodies, points=self._points)
         fk = FK(R=st.R, p=st.p, axis_w=(st.R @ self.axis[..., None])[..., 0], com_w=st.com_w)
         batch = torch.broadcast_shapes(q.shape[:-1], cmask.shape[:-1])
@@ -251,6 +250,8 @@ class MaskedTick(nn.Module):
                                             st, fk, h, self.dtype)
             tf = dyn.task_jkt(J_task, st.A_inv, cs.N_C, cs.W_inv, backend=bk)
             fstar = fstars[h]
+            if servos is not None and servos[h] is not None:
+                fstar = _apply_servos(self.model, cfg, self.dtype, st, h, fstar, servos[h])
             JktL = tf.J_kt @ tf.Lambda_task
             if cfg.use_hqp:
                 res = solve_task_level_qp(
@@ -301,5 +302,6 @@ class MaskedTick(nn.Module):
         )
         return (result, tuple(warm_out)) if warm is not None else result
 
-    def forward(self, q, qdot, fstars, contact_mask, warm=None, qp_iters=None):
-        return self._tick_impl(q, qdot, fstars, contact_mask, warm=warm, qp_iters=qp_iters)
+    def forward(self, q, qdot, fstars, contact_mask, warm=None, qp_iters=None, servos=None):
+        return self._tick_impl(q, qdot, fstars, contact_mask, warm=warm, qp_iters=qp_iters,
+                               servos=servos)

@@ -1,7 +1,8 @@
-"""The tick's configuration and results, and ``CompiledTick`` (counterpart
-of ``libdwbc_tpu/wbc/pipeline.py``: ``TickResult``, ``qp_error_flag``,
-``PipelineConfig``, ``standard_tocabi_config``, the jacobian plan and
-``CompiledTick``).
+"""The tick's configuration and results, the on-device servo, and
+``CompiledTick`` (counterpart of ``libdwbc_tpu/wbc/pipeline.py``:
+``TickResult``, ``qp_error_flag``, ``ServoParams``, ``make_servo``,
+``servo_fstar``, ``PipelineConfig``, ``standard_tocabi_config``, the
+jacobian plan and ``CompiledTick``).
 
 ``CompiledTick`` is the tick written as batched tensor algebra — kinematics,
 the contact-space factorization, the task hierarchy and its QPs — the
@@ -21,6 +22,8 @@ import torch
 from torch import nn
 
 from ..kin.engine import FK, Kinematics
+from ..kin.rotations import get_phi, matrix_to_quat, quat_slerp, quat_to_matrix, rotation_log
+from ..utils.traj import quintic_spline
 from . import dynamics as dyn
 from . import types as T
 from .hqp import contact_constraint_blocks, solve_contact_redistribution_qp, solve_task_level_qp
@@ -46,6 +49,128 @@ def qp_error_flag(gap, pres, torque_cmd, cfg):
     non-finite torque is always a failure."""
     finite = torch.isfinite(torque_cmd).all(dim=-1)
     return (~finite) | (gap > cfg.qp_fail_gap) | (pres > cfg.qp_fail_pres)
+
+
+class ServoParams(NamedTuple):
+    """On-device trajectory and PD servo of ONE task link: a quintic
+    position trajectory and a slerp rotation trajectory with quintic time
+    scaling, tracked by a PD law (the reference's
+    ``TaskLink::SetTrajectoryQuintic/SetTrajectoryRotation`` with
+    ``GetFstarPosPD``/``GetFstarRotPD``).  Every field broadcasts over
+    leading batch dims, so each scenario can track its own trajectory on its
+    own clock.
+
+    use_pos / use_rot: 1 replaces that half of the caller's f* with the
+    servo's, 0 keeps the caller's.  max_p_err / max_d_err clamp the p and d
+    errors [pos(3); rot(3)] to ±max before the gains; +inf is off.
+    """
+
+    t: torch.Tensor          # current control time
+    t0: torch.Tensor
+    tf: torch.Tensor
+    pos_init: torch.Tensor   # (...,3)
+    vel_init: torch.Tensor
+    pos_des: torch.Tensor
+    vel_des: torch.Tensor
+    rot_init: torch.Tensor   # (...,3,3)
+    w_init: torch.Tensor     # (...,3)
+    rot_des: torch.Tensor
+    w_des: torch.Tensor
+    pos_p: torch.Tensor      # (...,3) gains
+    pos_d: torch.Tensor
+    pos_a: torch.Tensor
+    rot_p: torch.Tensor
+    rot_d: torch.Tensor
+    max_p_err: torch.Tensor  # (...,6) [pos(3); rot(3)] clamp, +inf = off
+    max_d_err: torch.Tensor
+    use_pos: torch.Tensor    # () 1.0 / 0.0
+    use_rot: torch.Tensor
+
+
+def make_servo(
+    pos_init=None, pos_des=None, vel_init=None, vel_des=None,
+    rot_init=None, rot_des=None, w_init=None, w_des=None,
+    t=0.0, t0=0.0, tf=1.0,
+    pos_p=400.0, pos_d=40.0, pos_a=1.0, rot_p=400.0, rot_d=40.0,
+    max_p_err=None, max_d_err=None, dtype=torch.float32, device=None,
+) -> ServoParams:
+    """ServoParams with the reference demos' gains; scalars broadcast.  A
+    half whose target is omitted (pos_des or rot_des None) is switched off:
+    its use flag is 0, its points zero and its rotations the identity."""
+    kw = dict(dtype=dtype, device=device)
+
+    def a(v):
+        return torch.as_tensor(v, **kw)
+
+    def f(v, shape):
+        v = a(v)
+        return v.expand(shape) if v.ndim == 0 else v
+
+    use_pos = pos_des is not None
+    use_rot = rot_des is not None
+    z3 = torch.zeros(3, **kw)
+    eye = torch.eye(3, **kw)
+    inf = float("inf")
+    return ServoParams(
+        t=a(t), t0=a(t0), tf=a(tf),
+        pos_init=f(0.0 if pos_init is None else pos_init, (3,)) if use_pos else z3,
+        vel_init=f(0.0 if vel_init is None else vel_init, (3,)),
+        pos_des=f(pos_des, (3,)) if use_pos else z3,
+        vel_des=f(0.0 if vel_des is None else vel_des, (3,)),
+        rot_init=eye if rot_init is None else a(rot_init),
+        w_init=f(0.0 if w_init is None else w_init, (3,)),
+        rot_des=eye if rot_des is None else a(rot_des),
+        w_des=f(0.0 if w_des is None else w_des, (3,)),
+        pos_p=f(pos_p, (3,)), pos_d=f(pos_d, (3,)), pos_a=f(pos_a, (3,)),
+        rot_p=f(rot_p, (3,)), rot_d=f(rot_d, (3,)),
+        max_p_err=f(inf if max_p_err is None else max_p_err, (6,)),
+        max_d_err=f(inf if max_d_err is None else max_d_err, (6,)),
+        use_pos=a(1.0 if use_pos else 0.0),
+        use_rot=a(1.0 if use_rot else 0.0),
+    )
+
+
+def servos_to(servos, dtype, device):
+    """The nested per-level / per-spec ServoParams (None entries pass) with
+    every field as a tensor of ``dtype`` on ``device``."""
+    if servos is None:
+        return None
+    return tuple(None if lvl is None else tuple(
+        None if sp is None else ServoParams(*(torch.as_tensor(v, dtype=dtype, device=device)
+                                              for v in sp))
+        for sp in lvl) for lvl in servos)
+
+
+def _clamp(x, lim):
+    """±lim symmetric clamp; lim = +inf is off."""
+    return torch.minimum(torch.maximum(x, -lim), lim)
+
+
+def servo_fstar(sp: ServoParams, pos, vel, rot, w):
+    """The trajectory and PD servo of one task link at its current state
+    (pos, vel, rot, w) → the 6 rows [f*_pos; f*_rot]: quintic position
+    trajectory with acceleration feedforward, slerp rotation trajectory with
+    quintic time scaling and the GetPhi error, PD on the clamped errors.
+    Broadcasts over leading batch dims, a batched clock sp.t included."""
+    t, t0, tf = sp.t[..., None], sp.t0[..., None], sp.tf[..., None]
+    z = torch.zeros_like(sp.pos_init)
+    pos_traj, vel_traj, acc_traj = quintic_spline(
+        t, t0, tf, sp.pos_init, sp.vel_init, z, sp.pos_des, sp.vel_des, z)
+    p_err = _clamp(pos_traj - pos, sp.max_p_err[..., 0:3])
+    d_err = _clamp(vel_traj - vel, sp.max_d_err[..., 0:3])
+    f_pos = sp.pos_a * acc_traj + sp.pos_p * p_err + sp.pos_d * d_err
+
+    s, sd, _ = quintic_spline(sp.t, sp.t0, sp.tf, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0)
+    rot_traj = quat_to_matrix(quat_slerp(matrix_to_quat(sp.rot_init),
+                                         matrix_to_quat(sp.rot_des), s))
+    aa = rotation_log(sp.rot_des @ sp.rot_init.transpose(-1, -2))
+    # during the blend the feedforward is the slerp rate; once the spline
+    # completes (s = 1, sd = 0) it hands off to the terminal w_des
+    w_traj = aa * sd[..., None] + torch.where(s[..., None] >= 1.0, sp.w_des, 0.0)
+    r_err = _clamp(get_phi(rot, rot_traj), sp.max_p_err[..., 3:6])
+    wd_err = _clamp(w_traj - w, sp.max_d_err[..., 3:6])
+    f_rot = sp.rot_p * r_err + sp.rot_d * wd_err
+    return torch.cat(torch.broadcast_tensors(f_pos, f_rot), dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,6 +297,54 @@ def _resolve_task_jacobian(kin, model, cfg, task_slots, st, fk, level, dtype):
     return torch.cat(rows, dim=-2)
 
 
+def _task_state(model, dtype, st, mode, link, point):
+    """Current (pos, vel, rot, w) of a task link for the servo: the COM for
+    the virtual COM link, else the link's origin, COM or custom point."""
+    if link == model.nbody:
+        eye = torch.eye(3, dtype=dtype, device=st.com_pos.device)
+        return (st.com_pos, st.com_vel, eye.expand(st.com_pos.shape[:-1] + (3, 3)),
+                torch.zeros_like(st.com_vel))
+    rot = st.R[..., link, :, :]
+    wvel = st.w[..., link, :]
+    if mode in (T.TASK_LINK_6D_COM_FRAME, T.TASK_LINK_POSITION_COM_FRAME):
+        r = st.com_w[..., link, :] - st.p[..., link, :]
+    elif point is not None:
+        r = torch.einsum("...ij,j->...i", rot,
+                         torch.as_tensor(point, dtype=dtype, device=rot.device))
+    else:
+        r = torch.zeros_like(wvel)
+    return (st.p[..., link, :] + r, st.v[..., link, :] + torch.linalg.cross(wvel, r, dim=-1),
+            rot, wvel)
+
+
+def _apply_servos(model, cfg, dtype, st, level: int, fstar, servos_level):
+    """Level ``level``'s f* with the rows of every servo'd task link
+    replaced by the servo's output, blended per wrench half by use_pos /
+    use_rot (the reference's f* dispatch in UpdateTaskSpace).  Shared by
+    CompiledTick and MaskedTick."""
+    rows, off = [], 0
+    for spec, sp in zip(cfg.task_specs[level], servos_level):
+        mode, link, point = _parse_task_spec(spec)
+        nrows = 6 if mode in _SIX_MODES else 3
+        f_in = fstar[..., off:off + nrows]
+        off += nrows
+        if sp is None:
+            rows.append(f_in)
+            continue
+        f6 = servo_fstar(sp, *_task_state(model, dtype, st, mode, link, point))
+        up, ur = sp.use_pos[..., None], sp.use_rot[..., None]
+        if mode in _SIX_MODES:
+            fp = up * f6[..., 0:3] + (1.0 - up) * f_in[..., 0:3]
+            fr = ur * f6[..., 3:6] + (1.0 - ur) * f_in[..., 3:6]
+            rows.append(torch.cat(torch.broadcast_tensors(fp, fr), dim=-1))
+        elif mode in _POS_MODES:
+            rows.append(up * f6[..., 0:3] + (1.0 - up) * f_in)
+        else:
+            rows.append(ur * f6[..., 3:6] + (1.0 - ur) * f_in)
+    batch = torch.broadcast_shapes(*(r.shape[:-1] for r in rows))
+    return torch.cat([r.expand(batch + r.shape[-1:]) for r in rows], dim=-1)
+
+
 def _level_dims(model, cfg):
     """(nv, rows) of each QP of the tick, in call order: one per task level,
     then the redistribution QP."""
@@ -227,12 +400,25 @@ class CompiledTick(nn.Module):
         return tuple((torch.zeros(batch + (nv,), **kw), torch.ones(batch + (rows,), **kw))
                      for nv, rows in self._dims)
 
+    # ---------------------------------------- pieces the loop's simulator reads
+    def _fk_from_state(self, st):
+        return FK(R=st.R, p=st.p, axis_w=(st.R @ self.axis[..., None])[..., 0], com_w=st.com_w)
+
+    def _contact_jacobian_from_state(self, st):
+        return self._contact_jacobian(self._fk_from_state(st))
+
+    def _contact_jacobian(self, fk: FK):
+        """The stacked contact jacobian rows at the contact points of fk."""
+        return torch.cat([dyn.contact_jacobian_rows(
+            self.kin.frame_point_jacobian(fk, c.link, torch.as_tensor(
+                np.asarray(c.contact_point, np.float64), dtype=self.dtype, device=self.device)),
+            fk.R[..., c.link, :, :], c.contact_type) for c in self.cfg.contacts], dim=-2)
+
     def _tick_impl(self, q, qdot, fstars, warm=None, qp_iters=None, servos=None):
         """q (B, nq) or (nq,), q̇ alike, f* per level (B, t) or (t,), warm per
         QP (x, λ) or None → TickResult, and the warm state out when warm was
-        given."""
-        if servos is not None:
-            raise NotImplementedError("the on-device servo is not ported yet")
+        given.  servos: per level None or a tuple of per-spec ServoParams
+        or None; a servo'd task link's f* comes from its trajectory PD."""
         cfg, bk = self.cfg, self.backend
         m = self.model.model_dof
 
@@ -243,8 +429,9 @@ class CompiledTick(nn.Module):
         fstars = tuple(as_t(f) for f in fstars)
         if warm is not None:
             warm = tuple((as_t(x), as_t(lam)) for x, lam in warm)
+        servos = servos_to(servos, self.dtype, self.device)
         st = self.kin.update(q, qdot, J_bodies=self._J_bodies, points=self._points)
-        fk = FK(R=st.R, p=st.p, axis_w=(st.R @ self.axis[..., None])[..., 0], com_w=st.com_w)
+        fk = self._fk_from_state(st)
 
         J_C = torch.cat([dyn.contact_jacobian_rows(st.J_pts[..., i, :, :],
                                                    st.R[..., c.link, :, :], c.contact_type)
@@ -271,6 +458,8 @@ class CompiledTick(nn.Module):
                                             st, fk, h, self.dtype)
             tf = dyn.task_jkt(J_task, st.A_inv, cs.N_C, cs.W_inv, backend=bk)
             fstar = fstars[h]
+            if servos is not None and servos[h] is not None:
+                fstar = _apply_servos(self.model, cfg, self.dtype, st, h, fstar, servos[h])
             JktL = tf.J_kt @ tf.Lambda_task
             if cfg.use_hqp:
                 res = solve_task_level_qp(
@@ -315,5 +504,5 @@ class CompiledTick(nn.Module):
         )
         return (result, tuple(warm_out)) if warm is not None else result
 
-    def forward(self, q, qdot, fstars, warm=None, qp_iters=None):
-        return self._tick_impl(q, qdot, fstars, warm=warm, qp_iters=qp_iters)
+    def forward(self, q, qdot, fstars, warm=None, qp_iters=None, servos=None):
+        return self._tick_impl(q, qdot, fstars, warm=warm, qp_iters=qp_iters, servos=servos)

@@ -12,6 +12,10 @@ from libdwbc_tpu_torch.model.compile import RobotModel as PortModel
 from libdwbc_tpu_torch.wbc import types as T
 from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
 
+# one intra-op thread: the suite's workers share the host's cores, where
+# oversubscribed OpenMP barriers make small batched ops ~100x slower
+torch.set_num_threads(1)
+
 MODEL = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "models", "tocabi.npz")
 FIELDS = [f.name for f in dataclasses.fields(PortModel)]

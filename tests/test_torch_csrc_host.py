@@ -21,6 +21,10 @@ import torch
 
 from conftest import CASE_FSTAR, CASE_Q, full_q
 
+# one intra-op thread: the suite's workers share the host's cores, where
+# oversubscribed OpenMP barriers make small batched ops ~100x slower
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "libdwbc_tpu_torch", "csrc")
 MODEL = os.path.join(ROOT, "models", "tocabi.npz")
@@ -48,28 +52,30 @@ void qpsolve64(const double* H, const double* g, const double* C, const double* 
                                 s + bm, l + bm, w + b, B, n, m, mr, iters, ridge);
   }
 }
-void pre64(const double* t, const double* q, const double* cm, double* p, double* w,
-           int B) {
+void pre64(const double* t, const double* q, const double* cm, const double* qd,
+           const double* fs, const double* sv, int smask, double* p, double* w, int B) {
   for (int b = 0; b < B; ++b)
-    dwbc::prestage_lane<double>(t, q + b, cm ? cm + b : nullptr, p + b, w + b, B);
+    dwbc::prestage_lane<double>(t, q + b, cm ? cm + b : nullptr, qd ? qd + b : nullptr,
+                                fs ? fs + b : nullptr, sv ? sv + b : nullptr, smask, p + b,
+                                w + b, B);
 }
 void qp64(const double* t, const double* p, const double* f, const double* wi,
           double* o, double* wo, double* w, int B, int iters) {
   for (int b = 0; b < B; ++b)
-    dwbc::qpchain_lane<double>(t, p + b, f + b, wi ? wi + b : nullptr, o + b,
+    dwbc::qpchain_lane<double>(t, p + b, f ? f + b : nullptr, wi ? wi + b : nullptr, o + b,
                                wo + b, w + b, B, iters);
 }
 void qp32(const float* t, const float* p, const float* f, const float* wi,
           float* o, float* wo, float* w, int B, int iters) {
   for (int b = 0; b < B; ++b)
-    dwbc::qpchain_lane<float>(t, p + b, f + b, wi ? wi + b : nullptr, o + b,
+    dwbc::qpchain_lane<float>(t, p + b, f ? f + b : nullptr, wi ? wi + b : nullptr, o + b,
                               wo + b, w + b, B, iters);
 }
 long long qpws32(const float* t) { return dwbc::qpchain_ws_elems(t); }
 void sizes64(const double* t, long long* out) {
-  out[0] = dwbc::prestage_ws_elems(t); out[1] = dwbc::pre_elems(t);
+  out[0] = dwbc::prestage_ws_elems(t); out[1] = dwbc::pre_elems(t, false);
   out[2] = dwbc::qpchain_ws_elems(t); out[3] = dwbc::out_elems(t);
-  out[4] = dwbc::warm_elems(t);
+  out[4] = dwbc::warm_elems(t); out[5] = dwbc::pre_elems(t, true);
 }
 }
 """
@@ -139,17 +145,23 @@ def setup(request):
             np.ascontiguousarray(q.T), [np.ascontiguousarray(f.T) for f in fs])
 
 
+def _sizes(lanes, tab):
+    """(prestage workspace, pre, QP-chain workspace, out, warm, servo'd pre)
+    elements per lane."""
+    sz = (ctypes.c_longlong * 6)()
+    lanes.sizes64(_ptr(tab), sz)
+    return list(sz)
+
+
 def _lane_run(lanes, prog, tab, q_el, fs_el, cm_el=None):
     """The prestage lanes on q (and the contact mask), and the QP-chain
     lanes, cold at 25 iterations then warm at 7, on the plain prestage."""
     from libdwbc_tpu_torch.ops import tick_cuda as tc
 
     plan = prog.plan
-    sz = (ctypes.c_longlong * 5)()
-    lanes.sizes64(_ptr(tab), sz)
-    ws_pre, n_pre, ws_qp, n_out, n_warm = list(sz)
+    ws_pre, n_pre, ws_qp, n_out, n_warm, _ = _sizes(lanes, tab)
     pre = np.zeros((n_pre, B))
-    lanes.pre64(_ptr(tab), _ptr(q_el), _ptr(cm_el), _ptr(pre),
+    lanes.pre64(_ptr(tab), _ptr(q_el), _ptr(cm_el), None, None, None, 0, _ptr(pre),
                 _ptr(np.full((ws_pre, B), np.nan)), B)
     fsb = np.ascontiguousarray(np.concatenate(fs_el, 0))
     k = tc.TickKernels(prog)
@@ -160,7 +172,7 @@ def _lane_run(lanes, prog, tab, q_el, fs_el, cm_el=None):
     # ~1e-12, and 25 IPM iterations turn that into ~1e-6 on the dual of a
     # weakly active cone row, which would measure the prestage's roundoff,
     # not the QP chain
-    pre_in = np.ascontiguousarray(k.pack_pre(ref_pre).numpy())
+    pre_in = np.ascontiguousarray(k.pack_pre(ref_pre).buf.numpy())
 
     def qp(iters, warm_buf):
         out, wout = np.zeros((n_out, B)), np.zeros((n_warm, B))
@@ -172,7 +184,7 @@ def _lane_run(lanes, prog, tab, q_el, fs_el, cm_el=None):
     out_warm, _ = qp(7, wout_cold)
     return dict(
         sizes=dict(pre=n_pre, out=n_out, warm=n_warm),
-        pre=k.unpack_pre(torch.as_tensor(pre)),
+        pre=k.unpack_pre(tc.PackedPre(torch.as_tensor(pre), False)),
         cold=k.unpack_result(torch.as_tensor(out_cold), torch.as_tensor(wout_cold)),
         warm=tc._unpack(torch.as_tensor(out_warm), tc.out_layout(plan)),
         ref_pre=ref_pre,
@@ -313,8 +325,8 @@ def test_float32_masked_warm_lanes_stay_near_float64(lanes):
     the host compiler) on 1024 lanes of the masked sweep, cold at 12
     iterations then warm at 7, against the plain float64 QP chain from the
     same prestage and warm state: every lane within 1e-3 Nm in τ_cmd.  A
-    step from a Gram factorization that lost a pivot would move a warm
-    single-support lane's δf* far from its optimum at a tiny gap."""
+    step from the clamped factor of a Gram that lost a pivot would move a
+    warm single-support lane's δf* far from its optimum at a tiny gap."""
     from libdwbc_tpu_torch.entry import _masked_inputs
     from libdwbc_tpu_torch.model.compile import RobotModel
     from libdwbc_tpu_torch.ops import tick_cuda as tc
@@ -332,7 +344,7 @@ def test_float32_masked_warm_lanes_stay_near_float64(lanes):
                        torch.as_tensor(np.ascontiguousarray(masks.T)))
     k = tc.TickKernels(p32)
     tab = np.ascontiguousarray(tc.kernel_table(p32.plan).astype(np.float32))
-    pre_in = np.ascontiguousarray(k.pack_pre(pre).numpy())
+    pre_in = np.ascontiguousarray(k.pack_pre(pre).buf.numpy())
     fsb = np.ascontiguousarray(np.concatenate([f.numpy() for f in fs_el], 0))
     lanes.qpws32.restype = ctypes.c_longlong
     ws = np.zeros((lanes.qpws32(_ptr(tab)), n), np.float32)
@@ -354,6 +366,145 @@ def test_float32_masked_warm_lanes_stay_near_float64(lanes):
     got = tc._unpack(torch.as_tensor(out), tc.out_layout(p32.plan))
     err = (got["torque_cmd"].double() - ref["torque_cmd"]).abs().amax(0)
     assert float(err.max()) <= 1e-3, f"{int((err > 1e-3).sum())} lanes, max {float(err.max()):.3e}"
+
+
+# ------------------------------------------------------ the servo branch
+@pytest.fixture(scope="module", params=["static", "masked"])
+def srun(lanes, request):
+    """The servo'd prestage lanes (entry._servo_inputs: moving states, a
+    pelvis 6D and a link-15 rotation servo on per-lane clocks; masked: one
+    support hypothesis per lane) and the QP chain's lanes reading their f*
+    from a servo'd prestage buffer, against the plain versions at float64."""
+    from libdwbc_tpu_torch.entry import _servo_inputs
+    from libdwbc_tpu_torch.model.compile import RobotModel
+    from libdwbc_tpu_torch.ops import tick_cuda as tc
+    from libdwbc_tpu_torch.wbc.fused import FusedTick
+    from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
+
+    m = RobotModel.load(MODEL)
+    masked = request.param == "masked"
+    tick = FusedTick(m, standard_tocabi_config(m), "cpu", torch.float64, backend="torch",
+                     masked=masked)
+    prog = tick.prog
+    q, qd, fs, servos = _servo_inputs(m, B, seed=7, dtype=np.float64)
+    q_el, qd_el = (torch.as_tensor(np.ascontiguousarray(a.T)) for a in (q, qd))
+    fs_el = [torch.as_tensor(np.ascontiguousarray(f.T)) for f in fs]
+    cm_el = (torch.tensor([[1.0, 1.0, 0.0], [1.0, 0.0, 1.0]], dtype=torch.float64) if masked
+             else None)
+    sv_el = tick._servos_el(servos, B)
+    k = tc.TickKernels(prog)
+    tab = np.ascontiguousarray(tc.kernel_table(prog.plan))
+    ws_pre, _, ws_qp, n_out, n_warm, n_pre = _sizes(lanes, tab)
+    pre = np.zeros((n_pre, B))
+    smask = tc.servo_mask(sv_el, prog.plan)
+    lanes.pre64(_ptr(tab), _ptr(q_el.numpy()), _ptr(None if cm_el is None else cm_el.numpy()),
+                _ptr(qd_el.numpy()), _ptr(np.ascontiguousarray(torch.cat(fs_el).numpy())),
+                _ptr(tc.pack_servos(sv_el, prog.plan, B).numpy()), smask, _ptr(pre),
+                _ptr(np.full((ws_pre, B), np.nan)), B)
+    ref_pre = k.prestage(q_el, cm_el, qd_el, fs_el, sv_el)
+    # the QP chain's lanes on the plain servo'd prestage (see _lane_run)
+    out, wout = np.zeros((n_out, B)), np.zeros((n_warm, B))
+    lanes.qp64(_ptr(tab), _ptr(np.ascontiguousarray(k.pack_pre(ref_pre).buf.numpy())), None, None,
+               _ptr(out), _ptr(wout), _ptr(np.full((ws_qp, B), np.nan)), B, 25)
+    return dict(smask=smask, n_pre=n_pre, plan=prog.plan,
+                pre=k.unpack_pre(tc.PackedPre(torch.as_tensor(pre), True)),
+                ref_pre=ref_pre, out=tc._unpack(torch.as_tensor(out), tc.out_layout(prog.plan)),
+                ref_out=prog.qpchain(ref_pre, ref_pre["fstars"], None, 25))
+
+
+def test_servo_lanes_match_plain(srun):
+    """Every prestage field, each level's blended f* and the servo'd task
+    links' states within 1e-10 of the plain servo'd prestage, lane by lane;
+    the QP chain reading that f* from the buffer within 1e-8."""
+    from libdwbc_tpu_torch.ops import tick_cuda as tc
+
+    assert srun["smask"] == 0b11
+    assert srun["n_pre"] == tc._elems(tc.pre_layout(srun["plan"], servo=True))
+    got, want = srun["pre"], srun["ref_pre"]
+    for name in ("torque_grav", "P_C", "Jbar_act", "NwJw", "Atemp", "bA0", "health"):
+        err = float((got[name] - want[name]).abs().max())
+        assert err <= 1e-10, f"{name}: {err:.3e}"
+    for h in range(2):
+        err = float((got["Ntorques"][h] - want["Ntorques"][h]).abs().max())
+        assert err <= 1e-10, f"Ntorques.{h}: {err:.3e}"
+        err = float((got["fstars"][h] - want["fstars"][h]).abs().max())
+        assert err <= 1e-10, f"fstars.{h}: {err:.3e}"
+        for name, g, w in zip(("pos", "vel", "rot", "w"), got["task_states"][(h, 0)],
+                              want["task_states"][(h, 0)]):
+            err = float((g - w).abs().max())
+            assert err <= 1e-10, f"task state {h} {name}: {err:.3e}"
+    for name in ("torque_grav", "torque_task", "torque_contact", "torque_cmd",
+                 "contact_force", "qp_gap", "qp_primal_res"):
+        err = float((srun["out"][name] - srun["ref_out"][name]).abs().max())
+        assert err <= 1e-8, f"{name}: {err:.3e}"
+
+
+@pytest.fixture(scope="module")
+def s32():
+    """512 lanes of chip_smoke.py phase 12's servo'd inputs: the plain
+    float64 servo'd prestage cast to float32, its packed buffer, and the
+    plain float32 QP chain cold at 12 iterations."""
+    from libdwbc_tpu_torch.entry import _servo_inputs
+    from libdwbc_tpu_torch.model.compile import RobotModel
+    from libdwbc_tpu_torch.ops import tick_cuda as tc
+    from libdwbc_tpu_torch.wbc.fused import FusedTick
+    from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
+
+    n = 512
+    m = RobotModel.load(MODEL)
+    cfg = standard_tocabi_config(m, qp_iters=12)
+    t64, t32 = (FusedTick(m, cfg, "cpu", dt, backend="torch") for dt in (torch.float64,
+                                                                         torch.float32))
+    q, qd, fs, servos = _servo_inputs(m, n, seed=0, dtype=np.float64)
+    el = (lambda a: torch.as_tensor(np.ascontiguousarray(a.T)))
+    pre64 = t64.prog.prestage_servo(el(q), None, el(qd), [el(f) for f in fs],
+                                    t64._servos_el(servos, n))
+    pre32 = {k: ([t.float() for t in v] if isinstance(v, list) else
+                 {key: tuple(t.float() for t in x) for key, x in v.items()}
+                 if isinstance(v, dict) else v.float()) for k, v in pre64.items()}
+    k = tc.TickKernels(t32.prog)
+    cold = t32.prog.qpchain(pre32, pre32["fstars"], None, 12)
+    return dict(n=n, p32=t32.prog, p64=t64.prog, pre32=pre32, k=k, cold=cold,
+                buf=np.ascontiguousarray(k.pack_pre(pre32).buf.numpy()),
+                tab=np.ascontiguousarray(tc.kernel_table(t32.prog.plan).astype(np.float32)))
+
+
+@pytest.mark.parametrize("mode", ["cold", "warm"])
+def test_float32_servo_qpchain_lanes_within_servo_bars(lanes, s32, mode):
+    """The QP chain's lanes in float32 (as the kernel runs them, built by
+    the host compiler) reading their f* from a servo'd buffer, against the
+    plain float32 QP chain, cold at 12 iterations and warm at 7 from its
+    cold solution: phase 12's per-lane rule of chip_smoke.py, each lane
+    within the larger of QP_TOL and SERVO_OWN × its float32 distance from
+    float64, at most SERVO_LANES_OVER of the lanes beyond.  A QP chain that
+    read its f* one element off the servo section puts almost every lane
+    beyond."""
+    from libdwbc_tpu_torch.ops import tick_cuda as tc
+
+    c, n = s32, s32["n"]
+    pre, p32 = c["pre32"], c["p32"]
+    warm = None if mode == "cold" else c["cold"]["warm_out"]
+    iters = 12 if mode == "cold" else 7
+    ref = c["cold"] if mode == "cold" else p32.qpchain(pre, pre["fstars"], warm, iters)
+    pre64 = {k: ([t.double() for t in v] if isinstance(v, list) else
+                 {key: tuple(t.double() for t in x) for key, x in v.items()}
+                 if isinstance(v, dict) else v.double()) for k, v in pre.items()}
+    ref64 = c["p64"].qpchain(pre64, pre64["fstars"], None if warm is None else
+                             [(x.double(), lam.double()) for x, lam in warm], iters)
+    lanes.qpws32.restype = ctypes.c_longlong
+    ws = np.zeros((lanes.qpws32(_ptr(c["tab"])), n), np.float32)
+    n_out, n_warm = tc._elems(tc.out_layout(p32.plan)), tc._elems(tc.warm_layout(p32.plan))
+    out, wout = np.zeros((n_out, n), np.float32), np.zeros((n_warm, n), np.float32)
+    w_in = None if warm is None else np.ascontiguousarray(
+        torch.cat([t for xl in warm for t in xl], 0).numpy())
+    lanes.qp32(_ptr(c["tab"]), _ptr(c["buf"]), None, _ptr(w_in), _ptr(out), _ptr(wout),
+               _ptr(ws), n, iters)
+    got = tc._unpack(torch.as_tensor(out), tc.out_layout(p32.plan))
+    for name, tol in tc.QP_TOL.items():
+        over, allowed = tc.servo_lanes_over(tc.lane_err(got[name], ref[name]),
+                                            tc.lane_err(ref[name], ref64[name]), tol)
+        print(f"{mode} {name}: {over} of {n} lanes beyond their bar (allowed {allowed})")
+        assert over <= allowed, (mode, name, over, allowed)
 
 
 # ------------------------------------------------ psd_inverse and qp_solve

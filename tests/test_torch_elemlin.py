@@ -13,6 +13,10 @@ import torch
 from libdwbc_tpu.ops import elemlin as jel
 from libdwbc_tpu_torch.ops import elemlin as tel
 
+# one intra-op thread: the suite's workers share the host's cores, where
+# oversubscribed OpenMP barriers make small batched ops ~100x slower
+torch.set_num_threads(1)
+
 RTOL = 1e-12
 NB = 5
 

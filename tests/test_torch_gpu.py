@@ -401,3 +401,145 @@ def test_masked_fused_cuda_refuses_point_candidates(mcase, dev):
     with pytest.raises(NotImplementedError):
         FusedTick(mcase["model"], dataclasses.replace(cfg, contacts=(cfg.contacts[0], point)),
                   dev, backend="cuda", masked=True)
+
+
+# ------------------------------------------------------------- the servo
+@pytest.fixture(scope="module", params=["static", "masked"])
+def scase(request, dev):
+    """The servo'd flagship on 64 lanes (entry._servo_inputs: moving
+    states, a pelvis 6D and a link-15 rotation servo on per-lane clocks);
+    masked: the three support hypotheses cycled over the lanes."""
+    from libdwbc_tpu_torch.entry import _servo_inputs
+    from libdwbc_tpu_torch.model.compile import RobotModel
+    from libdwbc_tpu_torch.ops.tick_cuda import TickKernels
+    from libdwbc_tpu_torch.wbc.fused import FusedTick
+    from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
+
+    m = RobotModel.load(MODEL)
+    cfg = standard_tocabi_config(m, qp_iters=12)
+    masked = request.param == "masked"
+    q, qd, fs, servos = _servo_inputs(m, B, seed=5)
+    masks = np.array([[1, 1], [1, 0], [0, 1]], np.float32)[np.arange(B) % 3]
+    ticks = {k: FusedTick(m, cfg, d, dt, backend="torch", masked=masked)
+             for k, d, dt in (("64", "cpu", torch.float64), ("32", "cpu", torch.float32))}
+    fused = FusedTick(m, cfg, dev, backend="cuda", masked=masked)
+
+    def el(a):
+        return torch.as_tensor(np.ascontiguousarray(a.T))
+
+    return dict(model=m, cfg=cfg, masked=masked, q=q, qd=qd, fs=fs, servos=servos,
+                masks=masks, fused=fused, kern=fused.kernels, plain64=ticks["64"].prog,
+                plain32=ticks["32"].prog, q_el=el(q), qd_el=el(qd), fs_el=[el(f) for f in fs],
+                cm_el=el(masks) if masked else None,
+                sv64=ticks["64"]._servos_el(servos, B), sv32=ticks["32"]._servos_el(servos, B))
+
+
+def _plain_servo_pre(prog, c, sv, dtype):
+    cm = None if c["cm_el"] is None else c["cm_el"].to(dtype)
+    return prog.prestage_servo(c["q_el"].to(dtype), cm, c["qd_el"].to(dtype),
+                               [f.to(dtype) for f in c["fs_el"]], sv)
+
+
+def test_servo_prestage_kernel_matches_plain_float64(scase, dev):
+    """The servo'd tick_prestage: every field within PRE_TOL(_MASKED), the
+    f* and the task-link states within SERVO_TOL, one launch."""
+    from libdwbc_tpu_torch.ops.tick_cuda import PRE_TOL_MASKED, SERVO_TOL
+
+    c, kern = scase, scase["kern"]
+    n0 = kern.launches["tick_prestage"]
+    sv_dev = tuple(tuple({k: v.to(dev) for k, v in d.items()} for d in lvl)
+                   for lvl in c["sv32"])
+    got = kern.prestage(c["q_el"].to(dev), None if c["cm_el"] is None else c["cm_el"].to(dev),
+                        c["qd_el"].to(dev), [f.to(dev) for f in c["fs_el"]], sv_dev)
+    torch.cuda.synchronize()
+    assert kern.launches["tick_prestage"] == n0 + 1
+    ref = _plain_servo_pre(c["plain64"], c, c["sv64"], torch.float64)
+    tol = dict(PRE_TOL_MASKED if c["masked"] else PRE_TOL)
+    for k, t in tol.items():
+        pairs = zip(got[k], ref[k]) if k == "Ntorques" else [(got[k], ref[k])]
+        for g, r in pairs:
+            assert torch.isfinite(g).all(), k
+            err = float((g.cpu().double() - r).abs().max())
+            assert err <= t, (k, err, t)
+    for h in range(2):
+        err = float((got["fstars"][h].cpu().double() - ref["fstars"][h]).abs().max())
+        print(f"servo prestage f* level {h}: {err:.3e}")
+        assert err <= SERVO_TOL["fstars"], (h, err)
+        for name, g, r in zip(("task_pos", "task_vel", "task_rot", "task_w"),
+                              got["task_states"][(h, 0)], ref["task_states"][(h, 0)]):
+            err = float((g.cpu().double() - r).abs().max())
+            print(f"servo prestage {name} level {h}: {err:.3e}")
+            assert err <= SERVO_TOL[name], (h, name, err)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_servo_qpchain_kernel_matches_plain_float32(scase, dev, warm):
+    """tick_qpchain reading its f* from a servo'd prestage buffer against
+    the plain float32 qpchain on the same f*: each lane within the larger
+    of QP_TOL and SERVO_OWN × its float32 distance from float64 on the same
+    prestage, at most SERVO_LANES_OVER of the lanes beyond (the servo's f*
+    put the QPs on active constraints, where two float32 solves part by
+    roundoff on a few lanes)."""
+    from libdwbc_tpu_torch.ops.tick_cuda import QP_TOL, QP_TOL_MASKED, lane_err, servo_lanes_over
+
+    c, kern, plain = scase, scase["kern"], scase["plain32"]
+    pre = _plain_servo_pre(plain, c, c["sv32"], torch.float32)
+    w_cpu = plain.qpchain(pre, pre["fstars"], None, 12)["warm_out"] if warm else None
+    iters = 7 if warm else 12
+    ref = plain.qpchain(pre, pre["fstars"], w_cpu, iters)
+    pre64 = {k: ([t.double() for t in v] if isinstance(v, list) else
+                 {key: tuple(t.double() for t in x) for key, x in v.items()}
+                 if isinstance(v, dict) else v.double()) for k, v in pre.items()}
+    ref64 = c["plain64"].qpchain(pre64, pre64["fstars"],
+                                 None if w_cpu is None else
+                                 [(x.double(), l.double()) for x, l in w_cpu], iters)
+
+    def to(v):
+        if isinstance(v, dict):
+            return {k: tuple(t.to(dev) for t in x) for k, x in v.items()}
+        return [t.to(dev) for t in v] if isinstance(v, list) else v.to(dev)
+
+    n0 = kern.launches["tick_qpchain"]
+    got = kern.qpchain({k: to(v) for k, v in pre.items()}, None,
+                       None if w_cpu is None else [(x.to(dev), l.to(dev)) for x, l in w_cpu],
+                       iters)
+    torch.cuda.synchronize()
+    assert kern.launches["tick_qpchain"] == n0 + 1
+    for k, tol in (QP_TOL_MASKED if c["masked"] else QP_TOL).items():
+        err, own = lane_err(got[k], ref[k]), lane_err(ref[k], ref64[k])
+        over, allowed = servo_lanes_over(err, own, tol)
+        print(f"servo qpchain {'warm' if warm else 'cold'} {k}: max {float(err.max()):.3e} "
+              f"[float32's own max {float(own.max()):.3e}], {over} lanes beyond their bar "
+              f"(allowed {allowed})")
+        assert over <= allowed, (k, over, allowed)
+    assert torch.isfinite(got["qp_primal_res"]).all()
+
+
+def test_servo_loop_cuda_launches(scase, dev):
+    """The servo'd closed loop on the card: two tick launches per tick and
+    re-solve, one psd_inverse per forward-dynamics step, finite outputs.
+    qp_error and the primal residual are printed: on these 64 lanes'
+    per-lane clocks float32 leaves a few QPs unsolved."""
+    from libdwbc_tpu_torch.ops import linalg_cuda
+    from libdwbc_tpu_torch.wbc.loop import forward_dynamics_transition, make_control_loop
+    from libdwbc_tpu_torch.wbc.pipeline import CompiledTick
+
+    c, tick = scase, scase["fused"]
+    ct = CompiledTick(c["model"], c["cfg"], dev, backend="cuda")
+    loop = make_control_loop(tick, transition=forward_dynamics_transition(ct), K=4,
+                             warm_start=True, warm_iters=7, gap_fallback=1e-3)
+    args = [torch.as_tensor(c[k], device=dev) for k in ("q", "qd")]
+    args.append(tuple(torch.as_tensor(f, device=dev) for f in c["fs"]))
+    if c["masked"]:
+        args.append(torch.as_tensor(c["masks"], device=dev))
+    for k in tick.kernels.launches:
+        tick.kernels.launches[k] = 0
+    n_inv = linalg_cuda.launches["psd_inverse"]
+    lr = loop(*args, servos=c["servos"])
+    torch.cuda.synchronize()
+    n = 4 + lr.refined_ticks
+    assert tick.kernels.launches == {"tick_prestage": n, "tick_qpchain": n}
+    assert linalg_cuda.launches["psd_inverse"] - n_inv == 4
+    assert torch.isfinite(lr.torques).all() and torch.isfinite(lr.q_final).all()
+    print(f"servo'd loop: qp_error ticks×lanes {int(lr.qp_error.sum())}, primal residual "
+          f"max {float(lr.qp_primal_res.max()):.3e}")

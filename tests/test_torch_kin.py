@@ -13,6 +13,10 @@ import jax.numpy as jnp
 
 from conftest import CASE_Q, full_q
 
+# one intra-op thread: the suite's workers share the host's cores, where
+# oversubscribed OpenMP barriers make small batched ops ~100x slower
+torch.set_num_threads(1)
+
 MODEL = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "models", "tocabi.npz")
 TOL = 1e-10

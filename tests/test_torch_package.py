@@ -10,6 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread: the suite's workers share the host's cores, where
+# oversubscribed OpenMP barriers make small batched ops ~100x slower
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = os.path.join(ROOT, "models", "tocabi.npz")
 MODULES = ("libdwbc_tpu_torch", "libdwbc_tpu_torch.convert", "libdwbc_tpu_torch.entry",
@@ -22,7 +26,7 @@ MODULES = ("libdwbc_tpu_torch", "libdwbc_tpu_torch.convert", "libdwbc_tpu_torch.
            "libdwbc_tpu_torch.wbc.dynamics", "libdwbc_tpu_torch.wbc.hqp",
            "libdwbc_tpu_torch.wbc.fused", "libdwbc_tpu_torch.wbc.pipeline",
            "libdwbc_tpu_torch.wbc.types", "libdwbc_tpu_torch.wbc.masked",
-           "libdwbc_tpu_torch.wbc.loop")
+           "libdwbc_tpu_torch.wbc.loop", "libdwbc_tpu_torch.utils.traj")
 
 
 def test_port_imports_no_jax():
@@ -38,10 +42,13 @@ def test_port_imports_no_jax():
             "model, tick = entry._model_and_tick('cpu', backend='torch', masked=True)\n"
             "q, qd, fs, m = entry._masked_inputs(model, 3)\n"
             "make_control_loop(tick, K=2, warm_start=True, gap_fallback=1e-3)(q, qd, fs, m)\n"
+            "model, tick = entry._model_and_tick('cpu', backend='torch')\n"
+            "q, qd, fs, sv = entry._servo_inputs(model, 2)\n"
+            "tick._tick_impl(q, qd, fs, servos=sv)\n"
             "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
             "assert not any(k.startswith('libdwbc_tpu.') or k == 'libdwbc_tpu' for k in sys.modules)\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                       timeout=300)
+                       timeout=300, env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert r.returncode == 0, r.stderr
 
 
@@ -94,7 +101,7 @@ def test_unknown_backend_raises(flagship):
         FusedTick(m, cfg, device="cpu", backend="pallas")
 
 
-@pytest.mark.parametrize("stage", ["prestage", "qpchain", "tick", "masked_tick"])
+@pytest.mark.parametrize("stage", ["prestage", "qpchain", "tick", "masked_tick", "servo_tick"])
 def test_wrapper_routes_cpu_tensors_to_plain_version(flagship, stage):
     from libdwbc_tpu_torch.entry import _example_inputs
     from libdwbc_tpu_torch.ops.tick_cuda import TickKernels
@@ -116,13 +123,25 @@ def test_wrapper_routes_cpu_tensors_to_plain_version(flagship, stage):
     elif stage == "tick":
         got, want = kern.tick(q_el, fs_el, None, 12), prog.tick(q_el, fs_el, None, 12)
         keys = ["torque_cmd", "contact_force"]
-    else:
+    elif stage == "masked_tick":
         cm = torch.tensor([[1.0, 1.0, 0.0], [1.0, 0.0, 1.0]])
         got, want = (kern.tick(q_el, fs_el, None, 12, cmask=cm),
                      prog.tick(q_el, fs_el, None, 12, cmask=cm))
         keys = ["torque_cmd", "qp_gap"]
         with pytest.raises(ValueError):
             kern.tick(q_el, fs_el, None, 12)
+    else:
+        from libdwbc_tpu_torch.entry import _servo_inputs
+        from libdwbc_tpu_torch.wbc.fused import FusedTick
+
+        _, qd, _, servos = _servo_inputs(m, 3)
+        sv = FusedTick(m, cfg, "cpu", backend="torch")._servos_el(servos, 3)
+        qd_el = torch.as_tensor(qd.T.copy())
+        got, want = (kern.tick(q_el, fs_el, None, 12, qdot=qd_el, servos=sv),
+                     prog.tick(q_el, fs_el, None, 12, qdot=qd_el, servos=sv))
+        keys = ["torque_cmd", "qp_gap"]
+        pre = kern.prestage(q_el, qdot=qd_el, fstars=fs_el, servos=sv)
+        assert torch.equal(kern.qpchain(pre, None, None, 12)["torque_cmd"], got["torque_cmd"])
     for k in keys:
         assert torch.equal(got[k], want[k]), k
     assert kern.launches == {"tick_prestage": 0, "tick_qpchain": 0}
@@ -136,25 +155,74 @@ def test_masked_pack_unpack_round_trip(flagship):
     _round_trip(flagship, masked=True)
 
 
-def _round_trip(flagship, masked):
-    from libdwbc_tpu_torch.entry import _example_inputs
+def test_servo_pack_unpack_round_trip(flagship):
+    """A servo'd prestage dict (its f* and task states too) through the
+    servo'd buffer layout and back."""
+    _round_trip(flagship, masked=True, servo=True)
+
+
+def _round_trip(flagship, masked, servo=False):
+    from libdwbc_tpu_torch.entry import _example_inputs, _servo_inputs
     from libdwbc_tpu_torch.ops import tick_cuda as tc
-    from libdwbc_tpu_torch.ops.tick_kernel import TickProgram
+    from libdwbc_tpu_torch.wbc.fused import FusedTick
 
     m, cfg = flagship
-    prog = TickProgram(m, cfg, "cpu", torch.float32, masked=masked)
+    tick = FusedTick(m, cfg, "cpu", torch.float32, backend="torch", masked=masked)
+    prog = tick.prog
     kern = tc.TickKernels(prog)
     q, _, _ = _example_inputs(m)
-    pre = prog.prestage(torch.as_tensor(np.tile(q, (2, 1)).T.copy()),
-                        torch.tensor([[1.0, 0.0], [1.0, 1.0]]) if masked else None)
-    buf = kern.pack_pre(pre)
-    assert buf.shape == (tc._elems(tc.pre_layout(prog.plan)), 2)
-    back = kern.unpack_pre(buf)
+    q_el = torch.as_tensor(np.tile(q, (2, 1)).T.copy())
+    cm = torch.tensor([[1.0, 0.0], [1.0, 1.0]]) if masked else None
+    if servo:
+        _, qd, fs, servos = _servo_inputs(m, 2)
+        pre = kern.prestage(q_el, cm, torch.as_tensor(qd.T.copy()),
+                            [torch.as_tensor(f.T.copy()) for f in fs],
+                            tick._servos_el(servos, 2))
+    else:
+        pre = prog.prestage(q_el, cm)
+    packed = kern.pack_pre(pre)
+    assert packed.servo == servo
+    assert packed.buf.shape == (tc._elems(tc.pre_layout(prog.plan, servo)), 2)
+    back = kern.unpack_pre(packed)
+    assert back.keys() == pre.keys()
     for k, v in pre.items():
-        if k == "Ntorques":
+        if k in ("Ntorques", "fstars"):
             assert all(torch.equal(a, b) for a, b in zip(back[k], v))
+        elif k == "task_states":
+            assert all(torch.equal(a, b) for key in v for a, b in zip(back[k][key], v[key]))
         else:
             assert torch.equal(back[k], v), k
+
+
+def test_servo_packing_keeps_infinite_clamps(flagship):
+    """make_servo's default clamps (+inf, off) reach the kernels' float32
+    servo buffer as +inf, and every other field as given."""
+    from libdwbc_tpu_torch.ops import tick_cuda as tc
+    from libdwbc_tpu_torch.wbc.fused import FusedTick
+    from libdwbc_tpu_torch.wbc.pipeline import make_servo
+
+    m, cfg = flagship
+    tick = FusedTick(m, cfg, "cpu", torch.float32, backend="torch")
+    servos = ((make_servo(pos_des=[0.1, 0.2, 0.3], t=torch.tensor([0.1, 0.2, 0.3])),),
+              (make_servo(rot_des=torch.eye(3), max_d_err=2.0),))
+    sv_el = tick._servos_el(servos, 3)
+    assert tc.servo_mask(sv_el, tick.prog.plan) == 0b11
+    buf = tc.pack_servos(sv_el, tick.prog.plan, 3)
+    assert buf.dtype == torch.float32 and buf.shape == (2 * tc.SERVO_ELEMS, 3)
+    rows, off = {}, 0
+    for h in range(2):
+        for f in tc.SERVO_FIELDS:
+            n = int(np.prod(tc.SERVO_ELEM_SHAPES[f]))
+            rows[(h, f)] = buf[off:off + n]
+            off += n
+    assert tc.SERVO_FIELDS[:2] == ("max_d_err", "max_p_err")
+    assert torch.isposinf(rows[(0, "max_p_err")]).all()
+    assert torch.isposinf(rows[(0, "max_d_err")]).all()
+    assert torch.isposinf(rows[(1, "max_p_err")]).all()
+    assert (rows[(1, "max_d_err")] == 2.0).all()
+    assert torch.equal(rows[(0, "t")][0], torch.tensor([0.1, 0.2, 0.3]))
+    assert torch.equal(rows[(1, "rot_des")], torch.eye(3).reshape(9, 1).expand(9, 3))
+    assert (rows[(0, "use_rot")] == 0).all() and (rows[(1, "use_rot")] == 1).all()
 
 
 def test_unbatched_tick_is_lane_zero(flagship):

@@ -15,6 +15,10 @@ import torch
 
 from conftest import CASE_Q, full_q
 
+# one intra-op thread: the suite's workers share the host's cores, where
+# oversubscribed OpenMP barriers make small batched ops ~100x slower
+torch.set_num_threads(1)
+
 MODEL = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "models", "tocabi.npz")
 FIELDS = ("torque_grav", "P_C", "Jbar_act", "NwJw", "Ntorques.0", "Ntorques.1",

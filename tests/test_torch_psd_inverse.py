@@ -9,6 +9,10 @@ import torch
 
 import jax.numpy as jnp
 
+# one intra-op thread: the suite's workers share the host's cores, where
+# oversubscribed OpenMP barriers make small batched ops ~100x slower
+torch.set_num_threads(1)
+
 
 def _random_spd(rng, B, n, cond=1e3):
     U, _ = np.linalg.qr(rng.standard_normal((B, n, n)))

@@ -14,6 +14,10 @@ import torch
 
 import jax.numpy as jnp
 
+# one intra-op thread: the suite's workers share the host's cores, where
+# oversubscribed OpenMP barriers make small batched ops ~100x slower
+torch.set_num_threads(1)
+
 X_TOL = 1e-9
 # The polish solves the penalty system H + ρCᵀDC with ρ = 1/ridge = 1e9 at
 # float64: its conditioning turns summation-order roundoff (1e-16) into

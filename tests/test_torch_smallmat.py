@@ -7,6 +7,10 @@ import torch
 
 import jax.numpy as jnp
 
+# one intra-op thread: the suite's workers share the host's cores, where
+# oversubscribed OpenMP barriers make small batched ops ~100x slower
+torch.set_num_threads(1)
+
 TOL = 1e-11
 
 
