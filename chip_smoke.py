@@ -7,7 +7,7 @@ Phases, each fatal on failure (nothing is caught):
 
 1. environment: versions, the card's name and power limit, TF32 off;
 2. build: nvcc builds the four kernels from csrc/ (sm_90a), one nvcc per
-   source, all started together;
+   source, all started together, with ptxas's register and spill report;
 3. the fused tick's kernels against their plain versions at the serving
    inputs (batch 1024, seed 0): every field of tick_prestage on the card vs
    the plain prestage in float64 on the CPU, each within its limit
@@ -35,8 +35,9 @@ Phases, each fatal on failure (nothing is caught):
    CompiledTick in float64 on the CPU, the independent formulation; τ_grav
    and τ_cmd within 0.05 Nm;
 7. times with CUDA events at batch 1024 and batch 1: each kernel against
-   its plain version run on the card, psd_inverse against torch.linalg.inv,
-   and the warm chains' solves/s of both ticks;
+   its plain version run on the card (and replayed from a captured CUDA
+   graph, without the wrapper's host time), psd_inverse against
+   torch.linalg.inv, and the warm chains' solves/s of both ticks;
 8. the masked kernels against their plain versions, on the first 1024
    lanes of the masked sweep (entry._masked_inputs: the two feet as
    candidates, the hypotheses both / left / right cycled over the lanes),
@@ -96,10 +97,12 @@ Phases, each fatal on failure (nothing is caught):
 15. times of the servo'd kernels at B = 1024 and B = 1 against their plain
    versions on the card, and their bounds (servo_extra_flops).
 
+Then each kernel's resources (registers and local bytes per thread, shared
+bytes and threads per block, resident blocks per SM, ptxas's spill bytes).
 The last lines are the kernels' JSON record (with each kernel's bound: the
 larger of its bytes over the card's memory rate and its operations over the
-float32 rate), the card's name and power limit as nvidia-smi gives them,
-and {"ok": true, "device": {...}}.
+float32 rate; its graph-replay time and its resources), the card's name and
+power limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
 """
 
 import json
@@ -145,6 +148,25 @@ CHAIN_TOL_MASKED = {"torque_task": 4e-2, "torque_cmd": 4e-2, "contact_force": 6e
 
 def maxerr(a, b):
     return float((a.detach().double().cpu() - b.detach().double().cpu()).abs().max())
+
+
+KERNELS = ("tick_prestage", "tick_qpchain", "psd_inverse", "qp_solve")
+
+
+def ptxas_spills(log):
+    """{kernel: (spill store bytes, spill load bytes)} from nvcc's
+    -Xptxas=-v log."""
+    out, cur = {}, ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            cur = line.split("Function properties for")[-1].strip()
+        elif "spill stores" in line:
+            words = line.replace(",", " ").split()
+            st, ld = (int(words[i - 2]) for i, w in enumerate(words) if w == "spill")
+            for name in KERNELS:
+                if f"{name}_kernel" in cur:
+                    out[name] = (st, ld)
+    return out
 
 
 def gpu_line():
@@ -208,14 +230,27 @@ def gap_pres(C, d, x, lam):
     return _comp_gap(slack, lam, C.shape[-2]), torch.clamp_min(-slack, 0.0).max(-1).values
 
 
+def graph_time(fn, reps):
+    """Device ms per call of fn replayed from a captured CUDA graph: the
+    launches of one call (the wrapper's copies included) without the host
+    time of the Python wrapper between them."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return cuda_time(g.replay, reps)
+
+
 def interleaved(plain, kernel, reps_plain, reps_kernel):
-    """(plain ms, kernel ms), each the mean of two runs taken in the order
-    plain, kernel, kernel, plain."""
+    """(plain ms, kernel ms, kernel ms replayed from a graph), the first two
+    each the mean of two runs taken in the order plain, kernel, kernel,
+    plain."""
     p1 = cuda_time(plain, reps_plain)
     k1 = cuda_time(kernel, reps_kernel)
     k2 = cuda_time(kernel, reps_kernel)
     p2 = cuda_time(plain, reps_plain)
-    return (p1 + p2) / 2, (k1 + k2) / 2
+    return (p1 + p2) / 2, (k1 + k2) / 2, graph_time(kernel, reps_kernel)
 
 
 def masked_extra_flops(plan):
@@ -292,8 +327,9 @@ def main():
     for line in log.splitlines():
         if any(w in line for w in ("entry function", "registers", "spill")):
             print(f"  ptxas: {line.strip()}")
-    for name in ("tick_prestage", "tick_qpchain", "psd_inverse", "qp_solve"):
+    for name in KERNELS:
         assert f"{name}_kernel" in log or not log, f"no {name} kernel in the build log"
+    spills = ptxas_spills(log)
 
     # ----------------------- 3. the fused tick's kernels vs their plain versions
     model = RobotModel.load(str(entry.MODEL_PATH))
@@ -535,10 +571,10 @@ def main():
         times[("tick_qpchain", nb)] = interleaved(
             lambda: plain_dev.qpchain(pre_d, fe, w_d, WARM_ITERS),
             lambda: kern.qpchain_packed(pre_buf, fe, w_d, WARM_ITERS), 2, 5)
-        for (name, b_), (p, kt) in times.items():
+        for (name, b_), (p, kt, gk) in times.items():
             if b_ == nb:
-                print(f"time {name} batch {nb}: kernel {kt:.3f} ms  plain (torch on the "
-                      f"card) {p:.3f} ms  [{card}]")
+                print(f"time {name} batch {nb}: kernel {kt:.3f} ms (graph replay {gk:.3f} ms)  "
+                      f"plain (torch on the card) {p:.3f} ms  [{card}]")
 
     def chain():
         qq_, w_ = q_d, warm
@@ -560,9 +596,10 @@ def main():
             times[("psd_inverse", n, nb)] = interleaved(
                 lambda: psd_inverse_plain(An), lambda: linalg_cuda.psd_inverse(An), 2, 10)
             lib_ms[(n, nb)] = cuda_time(lambda: torch.linalg.inv(An), 10)
-            p, kt = times[("psd_inverse", n, nb)]
-            print(f"time psd_inverse n {n} batch {nb}: kernel {kt:.3f} ms  plain (torch on the "
-                  f"card) {p:.3f} ms  torch.linalg.inv {lib_ms[(n, nb)]:.3f} ms  [{card}]")
+            p, kt, gk = times[("psd_inverse", n, nb)]
+            print(f"time psd_inverse n {n} batch {nb}: kernel {kt:.3f} ms (graph replay "
+                  f"{gk:.3f} ms)  plain (torch on the card) {p:.3f} ms  torch.linalg.inv "
+                  f"{lib_ms[(n, nb)]:.3f} ms  [{card}]")
     for name, p in zip(QP_NAMES, seen["qp_solve"]):
         kw = dict(iters=WARM_ITERS, ridge=p["ridge"], mirror=p["mirror"])
         x0, _, lam0 = qp_cuda.qp_solve(p["H"], p["g"], p["C"], p["d"], iters=COLD_ITERS,
@@ -571,9 +608,10 @@ def main():
             a = [t[:nb].contiguous() for t in (p["H"], p["g"], p["C"], p["d"], x0, lam0)]
             times[("qp_solve", name, nb)] = interleaved(
                 lambda: qp_solve_plain(*a, **kw), lambda: qp_cuda.qp_solve(*a, **kw), 2, 10)
-            pt, kt = times[("qp_solve", name, nb)]
+            pt, kt, gk = times[("qp_solve", name, nb)]
             print(f"time qp_solve {name} (warm, {WARM_ITERS} iterations) batch {nb}: "
-                  f"kernel {kt:.3f} ms  plain (torch on the card) {pt:.3f} ms  [{card}]")
+                  f"kernel {kt:.3f} ms (graph replay {gk:.3f} ms)  plain (torch on the card) "
+                  f"{pt:.3f} ms  [{card}]")
 
     def cchain():
         qq_, w_ = q_d, cwarm
@@ -754,9 +792,9 @@ def main():
             lambda: mplain_dev.qpchain(pre_d, fe, w_d, WARM_ITERS),
             lambda: mkern.qpchain_packed(pre_buf, fe, w_d, WARM_ITERS), 2, 5)
         for name in ("tick_prestage_masked", "tick_qpchain_masked"):
-            p, kt = times[(name, nb)]
-            print(f"time {name} batch {nb}: kernel {kt:.3f} ms  plain (torch on the card) "
-                  f"{p:.3f} ms  [{card}]")
+            p, kt, gk = times[(name, nb)]
+            print(f"time {name} batch {nb}: kernel {kt:.3f} ms (graph replay {gk:.3f} ms)  "
+                  f"plain (torch on the card) {p:.3f} ms  [{card}]")
 
     def timed(fn):
         fn()
@@ -1086,9 +1124,9 @@ def main():
             lambda: sprog.qpchain(pre_d, pre_d["fstars"], w_d, WARM_ITERS),
             lambda: skern.qpchain_packed(pre_buf, None, w_d, WARM_ITERS), 2, 5)
         for name in ("tick_prestage_servo", "tick_qpchain_servo"):
-            p, kt = times[(name, nb)]
-            print(f"time {name} batch {nb}: kernel {kt:.3f} ms  plain (torch on the card) "
-                  f"{p:.3f} ms  [{card}]")
+            p, kt, gk = times[(name, nb)]
+            print(f"time {name} batch {nb}: kernel {kt:.3f} ms (graph replay {gk:.3f} ms)  "
+                  f"plain (torch on the card) {p:.3f} ms  [{card}]")
 
     # bounds at batch B: bytes of each kernel's inputs and outputs, and its
     # operations on this run's shapes
@@ -1135,43 +1173,57 @@ def main():
         print(f"bound {name} at batch {B_M if name.endswith('masked') else B}: "
               f"{ms:.6f} ms ({by})")
 
-    def entry_(name, launches_, err, ms, plain_ms, library_ms, replaces):
+    # each kernel's resources at the launch shape of its record: registers
+    # and local bytes per thread, shared bytes per block, blocks per SM, and
+    # ptxas's spill bytes
+    smem_qp = {tag: k._lib_and_sizes()[1]["smem_qp"] for tag, k in (("", kern), ("_masked", mkern))}
+    resources = {"tick_prestage": _build.kernel_info("tick_prestage"),
+                 "psd_inverse": _build.kernel_info("psd_inverse", 39),
+                 "qp_solve": _build.kernel_info("qp_solve")}
+    for tag, S in smem_qp.items():
+        resources["tick_qpchain" + tag] = _build.kernel_info("tick_qpchain", S)
+    for name, res in resources.items():
+        print(f"resources {name}: " + "  ".join(f"{k} {v}" for k, v in res.items())
+              + "  ptxas spill stores/loads {}/{} bytes".format(
+                  *spills.get(name.removesuffix("_masked"), ("not reported",) * 2)))
+
+    def entry_(name, launches_, err, key, library_ms, replaces):
+        """The record of one kernel; key: its times at the recorded batch."""
+        plain_ms, ms, graph_ms = times[key]
         src = name.removesuffix("_masked").removesuffix("_servo")
+        res = resources.get(name.removesuffix("_servo"), resources[src])
+        st, ld = spills.get(src, (None, None))
         return {"name": name, "route": "cuda",
                 "source": f"libdwbc_tpu_torch/csrc/{src}.cu", "replaces": replaces,
                 "launches": launches_, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-                "library_ms": library_ms}
+                "library_ms": library_ms, "graph_ms": graph_ms, "registers": res["registers"],
+                "spill_store_bytes": st, "spill_load_bytes": ld,
+                "local_bytes": res["local_bytes"], "smem_per_block": res["smem_per_block"],
+                "threads_per_block": res["threads_per_block"],
+                "blocks_per_sm": res["blocks_per_sm"]}
 
     qp_key = ("qp_solve", QP_NAMES[0], B)
+    fused_site = "libdwbc_tpu/wbc/fused.py:364"
     record = {"kernels": [
         entry_("tick_prestage", launches["tick_prestage"], pre_err["torque_grav"],
-               times[("tick_prestage", B)][1], times[("tick_prestage", B)][0], None,
-               "libdwbc_tpu/wbc/fused.py:364"),
+               ("tick_prestage", B), None, fused_site),
         entry_("tick_qpchain", launches["tick_qpchain"],
                max(qp_err["cold.torque_cmd"], qp_err["warm.torque_cmd"]),
-               times[("tick_qpchain", B)][1], times[("tick_qpchain", B)][0], None,
-               "libdwbc_tpu/wbc/fused.py:364"),
+               ("tick_qpchain", B), None, fused_site),
         entry_("psd_inverse", claunches["psd_inverse"], max(psd_abs.values()),
-               times[("psd_inverse", 39, B)][1], times[("psd_inverse", 39, B)][0],
-               lib_ms[(39, B)], "libdwbc_tpu/ops/pallas_linalg.py:145"),
-        entry_("qp_solve", claunches["qp_solve"],
-               max(e["x"] for e in qps_err.values()), times[qp_key][1], times[qp_key][0],
-               None, "libdwbc_tpu/ops/pallas_qp.py:302"),
-        entry_("tick_prestage_masked", mlaunches["tick_prestage"],
-               max(mpre_err["torque_grav"]), times[("tick_prestage_masked", B_M)][1],
-               times[("tick_prestage_masked", B_M)][0], None, "libdwbc_tpu/wbc/fused.py:364"),
+               ("psd_inverse", 39, B), lib_ms[(39, B)], "libdwbc_tpu/ops/pallas_linalg.py:145"),
+        entry_("qp_solve", claunches["qp_solve"], max(e["x"] for e in qps_err.values()),
+               qp_key, None, "libdwbc_tpu/ops/pallas_qp.py:302"),
+        entry_("tick_prestage_masked", mlaunches["tick_prestage"], max(mpre_err["torque_grav"]),
+               ("tick_prestage_masked", B_M), None, fused_site),
         entry_("tick_qpchain_masked", mlaunches["tick_qpchain"],
                max(max(mqp_err["cold.torque_cmd"]), max(mqp_err["warm.torque_cmd"])),
-               times[("tick_qpchain_masked", B_M)][1], times[("tick_qpchain_masked", B_M)][0],
-               None, "libdwbc_tpu/wbc/fused.py:364"),
+               ("tick_qpchain_masked", B_M), None, fused_site),
         entry_("tick_prestage_servo", serve_b["launches"]["tick_prestage"],
-               max(sfs_err, msfs_err),
-               times[("tick_prestage_servo", B)][1], times[("tick_prestage_servo", B)][0], None,
-               "libdwbc_tpu/wbc/fused.py:364"),
+               max(sfs_err, msfs_err), ("tick_prestage_servo", B), None, fused_site),
         entry_("tick_qpchain_servo", serve_b["launches"]["tick_qpchain"], max(sqp_err, msqp_err),
-               times[("tick_qpchain_servo", B)][1], times[("tick_qpchain_servo", B)][0], None,
-               "libdwbc_tpu/wbc/fused.py:364"),
+               ("tick_qpchain_servo", B), None, fused_site),
     ]}
     print(json.dumps(record))
     print(gpu_line())

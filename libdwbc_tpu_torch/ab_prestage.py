@@ -1,0 +1,138 @@
+"""tick_prestage of this tree against another tree's, on one card in one
+process: each tree's csrc/ is built into its own library, and the kernel
+is timed with CUDA events on the serving inputs of chip_smoke.py (static at
+B = 1024 and B = 1, masked at B = 4096), in the order this, other, other,
+this.
+
+    python -m libdwbc_tpu_torch.ab_prestage OTHER_REPO_ROOT
+
+The other tree's tick_prestage must take the same C arguments as this
+one's (``dwbc_tick_prestage``, ``dwbc_pre_elems``,
+``dwbc_prestage_ws_elems``).  Prints each time, the mean of each tree's two
+runs, whether the two prestage buffers agree bit for bit, and the card's
+name and power limit.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from . import entry
+from .model.compile import RobotModel
+from .ops import _build
+from .ops.tick_cuda import kernel_table
+from .ops.tick_kernel import TickProgram
+from .wbc.pipeline import standard_tocabi_config
+
+
+def build_tree(csrc: Path, out: Path) -> ctypes.CDLL:
+    """csrc/*.cu → out/libab.so with the package's nvcc flags; loaded."""
+    nvcc = _build.nvcc_path()
+    objs, procs = [], []
+    for src in sorted(csrc.glob("*.cu")):
+        obj = out / f"{src.stem}.o"
+        objs.append(str(obj))
+        procs.append(subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for p in procs:
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed in {csrc}:\n{log}")
+    so = out / "libab.so"
+    subprocess.run([nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(so),
+                    *objs], check=True)
+    lib = ctypes.CDLL(str(so))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, args in (("dwbc_pre_elems", [p, i]), ("dwbc_prestage_ws_elems", [p])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = ctypes.c_longlong
+    lib.dwbc_tick_prestage.argtypes = [p, p, p, p, p, p, i, p, p, i, p]
+    lib.dwbc_tick_prestage.restype = i
+    return lib
+
+
+def prestage_call(lib, table_host, table, q, cmask):
+    """A closure launching the library's tick_prestage on q (nq, B) (and the
+    mask); returns the prestage buffer."""
+    host = table_host.ctypes.data_as(ctypes.c_void_p)
+    B = q.shape[1]
+    pre = torch.empty((lib.dwbc_pre_elems(host, 0), B), dtype=torch.float32, device=q.device)
+    ws = torch.empty((lib.dwbc_prestage_ws_elems(host), B), dtype=torch.float32, device=q.device)
+
+    def run():
+        rc = lib.dwbc_tick_prestage(table.data_ptr(), q.data_ptr(),
+                                    None if cmask is None else cmask.data_ptr(), None, None,
+                                    None, 0, pre.data_ptr(), ws.data_ptr(), B,
+                                    torch.cuda.current_stream(q.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"tick_prestage launch failed: CUDA error {rc}")
+        return pre
+
+    return run
+
+
+def event_ms(fn, reps=10):
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_prestage: no CUDA device")
+    other = Path(sys.argv[1]).resolve() / "libdwbc_tpu_torch" / "csrc"
+    dev = torch.device("cuda", 0)
+    tmp = Path(tempfile.mkdtemp(prefix="ab_prestage_"))
+    libs = {}
+    for tag, csrc in (("this", _build.CSRC), ("other", other)):
+        (tmp / tag).mkdir()
+        libs[tag] = build_tree(csrc, tmp / tag)
+
+    model = RobotModel.load(str(entry.MODEL_PATH))
+    cfg = standard_tocabi_config(model, qp_iters=12)
+    q0, _, _ = entry._example_inputs(model)
+    rng = np.random.default_rng(0)
+    qs = np.tile(q0, (1024, 1)).astype(np.float32)
+    qs[:, 6:39] += 0.02 * rng.standard_normal((1024, 33)).astype(np.float32)
+    mq, _, _, masks = entry._masked_inputs(model, 4096, seed=0)
+    cases = []
+    for label, masked, q, cm in (("static B 1024", False, qs, None),
+                                 ("static B 1", False, qs[:1], None),
+                                 ("masked B 4096", True, mq, masks)):
+        th = kernel_table(TickProgram(model, cfg, "cpu", torch.float64, masked=masked).plan)
+        th = np.ascontiguousarray(th.astype(np.float32))
+        qd = torch.as_tensor(np.ascontiguousarray(q.T), device=dev)
+        cd = None if cm is None else torch.as_tensor(np.ascontiguousarray(cm.T), device=dev)
+        runs = {tag: prestage_call(lib, th, torch.as_tensor(th, device=dev), qd, cd)
+                for tag, lib in libs.items()}
+        cases.append((label, runs))
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    for label, runs in cases:
+        t = {tag: [] for tag in runs}
+        for tag in ("this", "other", "other", "this"):
+            t[tag].append(event_ms(runs[tag]))
+        same = torch.equal(runs["this"]().clone(), runs["other"]().clone())
+        print(f"tick_prestage {label}: this " + " ".join(f"{v:.3f}" for v in t["this"])
+              + f" (mean {np.mean(t['this']):.3f}) ms, other "
+              + " ".join(f"{v:.3f}" for v in t["other"])
+              + f" (mean {np.mean(t['other']):.3f}) ms; buffers bit for bit equal: {same}  "
+              f"[{card}]")
+
+
+if __name__ == "__main__":
+    main()

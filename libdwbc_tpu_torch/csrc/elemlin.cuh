@@ -1,10 +1,12 @@
 // Small dense linear algebra on one lane's strided views: the device
 // counterparts of ops/elemlin.py (same recurrences, same 1e-30 pivot
-// clamps).  Every routine is a serial loop nest run by one thread; matrices
-// live in the global element-leading workspace, never in per-thread arrays.
+// clamps).  Every routine here is a serial loop nest run by one thread;
+// matrices live in the global element-leading workspace, never in
+// per-thread arrays.  The Cholesky, the triangular inverse and L⁻ᵀL⁻¹ are
+// warp_linalg.cuh's, run here with one lane.
 #pragma once
 
-#include "tick_common.cuh"
+#include "warp_linalg.cuh"
 
 namespace dwbc {
 
@@ -82,51 +84,6 @@ template <typename T>
 DWBC_HD void copy_mat(M<T> D, M<T> S, int m, int n) {
   for (int i = 0; i < m; ++i)
     for (int j = 0; j < n; ++j) D(i, j) = S(i, j);
-}
-
-// In-place right-looking Cholesky of the lower triangle of L (n×n), one
-// rsqrt per column, pivots clamped at 1e-30; idg gets the reciprocal
-// diagonal and the stored diagonal is S_jj·rsqrt(max(S_jj, 1e-30)).  The
-// strict upper triangle is zeroed.
-template <typename T>
-DWBC_HD void chol_factor(M<T> L, V<T> idg, int n) {
-  for (int j = 0; j < n; ++j) {
-    T inv_d = rsqrt_(clamp_min(L(j, j), (T)1e-30));
-    idg[j] = inv_d;
-    for (int i = j; i < n; ++i) L(i, j) = L(i, j) * inv_d;
-    for (int i = j + 1; i < n; ++i) {
-      T li = L(i, j);
-      for (int k = j + 1; k <= i; ++k) L(i, k) = L(i, k) - li * L(k, j);
-    }
-    for (int i = 0; i < j; ++i) L(i, j) = (T)0;
-  }
-}
-
-// X = L⁻¹ for lower-triangular L with reciprocal diagonal idg (n³/6 FMAs):
-// X[j,j] = idg[j];  X[i,j] = −(Σ_{k=j..i−1} L[i,k]·X[k,j])·idg[i].
-template <typename T>
-DWBC_HD void tri_inv_lower(M<T> X, M<T> L, V<T> idg, int n) {
-  for (int j = 0; j < n; ++j) {
-    for (int i = 0; i < j; ++i) X(i, j) = (T)0;
-    X(j, j) = idg[j];
-    for (int i = j + 1; i < n; ++i) {
-      T acc = L(i, j) * X(j, j);
-      for (int k = j + 1; k < i; ++k) acc += L(i, k) * X(k, j);
-      X(i, j) = -acc * idg[i];
-    }
-  }
-}
-
-// C = XᵀX for lower-triangular X; C[i,j] = Σ_{k ≥ max(i,j)} X[k,i]·X[k,j].
-template <typename T>
-DWBC_HD void ltl_sym(M<T> C, M<T> X, int n) {
-  for (int i = 0; i < n; ++i)
-    for (int j = i; j < n; ++j) {
-      T acc = X(j, i) * X(j, j);
-      for (int k = j + 1; k < n; ++k) acc += X(k, i) * X(k, j);
-      C(i, j) = acc;
-      C(j, i) = acc;
-    }
 }
 
 // Out = Min⁻¹ for SPD Min (n×n): Cholesky → L⁻¹ → L⁻ᵀL⁻¹.  L and X are

@@ -20,7 +20,8 @@
 // and one n×n Cholesky, serial within the thread: at the tick's shapes
 // (n ≤ 12, m = 86, 7-12 iterations) the latency of one thread's chain of
 // dependent loads and FMAs, not the bytes (a few KB per problem) nor the
-// card's FLOP rate.  Blocks are one warp, as in tick_qpchain.
+// card's FLOP rate.  Blocks are one warp; the IPM runs with one lane per
+// problem (tick_qpchain runs the same code with a warp per problem).
 #include "ipm.cuh"
 
 namespace dwbc {
@@ -59,7 +60,7 @@ DWBC_HD void qp_solve_lane(const T* Hp, const T* gp, const T* Cp, const T* dp,
     for (int i = 0; i < n; ++i) x[i] = x0p[i];
     for (int r = 0; r < m; ++r) lam[r] = lam0p[r];
   }
-  ipm_iterate<T>(w, w.H, w.g, x, lam, n, n, me, mr, iters, warm, ridge);
+  ipm_iterate<T>(w, w.H, w.g, x, lam, n, n, me, mr, iters, warm, ridge, one_lane());
   for (int r = 0; r < m; ++r) sp[r] = w.s[r];
 }
 
@@ -105,5 +106,10 @@ extern "C" int dwbc_qp_solve(const float* H, const float* g, const float* C,
   qp_solve_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       H, g, C, d, x0, lam0, x, s, lam, ws, B, n, m, mr, iters, ridge);
   return (int)cudaGetLastError();
+}
+
+// The kernel's resources (dwbc::kernel_info).
+extern "C" int dwbc_qp_solve_info(int* out) {
+  return dwbc::kernel_info(qp_solve_kernel, 32, 0, out);
 }
 #endif

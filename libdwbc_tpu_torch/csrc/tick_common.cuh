@@ -2,12 +2,14 @@
 // packed model/config table, and the per-lane layouts of the buffers the
 // wrappers in ops/tick_cuda.py allocate.
 //
-// Layout: one thread computes one scenario ("lane").  Every buffer is
-// element-leading, [elem][B] with the batch contiguous, so element e of lane
-// b lives at base[e * B + b] and a warp's 32 lanes touch 32 neighbouring
-// words.  The lane code is __host__ __device__ and templated on the scalar
-// type, so a host compiler can run it lane by lane against the plain torch
-// tick; nvcc builds the float instances only.
+// Layout: every buffer between the kernels is element-leading, [elem][B]
+// with the batch contiguous, so element e of scenario b lives at
+// base[e * B + b].  tick_prestage computes one scenario per thread, so a
+// warp's 32 threads touch 32 neighbouring words; tick_qpchain computes one
+// per warp, on a copy in shared memory (views with stride 1).  The code is
+// __host__ __device__ and templated on the scalar type, so a host compiler
+// can run it scenario by scenario against the plain torch tick; nvcc builds
+// the float instances only.
 #pragma once
 
 #include <math.h>
@@ -52,9 +54,10 @@ struct Arena {
   T* base;
   long long s;
   long long off;
-  DWBC_HDI M<T> mat(int r, int c) {
-    M<T> m{base ? base + off * s : nullptr, s, c};
-    off += (long long)r * c;
+  DWBC_HDI M<T> mat(int r, int c, int ld = 0) {     // rows of ld ≥ c (default c)
+    ld = ld > c ? ld : c;
+    M<T> m{base ? base + off * s : nullptr, s, ld};
+    off += (long long)r * ld;
     return m;
   }
   DWBC_HDI V<T> vec(int n) {
@@ -195,19 +198,32 @@ struct Out {
 };
 
 // ------------------------------------------- warm state: (x, λ) per QP
-// QP h < nlev has n = lev_t[h] + cfree; the redistribution QP n = cfree;
-// every QP has m = 2·mdof + krows rows.  Same order as
-// ops/tick_cuda.py::warm_layout.
+// x (n) then λ (m) of each QP in turn: QP h < nlev has n = lev_t[h] +
+// cfree, the redistribution QP n = cfree; every QP has m = 2·mdof + krows
+// rows.  Same order as ops/tick_cuda.py::warm_layout.
 template <typename T>
-struct Warm {
-  V<T> x[NLEV_MAX + 1], lam[NLEV_MAX + 1];
-  DWBC_HD Warm(Arena<T>& a, const Tab<T>& tb) {
-    for (int h = 0; h <= tb.nlev; ++h) {
-      int n = h < tb.nlev ? tb.lev_t[h] + tb.cfree : tb.cfree;
-      x[h] = a.vec(n);
-      lam[h] = a.vec(tb.mrows());
-    }
-  }
-};
+DWBC_HDI long long warm_elems(const Tab<T>& tb) {
+  return (long long)tb.tsum() + (tb.nlev + 1) * (tb.cfree + tb.mrows());
+}
+
+#ifdef __CUDACC__
+// A kernel's resources at a launch shape, for the record: out = registers
+// per thread, local (spilled) bytes per thread, shared bytes per block
+// (static and dynamic), threads per block, resident blocks per SM.
+template <typename K>
+int kernel_info(K kernel, int threads, size_t dyn_smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t rc = cudaFuncGetAttributes(&a, kernel);
+  if (rc != cudaSuccess) return (int)rc;
+  int blocks = 0;
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, dyn_smem);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)(a.sharedSizeBytes + dyn_smem);
+  out[3] = threads;
+  out[4] = blocks;
+  return (int)rc;
+}
+#endif
 
 }  // namespace dwbc

@@ -638,4 +638,9 @@ extern "C" int dwbc_tick_prestage(const float* table, const float* q,
       table, q, cmask, qdot, fs, servo, smask, pre, ws, B);
   return (int)cudaGetLastError();
 }
+
+// The kernel's resources (dwbc::kernel_info).
+extern "C" int dwbc_tick_prestage_info(int* out) {
+  return dwbc::kernel_info(tick_prestage_kernel, 32, 0, out);
+}
 #endif

@@ -1,27 +1,44 @@
 // tick_qpchain: the prestage outputs, f* and the warm state → the tick's
-// torques, diagnostics and warm state out, one thread per scenario.
+// torques, diagnostics and warm state out, one warp per scenario.
 //
 // Replaces the second stage of the TPU kernel wbc/fused.py::FusedTick.
 // _run_pallas, i.e. libdwbc_tpu/ops/tick_kernel.py::TickProgram.qpchain and
-// TickProgram._ipm in static and masked mode: per task level a one-sided Mehrotra
-// predictor-corrector IPM for min ½xᵀdiag(H)x s.t. Cx ≤ d (H = 1 on the task
-// block, 0 on the contact block; float32 ridge 1e-6), then the contact
-// redistribution QP.  The IPM itself is csrc/ipm.cuh, shared with the
-// standalone solver csrc/qp_solve.cu.  Masked mode: the cone/ZMP rows of an
-// inactive candidate become 0·x ≤ 1, and a lane with at most 6 active
-// contact dof keeps the redistribution QP out of its gap and residual.
+// TickProgram._ipm in static, masked and servo'd mode: per task level a
+// one-sided Mehrotra predictor-corrector IPM for min ½xᵀdiag(H)x s.t. Cx ≤ d
+// (H = 1 on the task block, 0 on the contact block; float32 ridge 1e-6),
+// then the contact redistribution QP.  The IPM itself is csrc/ipm.cuh,
+// shared with the standalone solver csrc/qp_solve.cu.  Masked mode: the
+// cone/ZMP rows of an inactive candidate become 0·x ≤ 1, and a lane with at
+// most 6 active contact dof keeps the redistribution QP out of its gap and
+// residual.  Servo'd: f* is read from the prestage buffer's servo section.
+//
+// Mapping: kQPWarps scenarios per block, a warp each.  The block copies its
+// scenarios' inputs (the constraint blocks Atemp, NwJw and Nt, τ_grav, bA0,
+// the masks, f*, the warm (x, λ)) from the element-leading [elem][B]
+// buffers into shared memory (for one element the block's scenarios are
+// neighbouring words), the warp runs the chain there (ipm.cuh: the lanes
+// split the constraint rows, the Gram's entries and the m-vectors), and
+// the block writes the results and the warm state out the same way.  J̄ᵀ
+// is read once from device memory at the end.  About 3,500 floats
+// (~14 KB) per scenario.  The three QPs share one loop, so the IPM is
+// compiled once, and no view is indexed by a run-time level: the compiler
+// then keeps the views in registers, knows their stride is 1 and that they
+// point at shared memory (shared loads, 32-bit offsets), and the kernel
+// stays small enough for the instruction cache.
 //
 // What bounds it on the H100: per IPM iteration one Gram matrix (n²/2·m
 // FMAs, n ≤ 12, m = 86) and one n×n Cholesky, plus passes over the 53×n
-// stored rows: about 108k FLOP per scenario at 7 iterations, serial within
-// the thread, with the constraint rows and the m-vectors streamed from the
-// [elem][B] workspace (coalesced across the warp, L1/L2 resident at
-// B = 1024).  Blocks are one warp (32 blocks at B = 1024); filling all
-// 132 SMs is later work.
-#include "elemlin.cuh"
+// stored rows: about 108k FLOP per scenario at 7 iterations, on shared
+// memory, in a chain of warp phases (about 40 barriers per iteration, the
+// two triangular solves on one lane, μ and the gap as sequential sums):
+// the latency of that chain at small batches, the SM's instruction throughput
+// once every SM holds its four blocks (16 warps); not the bytes (~8 KB per
+// scenario) nor the card's FLOP rate.
 #include "ipm.cuh"
 
 namespace dwbc {
+
+constexpr int kQPWarps = 4;   // scenarios per block
 
 template <typename T>
 struct QPWS : IPMWS<T> {
@@ -35,17 +52,117 @@ struct QPWS : IPMWS<T> {
   }
 };
 
+template <typename T>
+DWBC_HD long long out_elems(const Tab<T>& tb) {
+  Arena<T> a{nullptr, 0, 0};
+  Out<T> o(a, tb);
+  return a.off;
+}
+
+// The prestage fields the QP chain reads more than once, as rows of the
+// prestage buffer (NwJw, the levels' Nt blocks, Atemp and bA0 in the
+// buffer's order), and the f* of every level.
+template <typename T>
+struct QPIn {
+  V<T> tg, Nt, bA0, crow, acdof, fstar;
+  M<T> NwJw, Atemp;
+
+  DWBC_HD QPIn(Arena<T>& a, const Tab<T>& tb) {
+    tg = a.vec(tb.mdof);
+    NwJw = a.mat(tb.mdof, tb.cfree);
+    Nt = a.vec(tb.mdof * tb.tsum());              // level h: mdof × lev_t[h], in turn
+    Atemp = a.mat(tb.krows, tb.mdof);
+    bA0 = a.vec(tb.krows);
+    crow = tb.masked ? a.vec(tb.krows) : V<T>{nullptr, 0};
+    acdof = tb.masked ? a.vec(1) : V<T>{nullptr, 0};
+    fstar = a.vec(tb.tsum());
+  }
+};
+
+// One scenario's working set in shared memory: inputs, IPM workspace, the
+// warm state (tick_common.cuh's layout, evolved in place) and the results.  No view is indexed by a run-time level, so that the compiler
+// keeps every view in registers and sees that it points at shared memory.
+template <typename T>
+struct QPShared {
+  QPIn<T> in;
+  QPWS<T> w;
+  V<T> warm;
+  Out<T> out;
+  DWBC_HD QPShared(Arena<T>& a, const Tab<T>& tb)
+      : in(a, tb), w(a, tb), warm(a.vec((int)warm_elems(tb))), out(a, tb) {}
+};
+
+// Elements per scenario of the shared working set.
+template <typename T>
+DWBC_HD long long qpchain_smem_elems(const Tab<T>& tb) {
+  Arena<T> a{nullptr, 0, 0};
+  QPShared<T> sh(a, tb);
+  return a.off;
+}
+
+// Copy cnt elements of nw scenarios between an [elem][B] buffer (g, at
+// the block's first scenario) and their shared copies (scenario w at
+// sh + w·S), in or out.  Threads tid of nthr split the (element, scenario)
+// pairs, neighbouring threads on neighbouring scenarios.
+template <typename T>
+DWBC_HD void stage(T* sh, T* g, int cnt, bool in, long long S, long long B, int nw, int W,
+                   int tid, int nthr) {
+  for (int e = tid; e < cnt * W; e += nthr) {
+    const int el = e / W, w = e % W;
+    if (w >= nw) continue;
+    if (in)
+      sh[w * S + el] = g[el * B + w];
+    else
+      g[el * B + w] = sh[w * S + el];
+  }
+}
+
+// The block's scenarios b0 .. b0 + nw − 1 into shared memory (sm, S
+// elements each).
+template <typename T>
+DWBC_HD void qpchain_stage_in(const Tab<T>& tb, const T* prep, const T* fsp, const T* warm_in,
+                              T* sm, long long S, long long B, long long b0, int nw, int W,
+                              int tid, int nthr) {
+  const bool servo = fsp == nullptr;   // as ops/tick_cuda.py::PackedPre.servo
+  Arena<T> pa{const_cast<T*>(prep) + b0, B, 0};
+  const Pre<T> pre(pa, tb, servo);
+  Arena<T> sa{sm, 1, 0};
+  const QPShared<T> sh(sa, tb);
+  const int md = tb.mdof, kr = tb.krows;
+  const QPIn<T>& d = sh.in;
+  T* const src[] = {pre.tg.p, pre.NwJw.p, pre.crow.p,
+                    servo ? pre.fstar.p : const_cast<T*>(fsp) + b0,
+                    warm_in != nullptr ? const_cast<T*>(warm_in) + b0 : nullptr};
+  T* const dst[] = {d.tg.p, d.NwJw.p, d.crow.p, d.fstar.p, sh.warm.p};
+  const int cnt[] = {md, md * (tb.cfree + tb.tsum()) + kr * md + kr,   // NwJw … bA0
+                     tb.masked ? kr + 1 : 0,                           // crow, acdof
+                     tb.tsum(), warm_in != nullptr ? (int)warm_elems(tb) : 0};
+  for (int f = 0; f < 5; ++f)
+    if (cnt[f] > 0) stage(dst[f], src[f], cnt[f], true, S, B, nw, W, tid, nthr);
+}
+
+// The block's results and warm state out of shared memory.
+template <typename T>
+DWBC_HD void qpchain_stage_out(const Tab<T>& tb, T* outp, T* warm_out, T* sm, long long S,
+                               long long B, long long b0, int nw, int W, int tid, int nthr) {
+  Arena<T> sa{sm, 1, 0};
+  const QPShared<T> sh(sa, tb);
+  stage(sh.out.tg.p, outp + b0, (int)out_elems(tb), false, S, B, nw, W, tid, nthr);
+  stage(sh.warm.p, warm_out + b0, (int)warm_elems(tb), false, S, B, nw, W, tid, nthr);
+}
+
 // min ½xᵀdiag(H)x s.t. Cx ≤ d, H = 1 on the first nt variables and 0 on
 // the rest (ipm.cuh), then the primal residual and the normalized
-// complementarity gap.  x and lam are the warm state in and the solution out.
+// complementarity gap (every lane alike).  x and lam are the warm state in
+// and the solution out.
 template <typename T>
 DWBC_HD void ipm(const QPWS<T>& w, V<T> x, V<T> lam, int n, int nt, int me,
-                 int mr, int iters, bool warm, T& gap, T& pres) {
+                 int mr, int iters, bool warm, T& gap, T& pres, Lanes wp) {
   const T ridge = sizeof(T) == 4 ? (T)1e-6 : (T)1e-9;
   const int m = me + mr;
   ipm_iterate<T>(w, M<T>{nullptr, 0, 0}, V<T>{nullptr, 0}, x, lam, n, nt, me,
-                 mr, iters, warm, ridge);
-  cx_full<T>(w, x, w.tmp, n, me, mr);
+                 mr, iters, warm, ridge, wp);
+  cx_full<T>(w, x, w.tmp, n, me, mr, wp);
   T p = 0, g = 0;
   for (int r = 0; r < m; ++r) {
     T slack = w.d[r] - w.tmp[r];
@@ -54,194 +171,190 @@ DWBC_HD void ipm(const QPWS<T>& w, V<T> x, V<T> lam, int n, int nt, int me,
   }
   pres = p;
   gap = g / (T)m;
+  wp.sync();
 }
 
 // Constraint rows of one QP: C = [blk; −Atemp·blk], d = [τlim − τ;
 // τlim + τ; Atemp·τ − bA0] with τ = w.tau_base; masked: a row whose
-// crow_mask is 0 becomes 0·x ≤ 1.
+// crow_mask is 0 becomes 0·x ≤ 1.  The lanes split the entries.
 template <typename T>
-DWBC_HD void build_rows(const Tab<T>& tb, const QPWS<T>& w, const Pre<T>& pre,
-                        int nv) {
+DWBC_HD void build_rows(const Tab<T>& tb, const QPWS<T>& w, const QPIn<T>& in, int nv,
+                        Lanes wp) {
   const int md = tb.mdof;
-  for (int r = 0; r < tb.krows; ++r) {
-    const T cr = tb.masked ? pre.crow[r] : (T)1;
-    for (int c = 0; c < nv; ++c) {
-      T acc = pre.Atemp(r, 0) * w.C(0, c);
-      for (int i = 1; i < md; ++i) acc += pre.Atemp(r, i) * w.C(i, c);
-      w.C(md + r, c) = tb.masked ? -acc * cr : -acc;
-    }
-    T acc = pre.Atemp(r, 0) * w.tau_base[0];
-    for (int i = 1; i < md; ++i) acc += pre.Atemp(r, i) * w.tau_base[i];
-    w.d[2 * md + r] = cr > (T)0.5 ? acc - pre.bA0[r] : (T)1;
+  for (int e = wp.lane; e < tb.krows * nv; e += wp.nl) {
+    const int r = e / nv, c = e % nv;
+    const T cr = tb.masked ? in.crow[r] : (T)1;
+    T acc = in.Atemp(r, 0) * w.C(0, c);
+    for (int i = 1; i < md; ++i) acc += in.Atemp(r, i) * w.C(i, c);
+    w.C(md + r, c) = tb.masked ? -acc * cr : -acc;
   }
-  for (int i = 0; i < md; ++i) {
+  for (int r = wp.lane; r < tb.krows; r += wp.nl) {
+    const T cr = tb.masked ? in.crow[r] : (T)1;
+    T acc = in.Atemp(r, 0) * w.tau_base[0];
+    for (int i = 1; i < md; ++i) acc += in.Atemp(r, i) * w.tau_base[i];
+    w.d[2 * md + r] = cr > (T)0.5 ? acc - in.bA0[r] : (T)1;
+  }
+  for (int i = wp.lane; i < md; i += wp.nl) {
     w.d[i] = tb.tlim[i] - w.tau_base[i];
     w.d[md + i] = tb.tlim[i] + w.tau_base[i];
   }
+  wp.sync();
 }
 
+// The chain of one scenario on its shared working set sh; pg is the
+// scenario's view of the prestage buffer in device memory (J̄ᵀ, P_C, the
+// health), read once.  QP h < nlev is task level h (n = lev_t[h] + cfree,
+// H = 1 on the task block), QP nlev the contact redistribution (n = cfree,
+// H = 1): one loop, so the IPM is compiled once.
 template <typename T>
-DWBC_HD void qpchain_lane(const T* table, const T* prep, const T* fsp,
-                          const T* warm_in, T* outp, T* warm_out, T* wsp,
-                          long long B, int iters) {
-  const Tab<T> tb(table);
-  const int md = tb.mdof, cf = tb.cfree, me = tb.srows();
-  const bool servo = fsp == nullptr;   // as ops/tick_cuda.py::PackedPre.servo
-  Arena<T> pa{const_cast<T*>(prep), B, 0};
-  const Pre<T> pre(pa, tb, servo);
-  Arena<T> oa{outp, B, 0};
-  Out<T> out(oa, tb);
-  Arena<T> woa{warm_out, B, 0};
-  Warm<T> wo(woa, tb);
-  Arena<T> wa{wsp, B, 0};
-  QPWS<T> w(wa, tb);
-  const bool warm = warm_in != nullptr;
-  if (warm) {                                    // x, λ evolve in warm_out
-    Arena<T> wia{const_cast<T*>(warm_in), B, 0};
-    Warm<T> wi(wia, tb);
-    for (int h = 0; h <= tb.nlev; ++h) {
-      const int n = h < tb.nlev ? tb.lev_t[h] + cf : cf;
-      for (int i = 0; i < n; ++i) wo.x[h][i] = wi.x[h][i];
-      for (int r = 0; r < tb.mrows(); ++r) wo.lam[h][r] = wi.lam[h][r];
-    }
-  }
-  const V<T> fs = servo ? pre.fstar : V<T>{const_cast<T*>(fsp), B};
+DWBC_HD void qpchain_warp(const Tab<T>& tb, const QPShared<T>& sh, const Pre<T>& pg, int iters,
+                          bool warm, Lanes wp) {
+  const int md = tb.mdof, cf = tb.cfree, me = tb.srows(), m = tb.mrows();
+  const QPIn<T>& in = sh.in;
+  const QPWS<T>& w = sh.w;
+  const Out<T>& out = sh.out;
 
-  for (int i = 0; i < md; ++i) {
+  for (int i = wp.lane; i < md; i += wp.nl) {
     w.tau_task[i] = (T)0;
     w.tau_contact[i] = (T)0;
   }
   T gap = 0, pres = 0;
-  int foff = 0;
-  for (int h = 0; h < tb.nlev; ++h) {
-    const int t = tb.lev_t[h], nv = t + cf;
-    const M<T> Nt = pre.Nt[h];
-    V<T> f = fs.at(foff);
-    for (int i = 0; i < md; ++i) {
-      T acc = Nt(i, 0) * f[0];
-      for (int c = 1; c < t; ++c) acc += Nt(i, c) * f[c];
-      w.tau_base[i] = (pre.tg[i] + w.tau_task[i]) + acc;
-      for (int c = 0; c < nv; ++c) w.C(i, c) = c < t ? Nt(i, c) : pre.NwJw(i, c - t);
+  int foff = 0, woff = 0;
+  for (int h = 0; h <= tb.nlev; ++h) {
+    const bool redis = h == tb.nlev;
+    const int t = redis ? 0 : tb.lev_t[h], nv = t + cf;
+    const M<T> Nt{in.Nt.p + (long long)md * foff, 1, t};
+    const V<T> f = in.fstar.at(foff);
+    for (int i = wp.lane; i < md; i += wp.nl) {
+      if (redis) {
+        w.tau_base[i] = (in.tg[i] + w.tau_task[i]) + w.tau_contact[i];
+      } else {
+        T acc = Nt(i, 0) * f[0];
+        for (int c = 1; c < t; ++c) acc += Nt(i, c) * f[c];
+        w.tau_base[i] = (in.tg[i] + w.tau_task[i]) + acc;
+      }
+      for (int c = 0; c < nv; ++c) w.C(i, c) = c < t ? Nt(i, c) : in.NwJw(i, c - t);
     }
-    build_rows(tb, w, pre, nv);
+    wp.sync();
+    build_rows(tb, w, in, nv, wp);
+    const V<T> x = sh.warm.at(woff), lam = sh.warm.at(woff + nv);
     T g, p;
-    ipm(w, wo.x[h], wo.lam[h], nv, t, me, md, iters, warm, g, p);
-    for (int i = 0; i < md; ++i) {
-      T acc = Nt(i, 0) * (f[0] + wo.x[h][0]);
-      for (int c = 1; c < t; ++c) acc += Nt(i, c) * (f[c] + wo.x[h][c]);
-      w.tau_task[i] = w.tau_task[i] + acc;
-      T tc = pre.NwJw(i, 0) * wo.x[h][t];
-      for (int c = 1; c < cf; ++c) tc += pre.NwJw(i, c) * wo.x[h][t + c];
-      w.tau_contact[i] = tc;
+    ipm(w, x, lam, nv, redis ? cf : t, me, md, iters, warm, g, p, wp);
+    for (int i = wp.lane; i < md; i += wp.nl) {
+      if (!redis) {
+        T acc = Nt(i, 0) * (f[0] + x[0]);
+        for (int c = 1; c < t; ++c) acc += Nt(i, c) * (f[c] + x[c]);
+        w.tau_task[i] = w.tau_task[i] + acc;
+      }
+      T tc = in.NwJw(i, 0) * x[t];
+      for (int c = 1; c < cf; ++c) tc += in.NwJw(i, c) * x[t + c];
+      w.tau_contact[i] = redis ? w.tau_contact[i] + tc : tc;
     }
-    gap = vmax(gap, g);
-    pres = vmax(pres, p);
-    foff += t;
-  }
-
-  // contact redistribution QP
-  {
-    const int h = tb.nlev;
-    for (int i = 0; i < md; ++i) {
-      w.tau_base[i] = (pre.tg[i] + w.tau_task[i]) + w.tau_contact[i];
-      for (int c = 0; c < cf; ++c) w.C(i, c) = pre.NwJw(i, c);
-    }
-    build_rows(tb, w, pre, cf);
-    T g, p;
-    ipm(w, wo.x[h], wo.lam[h], cf, cf, me, md, iters, warm, g, p);
-    for (int i = 0; i < md; ++i) {
-      T acc = pre.NwJw(i, 0) * wo.x[h][0];
-      for (int c = 1; c < cf; ++c) acc += pre.NwJw(i, c) * wo.x[h][c];
-      w.tau_contact[i] = w.tau_contact[i] + acc;
-    }
-    if (tb.masked) {        // no redistribution problem unless active_cdof > 6
-      const T live = pre.acdof[0] > (T)6.5 ? (T)1 : (T)0;
+    if (redis && tb.masked) {  // no redistribution problem unless active_cdof > 6
+      const T live = in.acdof[0] > (T)6.5 ? (T)1 : (T)0;
       g = g * live;
       p = p * live;
     }
     gap = vmax(gap, g);
     pres = vmax(pres, p);
+    foff += t;
+    woff += nv + m;
+    wp.sync();
   }
 
-  for (int i = 0; i < md; ++i) {
-    out.tg[i] = pre.tg[i];
+  for (int i = wp.lane; i < md; i += wp.nl) {
+    out.tg[i] = in.tg[i];
     out.tt[i] = w.tau_task[i];
     out.tc[i] = w.tau_contact[i];
-    out.tcmd[i] = (pre.tg[i] + w.tau_task[i]) + w.tau_contact[i];
+    out.tcmd[i] = (in.tg[i] + w.tau_task[i]) + w.tau_contact[i];
   }
-  for (int r = 0; r < tb.cdof; ++r) {
-    T acc = pre.Jbar_act(r, 0) * out.tcmd[0];
-    for (int i = 1; i < md; ++i) acc += pre.Jbar_act(r, i) * out.tcmd[i];
-    out.cforce[r] = acc - pre.PC[r];
+  wp.sync();
+  for (int r = wp.lane; r < tb.cdof; r += wp.nl) {
+    T acc = pg.Jbar_act(r, 0) * out.tcmd[0];
+    for (int i = 1; i < md; ++i) acc += pg.Jbar_act(r, i) * out.tcmd[i];
+    out.cforce[r] = acc - pg.PC[r];
   }
-  out.gap[0] = gap;
-  out.pres[0] = pres;
-  out.health[0] = pre.health[0];
-}
-
-template <typename T>
-long long qpchain_ws_elems(const T* table) {
-  const Tab<T> tb(table);
-  Arena<T> a{nullptr, 0, 0};
-  QPWS<T> w(a, tb);
-  return a.off;
-}
-
-template <typename T>
-long long out_elems(const T* table) {
-  const Tab<T> tb(table);
-  Arena<T> a{nullptr, 0, 0};
-  Out<T> o(a, tb);
-  return a.off;
-}
-
-template <typename T>
-long long warm_elems(const T* table) {
-  const Tab<T> tb(table);
-  Arena<T> a{nullptr, 0, 0};
-  Warm<T> o(a, tb);
-  return a.off;
+  if (wp.lane == 0) {
+    out.gap[0] = gap;
+    out.pres[0] = pres;
+    out.health[0] = pg.health[0];
+  }
+  wp.sync();
 }
 
 }  // namespace dwbc
 
-extern "C" long long dwbc_qpchain_ws_elems(const float* table_host) {
-  return dwbc::qpchain_ws_elems(table_host);
+extern "C" long long dwbc_qpchain_smem_elems(const float* table_host) {
+  return dwbc::qpchain_smem_elems(dwbc::Tab<float>(table_host));
 }
 
 extern "C" long long dwbc_out_elems(const float* table_host) {
-  return dwbc::out_elems(table_host);
+  return dwbc::out_elems(dwbc::Tab<float>(table_host));
 }
 
 extern "C" long long dwbc_warm_elems(const float* table_host) {
-  return dwbc::warm_elems(table_host);
+  return dwbc::warm_elems(dwbc::Tab<float>(table_host));
 }
 
 #ifdef __CUDACC__
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(32 * dwbc::kQPWarps)
     tick_qpchain_kernel(const float* table, const float* pre, const float* fs,
-                        const float* warm_in, float* out, float* warm_out,
-                        float* ws, int B, int iters) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  dwbc::qpchain_lane<float>(table, pre + b, fs ? fs + b : nullptr,
-                            warm_in ? warm_in + b : nullptr, out + b,
-                            warm_out + b, ws + b, (long long)B, iters);
+                        const float* warm_in, float* out, float* warm_out, int B, int iters,
+                        int S) {
+  extern __shared__ float sm[];
+  constexpr int W = dwbc::kQPWarps;
+  const dwbc::Tab<float> tb(table);
+  const long long b0 = (long long)blockIdx.x * W;
+  const int nw = B - b0 < W ? (int)(B - b0) : W;
+  dwbc::qpchain_stage_in(tb, pre, fs, warm_in, sm, S, B, b0, nw, W, threadIdx.x, blockDim.x);
+  __syncthreads();
+  const int w = threadIdx.x / 32;
+  if (w < nw) {
+    dwbc::Arena<float> pa{const_cast<float*>(pre) + b0 + w, B, 0};
+    const dwbc::Pre<float> pg(pa, tb, fs == nullptr);
+    dwbc::Arena<float> sa{sm + (long long)w * S, 1, 0};
+    const dwbc::QPShared<float> sh(sa, tb);
+    dwbc::qpchain_warp(tb, sh, pg, iters, warm_in != nullptr,
+                       dwbc::Lanes{(int)threadIdx.x % 32, 32, nullptr});
+  }
+  __syncthreads();
+  dwbc::qpchain_stage_out(tb, out, warm_out, sm, S, B, b0, nw, W, threadIdx.x, blockDim.x);
+}
+
+static size_t qpchain_smem_bytes(int S) { return sizeof(float) * dwbc::kQPWarps * (size_t)S; }
+
+// Allow the dynamic shared memory of S elements per scenario (once per
+// size the process has seen grow).
+static cudaError_t qpchain_allow_smem(int S) {
+  static size_t allowed = 48 * 1024;
+  const size_t bytes = qpchain_smem_bytes(S);
+  if (bytes <= allowed) return cudaSuccess;
+  cudaError_t rc = cudaFuncSetAttribute(tick_qpchain_kernel,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (rc == cudaSuccess) allowed = bytes;
+  return rc;
 }
 
 // pre (pre_elems, B), fs (Σ task dofs, B), or fs null and pre (pre_elems
 // with the servo section, B) for a servo'd tick, warm_in (warm_elems, B) or
-// null for a cold tick, out (out_elems, B), warm_out (warm_elems, B), ws
-// (qpchain_ws_elems, B): float32, contiguous, on the device; launched on
-// `stream`, no synchronisation.
+// null for a cold tick, out (out_elems, B), warm_out (warm_elems, B):
+// float32, contiguous, on the device; S = dwbc_qpchain_smem_elems of the
+// table; launched on `stream`, no synchronisation.
 extern "C" int dwbc_tick_qpchain(const float* table, const float* pre,
                                  const float* fs, const float* warm_in,
-                                 float* out, float* warm_out, float* ws, int B,
+                                 float* out, float* warm_out, int S, int B,
                                  int iters, void* stream) {
-  const int threads = 32;               // one warp per block: spread lanes over SMs
-  const int blocks = (B + threads - 1) / threads;
-  tick_qpchain_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      table, pre, fs, warm_in, out, warm_out, ws, B, iters);
+  if (cudaError_t rc = qpchain_allow_smem(S)) return (int)rc;
+  const int blocks = (B + dwbc::kQPWarps - 1) / dwbc::kQPWarps;
+  tick_qpchain_kernel<<<blocks, 32 * dwbc::kQPWarps, qpchain_smem_bytes(S),
+                        (cudaStream_t)stream>>>(table, pre, fs, warm_in, out, warm_out, B,
+                                                iters, S);
   return (int)cudaGetLastError();
+}
+
+// The kernel's resources at S elements per scenario (dwbc::kernel_info).
+extern "C" int dwbc_tick_qpchain_info(int S, int* out) {
+  if (cudaError_t rc = qpchain_allow_smem(S)) return (int)rc;
+  return dwbc::kernel_info(tick_qpchain_kernel, 32 * dwbc::kQPWarps, qpchain_smem_bytes(S), out);
 }
 #endif

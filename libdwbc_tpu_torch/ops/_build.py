@@ -43,11 +43,12 @@ def source_hash() -> str:
 
 
 def build(verbose: bool = False) -> tuple[Path, str]:
-    """Compile the kernels unless a library of the same source hash exists.
-    Returns (library path, compiler log); verbose adds ptxas's register and
-    spill report to the log.  Raises on a failed build."""
+    """Compile the kernels unless a library of the same source hash exists;
+    verbose compiles in any case and adds ptxas's register and spill report
+    to the log.  Returns (library path, compiler log).  Raises on a failed
+    build."""
     so = BUILD_DIR / f"libdwbc_tick_{source_hash()}.so"
-    if so.exists():
+    if so.exists() and not verbose:
         return so, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{so.stem}.{os.getpid()}"
@@ -85,7 +86,7 @@ def library() -> ctypes.CDLL:
     so, _ = build()
     lib = ctypes.CDLL(str(so))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name in ("dwbc_prestage_ws_elems", "dwbc_qpchain_ws_elems", "dwbc_out_elems",
+    for name in ("dwbc_prestage_ws_elems", "dwbc_qpchain_smem_elems", "dwbc_out_elems",
                  "dwbc_warm_elems"):
         fn = getattr(lib, name)
         fn.argtypes = [p]
@@ -94,15 +95,33 @@ def library() -> ctypes.CDLL:
     lib.dwbc_pre_elems.restype = ll
     lib.dwbc_tick_prestage.argtypes = [p, p, p, p, p, p, i, p, p, i, p]
     lib.dwbc_tick_prestage.restype = i
-    lib.dwbc_tick_qpchain.argtypes = [p, p, p, p, p, p, p, i, i, p]
+    lib.dwbc_tick_qpchain.argtypes = [p, p, p, p, p, p, i, i, i, p]
     lib.dwbc_tick_qpchain.restype = i
-    lib.dwbc_psd_inverse_ws_elems.argtypes = [i]
-    lib.dwbc_psd_inverse_ws_elems.restype = ll
-    lib.dwbc_psd_inverse.argtypes = [p, p, p, i, i, p]
+    lib.dwbc_psd_inverse.argtypes = [p, p, i, i, p]
     lib.dwbc_psd_inverse.restype = i
     lib.dwbc_qp_solve_ws_elems.argtypes = [i, i, i]
     lib.dwbc_qp_solve_ws_elems.restype = ll
     lib.dwbc_qp_solve.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
                                   ctypes.c_float, p]
     lib.dwbc_qp_solve.restype = i
+    for name, args in (("dwbc_tick_prestage_info", [p]), ("dwbc_tick_qpchain_info", [i, p]),
+                       ("dwbc_psd_inverse_info", [i, p]), ("dwbc_qp_solve_info", [p])):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = i
     return lib
+
+
+INFO_KEYS = ("registers", "local_bytes", "smem_per_block", "threads_per_block",
+             "blocks_per_sm")
+
+
+def kernel_info(name: str, *args: int) -> dict:
+    """A kernel's resources at a launch shape (``dwbc_<name>_info``):
+    registers per thread, local (spilled) bytes per thread, shared bytes
+    per block, threads per block and resident blocks per SM."""
+    out = (ctypes.c_int * len(INFO_KEYS))()
+    rc = getattr(library(), f"dwbc_{name}_info")(*args, out)
+    if rc != 0:
+        raise RuntimeError(f"{name} info failed: CUDA error {rc}")
+    return dict(zip(INFO_KEYS, out))

@@ -97,9 +97,8 @@ def psd_inverse(A):
     B = A.numel() // (n * n)
     lib = _build.library()
     out = torch.empty_like(A)
-    ws = torch.empty((lib.dwbc_psd_inverse_ws_elems(n), B), dtype=A.dtype, device=A.device)
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    rc = lib.dwbc_psd_inverse(A.data_ptr(), out.data_ptr(), ws.data_ptr(), B, n, stream)
+    rc = lib.dwbc_psd_inverse(A.data_ptr(), out.data_ptr(), B, n, stream)
     if rc != 0:
         raise RuntimeError(f"psd_inverse launch failed: CUDA error {rc}")
     launches["psd_inverse"] += 1

@@ -163,7 +163,7 @@ def out_layout(plan):
 
 
 def warm_layout(plan):
-    """(x, λ) per QP (csrc/tick_common.cuh::Warm)."""
+    """(x, λ) per QP (csrc/tick_common.cuh::warm_elems)."""
     return [(f"{k}.{h}", (dim,)) for h, (nv, m) in enumerate(plan.qp_dims)
             for k, dim in (("x", nv), ("lam", m))]
 
@@ -268,7 +268,7 @@ class TickKernels(nn.Module):
                          pre_servo=lib.dwbc_pre_elems(host, 1), out=lib.dwbc_out_elems(host),
                          warm=lib.dwbc_warm_elems(host),
                          ws_pre=lib.dwbc_prestage_ws_elems(host),
-                         ws_qp=lib.dwbc_qpchain_ws_elems(host))
+                         smem_qp=lib.dwbc_qpchain_smem_elems(host))
             want = dict(pre=_elems(pre_layout(self.plan)),
                         pre_servo=_elems(pre_layout(self.plan, servo=True)),
                         out=_elems(out_layout(self.plan)),
@@ -367,12 +367,11 @@ class TickKernels(nn.Module):
             win = torch.cat([t for xl in warm for t in xl], 0)
         out = torch.empty((sz["out"], B), dtype=torch.float32, device=buf.device)
         wout = torch.empty((sz["warm"], B), dtype=torch.float32, device=buf.device)
-        ws = torch.empty((sz["ws_qp"], B), dtype=torch.float32, device=buf.device)
         stream = torch.cuda.current_stream(buf.device).cuda_stream
         rc = lib.dwbc_tick_qpchain(
             self.table.data_ptr(), buf.data_ptr(), None if fs is None else fs.data_ptr(),
             None if win is None else win.data_ptr(), out.data_ptr(),
-            wout.data_ptr(), ws.data_ptr(), B, int(iters), stream)
+            wout.data_ptr(), sz["smem_qp"], B, int(iters), stream)
         self._raise_on(rc, "tick_qpchain")
         self.launches["tick_qpchain"] += 1
         return out, wout

@@ -35,11 +35,89 @@ SHIM = r"""
 #include "tick_qpchain.cu"
 #include "psd_inverse.cu"
 #include "qp_solve.cu"
+#include <algorithm>
+#include <condition_variable>
+#include <mutex>
+#include <thread>
+#include <vector>
+
+// nl > 1 lanes as threads: HostWarp's barrier on a mutex and a generation
+// count, so the lanes run each phase concurrently between their syncs
+struct Emu : dwbc::HostWarp {
+  std::mutex mu;
+  std::condition_variable cv;
+  int n = 0, waiting = 0;
+  long gen = 0;
+};
+static void emu_barrier(dwbc::HostWarp* h) {
+  Emu* e = static_cast<Emu*>(h);
+  std::unique_lock<std::mutex> lk(e->mu);
+  const long g = e->gen;
+  if (++e->waiting == e->n) {
+    e->waiting = 0;
+    ++e->gen;
+    e->cv.notify_all();
+  } else {
+    e->cv.wait(lk, [&] { return e->gen != g; });
+  }
+}
+template <class F> static void run_lanes(int nl, F f) {
+  if (nl == 1) return f(dwbc::one_lane());
+  Emu e;
+  e.barrier = emu_barrier;
+  e.n = nl;
+  std::vector<std::thread> th;
+  for (int l = 0; l < nl; ++l) th.emplace_back([&, l] { f(dwbc::Lanes{l, nl, &e}); });
+  for (auto& t : th) t.join();
+}
+
+// The QP chain of B scenarios, one at a time: staged into a scratch copy
+// of its shared working set (NaN-filled), run by nl lanes, staged out.
+template <typename T>
+static void qpchain(const T* t, const T* p, const T* f, const T* wi, T* o, T* wo, int B,
+                    int iters, int nl) {
+  const dwbc::Tab<T> tb(t);
+  const long long S = dwbc::qpchain_smem_elems(tb);
+  std::vector<T> sm(S);
+  for (int b = 0; b < B; ++b) {
+    std::fill(sm.begin(), sm.end(), (T)NAN);
+    dwbc::qpchain_stage_in(tb, p, f, wi, sm.data(), S, B, b, 1, 1, 0, 1);
+    dwbc::Arena<T> pa{const_cast<T*>(p) + b, B, 0};
+    const dwbc::Pre<T> pg(pa, tb, f == nullptr);
+    dwbc::Arena<T> sa{sm.data(), 1, 0};
+    const dwbc::QPShared<T> sh(sa, tb);
+    run_lanes(nl, [&](dwbc::Lanes wp) { dwbc::qpchain_warp(tb, sh, pg, iters, wi != nullptr, wp); });
+    dwbc::qpchain_stage_out(tb, o, wo, sm.data(), S, B, b, 1, 1, 0, 1);
+  }
+}
+
 extern "C" {
-void psdinv64(const double* A, double* out, double* w, int B, int n) {
-  for (int b = 0; b < B; ++b)
-    dwbc::psd_inverse_lane<double>(A + (long long)b * n * n, out + (long long)b * n * n,
-                                   w + b, B, n);
+void psdinv64(const double* A, double* out, int B, int n, int nl) {
+  std::vector<double> sm(dwbc::psd_inverse_smem_elems(n));
+  for (int b = 0; b < B; ++b) {
+    std::fill(sm.begin(), sm.end(), (double)NAN);
+    const long long off = (long long)b * n * n;
+    run_lanes(nl, [&](dwbc::Lanes wp) {
+      dwbc::psd_inverse_warp<double>(A + off, out + off, sm.data(), n, wp);
+    });
+  }
+}
+// Per entry of an n×n grid, how many of nl lanes' strided walks visit it:
+// kind 0 the trailing triangle below column j (chol_factor), 1 the upper
+// triangle (ltl_sym), 2 the lower triangle (the IPM's Gram).
+void walks(int kind, int n, int j, int nl, int* cnt) {
+  for (int l = 0; l < nl; ++l) {
+    if (kind == 0) {
+      int i = j + 1, k = j + 1;
+      for (dwbc::walk_trailing(i, k, j, l); i < n; dwbc::walk_trailing(i, k, j, nl)) ++cnt[i * n + k];
+    } else if (kind == 1) {
+      int i = 0, k = 0;
+      for (dwbc::walk_upper(i, k, n, l); i < n; dwbc::walk_upper(i, k, n, nl)) ++cnt[i * n + k];
+    } else {
+      int i = 0, k = 0;
+      for (dwbc::walk_lower(i, k, l); i < n; dwbc::walk_lower(i, k, nl)) ++cnt[i * n + k];
+    }
+  }
 }
 long long qpws64(int n, int m, int mr) { return dwbc::qp_solve_ws_elems<double>(n, m, mr); }
 void qpsolve64(const double* H, const double* g, const double* C, const double* d,
@@ -60,22 +138,18 @@ void pre64(const double* t, const double* q, const double* cm, const double* qd,
                                 w + b, B);
 }
 void qp64(const double* t, const double* p, const double* f, const double* wi,
-          double* o, double* wo, double* w, int B, int iters) {
-  for (int b = 0; b < B; ++b)
-    dwbc::qpchain_lane<double>(t, p + b, f ? f + b : nullptr, wi ? wi + b : nullptr, o + b,
-                               wo + b, w + b, B, iters);
+          double* o, double* wo, int B, int iters, int nl) {
+  qpchain<double>(t, p, f, wi, o, wo, B, iters, nl);
 }
 void qp32(const float* t, const float* p, const float* f, const float* wi,
-          float* o, float* wo, float* w, int B, int iters) {
-  for (int b = 0; b < B; ++b)
-    dwbc::qpchain_lane<float>(t, p + b, f ? f + b : nullptr, wi ? wi + b : nullptr, o + b,
-                              wo + b, w + b, B, iters);
+          float* o, float* wo, int B, int iters) {
+  qpchain<float>(t, p, f, wi, o, wo, B, iters, 1);
 }
-long long qpws32(const float* t) { return dwbc::qpchain_ws_elems(t); }
 void sizes64(const double* t, long long* out) {
+  const dwbc::Tab<double> tb(t);
   out[0] = dwbc::prestage_ws_elems(t); out[1] = dwbc::pre_elems(t, false);
-  out[2] = dwbc::qpchain_ws_elems(t); out[3] = dwbc::out_elems(t);
-  out[4] = dwbc::warm_elems(t); out[5] = dwbc::pre_elems(t, true);
+  out[2] = dwbc::qpchain_smem_elems(tb); out[3] = dwbc::out_elems(tb);
+  out[4] = dwbc::warm_elems(tb); out[5] = dwbc::pre_elems(t, true);
 }
 }
 """
@@ -93,7 +167,7 @@ def lanes(tmp_path_factory):
     d = tmp_path_factory.mktemp("csrc_host")
     (d / "shim.cpp").write_text(SHIM)
     so = d / "liblanes.so"
-    subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-I", CSRC,
+    subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-pthread", "-I", CSRC,
                     str(d / "shim.cpp"), "-o", str(so)], check=True,
                    capture_output=True, timeout=300)
     return ctypes.CDLL(str(so))
@@ -146,20 +220,21 @@ def setup(request):
 
 
 def _sizes(lanes, tab):
-    """(prestage workspace, pre, QP-chain workspace, out, warm, servo'd pre)
-    elements per lane."""
+    """(prestage workspace, pre, QP chain's shared working set, out, warm,
+    servo'd pre) elements per lane."""
     sz = (ctypes.c_longlong * 6)()
     lanes.sizes64(_ptr(tab), sz)
     return list(sz)
 
 
 def _lane_run(lanes, prog, tab, q_el, fs_el, cm_el=None):
-    """The prestage lanes on q (and the contact mask), and the QP-chain
-    lanes, cold at 25 iterations then warm at 7, on the plain prestage."""
+    """The prestage lanes on q (and the contact mask), and the QP chain
+    (one lane per scenario), cold at 25 iterations then warm at 7, on the
+    plain prestage."""
     from libdwbc_tpu_torch.ops import tick_cuda as tc
 
     plan = prog.plan
-    ws_pre, n_pre, ws_qp, n_out, n_warm, _ = _sizes(lanes, tab)
+    ws_pre, n_pre, _, n_out, n_warm, _ = _sizes(lanes, tab)
     pre = np.zeros((n_pre, B))
     lanes.pre64(_ptr(tab), _ptr(q_el), _ptr(cm_el), None, None, None, 0, _ptr(pre),
                 _ptr(np.full((ws_pre, B), np.nan)), B)
@@ -174,15 +249,16 @@ def _lane_run(lanes, prog, tab, q_el, fs_el, cm_el=None):
     # not the QP chain
     pre_in = np.ascontiguousarray(k.pack_pre(ref_pre).buf.numpy())
 
-    def qp(iters, warm_buf):
+    def qp(iters, warm_buf, nl=1):
         out, wout = np.zeros((n_out, B)), np.zeros((n_warm, B))
         lanes.qp64(_ptr(tab), _ptr(pre_in), _ptr(fsb), _ptr(warm_buf), _ptr(out),
-                   _ptr(wout), _ptr(np.full((ws_qp, B), np.nan)), B, iters)
+                   _ptr(wout), B, iters, nl)
         return out, wout
 
     out_cold, wout_cold = qp(25, None)
     out_warm, _ = qp(7, wout_cold)
     return dict(
+        qp=qp, raw=dict(cold=(out_cold, wout_cold), warm=out_warm),
         sizes=dict(pre=n_pre, out=n_out, warm=n_warm),
         pre=k.unpack_pre(tc.PackedPre(torch.as_tensor(pre), False)),
         cold=k.unpack_result(torch.as_tensor(out_cold), torch.as_tensor(wout_cold)),
@@ -196,6 +272,22 @@ def _lane_run(lanes, prog, tab, q_el, fs_el, cm_el=None):
 @pytest.fixture(scope="module")
 def run(lanes, setup):
     return _lane_run(lanes, *setup)
+
+
+def _warp_lanes_match_one_lane(r):
+    """The QP chain run by 32 lanes as threads (the kernel's warp, each
+    phase concurrent between syncs) gives the one-lane results bit for bit,
+    cold and then warm from the cold warm state: every output and warm
+    state element is computed, once, by the same operations in the same
+    order."""
+    out, wout = r["qp"](25, None, 32)
+    assert np.array_equal(out, r["raw"]["cold"][0]) and np.array_equal(wout, r["raw"]["cold"][1])
+    out, _ = r["qp"](7, r["raw"]["cold"][1], 32)
+    assert np.array_equal(out, r["raw"]["warm"])
+
+
+def test_qpchain_warp_lanes_match_one_lane(run):
+    _warp_lanes_match_one_lane(run)
 
 
 def test_buffer_sizes_match_wrapper_layouts(run, setup):
@@ -268,6 +360,10 @@ def msetup(request):
 @pytest.fixture(scope="module")
 def mrun(lanes, msetup):
     return _lane_run(lanes, *msetup)
+
+
+def test_masked_qpchain_warp_lanes_match_one_lane(mrun):
+    _warp_lanes_match_one_lane(mrun)
 
 
 def test_masked_buffer_sizes_match_wrapper_layouts(mrun, msetup):
@@ -346,14 +442,12 @@ def test_float32_masked_warm_lanes_stay_near_float64(lanes):
     tab = np.ascontiguousarray(tc.kernel_table(p32.plan).astype(np.float32))
     pre_in = np.ascontiguousarray(k.pack_pre(pre).buf.numpy())
     fsb = np.ascontiguousarray(np.concatenate([f.numpy() for f in fs_el], 0))
-    lanes.qpws32.restype = ctypes.c_longlong
-    ws = np.zeros((lanes.qpws32(_ptr(tab)), n), np.float32)
     n_out, n_warm = tc._elems(tc.out_layout(p32.plan)), tc._elems(tc.warm_layout(p32.plan))
 
     def qp(iters, warm_buf):
         out, wout = np.zeros((n_out, n), np.float32), np.zeros((n_warm, n), np.float32)
         lanes.qp32(_ptr(tab), _ptr(pre_in), _ptr(fsb), _ptr(warm_buf), _ptr(out),
-                   _ptr(wout), _ptr(ws), n, iters)
+                   _ptr(wout), n, iters)
         return out, wout
 
     _, wout = qp(12, None)
@@ -394,7 +488,7 @@ def srun(lanes, request):
     sv_el = tick._servos_el(servos, B)
     k = tc.TickKernels(prog)
     tab = np.ascontiguousarray(tc.kernel_table(prog.plan))
-    ws_pre, _, ws_qp, n_out, n_warm, n_pre = _sizes(lanes, tab)
+    ws_pre, _, _, n_out, n_warm, n_pre = _sizes(lanes, tab)
     pre = np.zeros((n_pre, B))
     smask = tc.servo_mask(sv_el, prog.plan)
     lanes.pre64(_ptr(tab), _ptr(q_el.numpy()), _ptr(None if cm_el is None else cm_el.numpy()),
@@ -403,13 +497,25 @@ def srun(lanes, request):
                 _ptr(np.full((ws_pre, B), np.nan)), B)
     ref_pre = k.prestage(q_el, cm_el, qd_el, fs_el, sv_el)
     # the QP chain's lanes on the plain servo'd prestage (see _lane_run)
-    out, wout = np.zeros((n_out, B)), np.zeros((n_warm, B))
-    lanes.qp64(_ptr(tab), _ptr(np.ascontiguousarray(k.pack_pre(ref_pre).buf.numpy())), None, None,
-               _ptr(out), _ptr(wout), _ptr(np.full((ws_qp, B), np.nan)), B, 25)
-    return dict(smask=smask, n_pre=n_pre, plan=prog.plan,
+    buf = np.ascontiguousarray(k.pack_pre(ref_pre).buf.numpy())
+
+    def qp(nl):
+        out, wout = np.zeros((n_out, B)), np.zeros((n_warm, B))
+        lanes.qp64(_ptr(tab), _ptr(buf), None, None, _ptr(out), _ptr(wout), B, 25, nl)
+        return out, wout
+
+    out, wout = qp(1)
+    return dict(smask=smask, n_pre=n_pre, plan=prog.plan, qp=qp, raw=(out, wout),
                 pre=k.unpack_pre(tc.PackedPre(torch.as_tensor(pre), True)),
                 ref_pre=ref_pre, out=tc._unpack(torch.as_tensor(out), tc.out_layout(prog.plan)),
                 ref_out=prog.qpchain(ref_pre, ref_pre["fstars"], None, 25))
+
+
+def test_servo_qpchain_warp_lanes_match_one_lane(srun):
+    """As test_qpchain_warp_lanes_match_one_lane, f* read from the servo
+    section: 32 lanes as threads give the one-lane results bit for bit."""
+    out, wout = srun["qp"](32)
+    assert np.array_equal(out, srun["raw"][0]) and np.array_equal(wout, srun["raw"][1])
 
 
 def test_servo_lanes_match_plain(srun):
@@ -491,14 +597,12 @@ def test_float32_servo_qpchain_lanes_within_servo_bars(lanes, s32, mode):
                  if isinstance(v, dict) else v.double()) for k, v in pre.items()}
     ref64 = c["p64"].qpchain(pre64, pre64["fstars"], None if warm is None else
                              [(x.double(), lam.double()) for x, lam in warm], iters)
-    lanes.qpws32.restype = ctypes.c_longlong
-    ws = np.zeros((lanes.qpws32(_ptr(c["tab"])), n), np.float32)
     n_out, n_warm = tc._elems(tc.out_layout(p32.plan)), tc._elems(tc.warm_layout(p32.plan))
     out, wout = np.zeros((n_out, n), np.float32), np.zeros((n_warm, n), np.float32)
     w_in = None if warm is None else np.ascontiguousarray(
         torch.cat([t for xl in warm for t in xl], 0).numpy())
     lanes.qp32(_ptr(c["tab"]), _ptr(c["buf"]), None, _ptr(w_in), _ptr(out), _ptr(wout),
-               _ptr(ws), n, iters)
+               n, iters)
     got = tc._unpack(torch.as_tensor(out), tc.out_layout(p32.plan))
     for name, tol in tc.QP_TOL.items():
         over, allowed = tc.servo_lanes_over(tc.lane_err(got[name], ref[name]),
@@ -508,12 +612,41 @@ def test_float32_servo_qpchain_lanes_within_servo_bars(lanes, s32, mode):
 
 
 # ------------------------------------------------ psd_inverse and qp_solve
+@pytest.mark.parametrize("n", [6, 9, 12, 33, 39, 64])
+def test_lane_routines_cover_every_element_once(lanes, n):
+    """The lane-strided walks of warp_linalg.cuh visit every entry of their
+    triangle exactly once and nothing else, for 32, 5 and 1 lanes: the
+    trailing triangle of every Cholesky column, the upper triangle of
+    L⁻ᵀL⁻¹ and the lower triangle of the IPM's Gram.  And psd_inverse's
+    warp code (Cholesky, L⁻¹, L⁻ᵀL⁻¹ on a NaN-filled scratch) run by 32
+    and by 5 lanes as threads, each phase concurrent between syncs, gives
+    the one-lane inverse bit for bit."""
+    lanes.walks.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lanes.psdinv64.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+    ii, kk = np.indices((n, n))
+    for nl in (32, 5, 1):
+        for kind, j, want in [(0, j, (kk > j) & (kk <= ii)) for j in range(n)] + [
+                (1, 0, kk >= ii), (2, 0, kk <= ii)]:
+            cnt = np.zeros((n, n), np.int32)
+            lanes.walks(kind, n, j, nl, _ptr(cnt))
+            assert np.array_equal(cnt, want.astype(np.int32)), (nl, kind, j)
+    rng = np.random.default_rng(n)
+    U, _ = np.linalg.qr(rng.standard_normal((2, n, n)))
+    A = np.ascontiguousarray((U * np.logspace(0, 3, n)[None, None, :]) @ np.swapaxes(U, -1, -2))
+    outs = {}
+    for nl in (1, 32, 5):
+        outs[nl] = np.full_like(A, np.nan)
+        lanes.psdinv64(_ptr(A), _ptr(outs[nl]), 2, n, nl)
+    assert np.isfinite(outs[1]).all()
+    assert np.array_equal(outs[32], outs[1]) and np.array_equal(outs[5], outs[1])
+
+
 def test_psd_inverse_lanes_match_plain(lanes):
     """The kernel's lane code at the tick's sizes (A at n = 39, W + V2ᵀV2 at
     n = 33), exact symmetry included."""
     from libdwbc_tpu_torch.ops.linalg_cuda import psd_inverse_plain
 
-    lanes.psdinv64.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    lanes.psdinv64.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
     rng = np.random.default_rng(2)
     for n in (33, 39):
         U, _ = np.linalg.qr(rng.standard_normal((B, n, n)))
@@ -521,7 +654,7 @@ def test_psd_inverse_lanes_match_plain(lanes):
                                  @ np.swapaxes(U, -1, -2))
         A_junk = A + np.triu(np.full((n, n), 3.0), 1)     # only the lower triangle is read
         out = np.zeros_like(A)
-        lanes.psdinv64(_ptr(A_junk), _ptr(out), _ptr(np.full((2 * n * n + n, B), np.nan)), B, n)
+        lanes.psdinv64(_ptr(A_junk), _ptr(out), B, n, 1)
         ref = psd_inverse_plain(torch.as_tensor(A)).numpy()
         assert np.abs(out - ref).max() / np.abs(ref).max() <= 1e-10
         assert np.array_equal(out, np.swapaxes(out, -1, -2))

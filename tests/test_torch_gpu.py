@@ -93,6 +93,52 @@ def test_qpchain_kernel_matches_plain_float32(case, dev, warm):
     assert float(got["qp_gap"].max()) <= 1e-3 and float(got["qp_primal_res"].max()) <= 1e-3
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("nb", [1, 5, 1024])
+def test_qpchain_kernel_partial_blocks(case, dev, nb, masked):
+    """tick_qpchain at batches that fill one block partly (1, 5: a warp per
+    scenario, four per block) and many blocks (1024), cold at 12 iterations
+    then warm at 7, against the plain float32 qpchain at QP_TOL (masked:
+    QP_TOL_MASKED, the sweep's inputs)."""
+    from libdwbc_tpu_torch.entry import _example_inputs, _masked_inputs
+    from libdwbc_tpu_torch.ops.tick_cuda import QP_TOL_MASKED, TickKernels
+    from libdwbc_tpu_torch.ops.tick_kernel import TickProgram
+
+    m, cfg = case["model"], case["cfg"]
+    rng = np.random.default_rng(nb)
+    if masked:
+        q, _, fs, masks = _masked_inputs(m, nb, seed=nb)
+        cm = torch.as_tensor(np.ascontiguousarray(masks.T))
+    else:
+        q0, _, f0 = _example_inputs(m)
+        q = np.tile(q0, (nb, 1))
+        q[:, 6:39] += 0.02 * rng.standard_normal((nb, 33)).astype(np.float32)
+        fs = [np.tile(f, (nb, 1)) + 0.05 * rng.standard_normal((nb, f.shape[0])).astype(np.float32)
+              for f in f0]
+        cm = None
+    plain = TickProgram(m, cfg, "cpu", torch.float32, masked=masked)
+    kern = TickKernels(TickProgram(m, cfg, dev, torch.float32, masked=masked))
+    fs_el = [torch.as_tensor(np.ascontiguousarray(f.T)) for f in fs]
+    pre = plain.prestage(torch.as_tensor(np.ascontiguousarray(q.T)), cm)
+    pre_d = {k: ([t.to(dev) for t in v] if isinstance(v, list) else v.to(dev))
+             for k, v in pre.items()}
+    fs_d = [f.to(dev) for f in fs_el]
+    tol = QP_TOL_MASKED if masked else QP_TOL
+    ref = plain.qpchain(pre, fs_el, None, 12)
+    got = kern.qpchain(pre_d, fs_d, None, 12)
+    ref_w = plain.qpchain(pre, fs_el, ref["warm_out"], 7)
+    got_w = kern.qpchain(pre_d, fs_d, [(x.to(dev), l.to(dev)) for x, l in ref["warm_out"]], 7)
+    torch.cuda.synchronize()
+    assert kern.launches["tick_qpchain"] == 2
+    for tag, g_, r_ in (("cold", got, ref), ("warm", got_w, ref_w)):
+        for k, t in tol.items():
+            assert torch.isfinite(g_[k]).all(), (tag, k)
+            err = float((g_[k].cpu() - r_[k]).abs().max())
+            print(f"qpchain {'masked' if masked else 'static'} B {nb} {tag} {k}: {err:.3e}")
+            assert err <= t, (tag, k, err, t)
+        assert float(g_["qp_primal_res"].max()) <= 1e-3
+
+
 def test_wrapper_raises_on_bad_inputs(case, dev):
     kern = case["kern"]
     q = case["q_el"].to(dev)
@@ -127,10 +173,12 @@ def _spd(rng, B, n, cond=1e3):
     return (U * np.logspace(0, np.log10(cond), n)[None, None, :]) @ np.swapaxes(U, -1, -2)
 
 
-@pytest.mark.parametrize("n,B_", [(39, 64), (33, 64), (39, 1), (16, 5), (64, 3)])
+@pytest.mark.parametrize("n,B_", [(39, 64), (33, 64), (64, 3)] + [
+    (n, b) for n in (16, 33, 39, 64) for b in (1, 5, 1024, 4097)])
 def test_psd_inverse_kernel_matches_plain(dev, n, B_):
     """Within ten times the plain float32 version's own error from float64,
-    relative to max |A⁻¹|, and exactly symmetric."""
+    relative to max |A⁻¹|, and exactly symmetric; batches that leave the
+    last block of four warps partly empty (1, 5, 4097) included."""
     from libdwbc_tpu_torch.ops import linalg_cuda
 
     A = torch.as_tensor(_spd(np.random.default_rng(n + B_), B_, n), dtype=torch.float32)
