@@ -95,7 +95,17 @@ Phases, each fatal on failure (nothing is caught):
    τ_grav within 0.05 Nm, τ_cmd per lane within 0.05 Nm, or twice the plain
    float32 tick's own error where that exceeds 0.05 Nm;
 15. times of the servo'd kernels at B = 1024 and B = 1 against their plain
-   versions on the card, and their bounds (servo_extra_flops).
+   versions on the card, and their bounds (servo_extra_flops);
+16. MaskedTick(backend="cuda") in float32 through phase 9's sweep
+   (make_control_loop, B = 4096, K = 32, gap_fallback 1e-3), its launch
+   counts set to 0 just before and read just after: every output finite;
+   each qp_solve call of the loop also solved in float64 on the card from
+   the same inputs and warm start (the dense-H IPM's plain version), and
+   the torque that the float32 kernel's solution moves against that
+   solve's, C[:33]·Δx (the torque-limit block is the QP's torque map),
+   within MASKED_QP_TAU_TOL on every lane of every call, per hypothesis; the
+   same loop in float64 on the card beside it, τ_cmd per hypothesis
+   recorded.
 
 Then each kernel's resources (registers and local bytes per thread, shared
 bytes and threads per block, resident blocks per SM, ptxas's spill bytes).
@@ -140,6 +150,10 @@ QP_NAMES = ("level 0", "level 1", "redistribution")
 B_M, K_M, N_M = 4096, 32, 1024  # masked sweep: scenarios, ticks, lanes held vs plain
 GAP_FALLBACK = 1e-3
 HYPOTHESES = ("both feet", "left foot", "right foot")   # lane % 3
+# MaskedTick's float32 qp_solve against a float64 solve of the same QP from
+# the same warm start: the torque its solution moves (Nm), as the warm
+# masked lanes of the fused tick's IPM are held (test_torch_csrc_host.py)
+MASKED_QP_TAU_TOL = 1e-3
 # the masked kernels chained vs the plain float64 tick, per hypothesis:
 # about four times the plain float32 tick's own error on these inputs
 # (9.4e-3 Nm, 8.7e-3 Nm, 1.4e-2 N at most, single support the worst)
@@ -583,10 +597,15 @@ def main():
 
     chain_ms = cuda_time(chain, 2)
     solves = B * (K - 1) / (chain_ms / 1e3)
-    single_ms = cuda_time(lambda: tick._tick_impl(q_d[0], qd_d[0],
-                                                  tuple(f[0] for f in fs_d)), 10)
+    q1, qd1, fs1 = q_d[0], qd_d[0], tuple(f[0] for f in fs_d)
+    single_ms = cuda_time(lambda: tick._tick_impl(q1, qd1, fs1), 10)
+    _, warm1 = tick._tick_impl(q1, qd1, fs1, warm=tick.init_warm(()), qp_iters=COLD_ITERS)
+    single_warm_ms = cuda_time(lambda: tick._tick_impl(q1, qd1, fs1, warm=warm1,
+                                                       qp_iters=WARM_ITERS), 10)
     print(f"FusedTick warm chain: {K - 1} ticks at batch {B} in {chain_ms:.3f} ms -> "
-          f"{solves:.1f} solves/s; unbatched cold tick {single_ms:.3f} ms  [{card}]")
+          f"{solves:.1f} solves/s; unbatched cold tick ({COLD_ITERS} iterations) "
+          f"{single_ms:.3f} ms, unbatched warm tick ({WARM_ITERS} iterations) "
+          f"{single_warm_ms:.3f} ms, against the single-lane bar of 1 ms  [{card}]")
 
     lib_ms = {}
     for A in seen["psd_inverse"]:
@@ -1127,6 +1146,62 @@ def main():
             p, kt, gk = times[(name, nb)]
             print(f"time {name} batch {nb}: kernel {kt:.3f} ms (graph replay {gk:.3f} ms)  "
                   f"plain (torch on the card) {p:.3f} ms  [{card}]")
+
+    # --------------------- 16. MaskedTick(cuda) in float32 on the masked sweep
+    mt32 = MaskedTick(model, cfg, dev, torch.float32, backend="cuda")
+    mt64 = MaskedTick(model, cfg, dev, torch.float64, backend="torch")
+    real_qp_solve = qp_cuda.qp_solve
+    qp_dtau = []                      # per qp_solve call: per lane max |C[:mr]·Δx|
+
+    def qp_solve_beside_float64(H, g, C, d, x0=None, lam0=None, iters=12, ridge=1e-6,
+                                mirror=0):
+        out = real_qp_solve(H, g, C, d, x0, lam0, iters=iters, ridge=ridge, mirror=mirror)
+        dbl = [None if t is None else t.double() for t in (H, g, C, d, x0, lam0)]
+        ref = qp_solve_plain(*dbl, iters=iters, ridge=ridge, mirror=mirror)
+        dx = out[0].double() - ref[0]
+        qp_dtau.append((dbl[2][:, :mirror] @ dx[..., None])[..., 0].abs().amax(-1).cpu())
+        return out
+
+    mloop = {}
+    for tag, tk, dt in (("float32", mt32, torch.float32), ("float64", mt64, torch.float64)):
+        lp = make_control_loop(tk, transition=advance, K=K_M, warm_start=True,
+                               warm_iters=WARM_ITERS, gap_fallback=GAP_FALLBACK)
+        if tag == "float32":
+            qp_cuda.qp_solve = qp_solve_beside_float64
+            linalg_cuda.launches["psd_inverse"] = 0
+            qp_cuda.launches["qp_solve"] = 0
+        try:
+            mloop[tag] = lp(*(t.to(dt) for t in (mq_d, mqd_d)), tuple(f.to(dt) for f in mfs_d),
+                            mm_d.to(dt))
+            torch.cuda.synchronize()
+        finally:
+            qp_cuda.qp_solve = real_qp_solve
+        if tag == "float32":
+            mt_launches = {"psd_inverse": linalg_cuda.launches["psd_inverse"],
+                           "qp_solve": qp_cuda.launches["qp_solve"]}
+    lr32, lr64 = mloop["float32"], mloop["float64"]
+    for name, v in lr32._asdict().items():
+        if isinstance(v, torch.Tensor) and v.dtype != torch.bool:
+            assert torch.isfinite(v).all(), f"MaskedTick float32 loop: non-finite {name}"
+    n_tick = K_M + lr32.refined_ticks
+    assert mt_launches["qp_solve"] == 3 * n_tick == len(qp_dtau), (mt_launches, len(qp_dtau))
+    lane_m = torch.arange(B_M) % 3
+    dtau = torch.stack(qp_dtau)                        # (calls, lanes)
+    dtau_h = [float(dtau[:, lane_m == h].max()) for h in range(3)]
+    over_h = [int((dtau[:, lane_m == h] > MASKED_QP_TAU_TOL).sum()) for h in range(3)]
+    dcmd = (lr32.torques.double() - lr64.torques).abs().amax(-1)     # (K, lanes)
+    dcmd_h = [float(dcmd[:, lane_m == h].max()) for h in range(3)]
+    print(f"MaskedTick(cuda) float32 masked sweep ({K_M} ticks at batch {B_M}, gap_fallback "
+          f"{GAP_FALLBACK:g}): refined ticks {lr32.refined_ticks}, launches {mt_launches}, "
+          f"qp_error ticks×lanes {int(lr32.qp_error.sum())} (float64 loop "
+          f"{int(lr64.qp_error.sum())}), qp_primal_res max {float(lr32.qp_primal_res.max()):.3e}")
+    print("MaskedTick(cuda) float32: torque moved by each qp_solve solution against a float64 "
+          f"solve of the same QP from the same warm start, per hypothesis {'/'.join(HYPOTHESES)} "
+          "(max Nm over calls and lanes, [lane-calls beyond] <= limit): "
+          + "/".join(f"{e:.3e}" for e in dtau_h) + " [" + "/".join(str(n) for n in over_h)
+          + f"] <= {MASKED_QP_TAU_TOL:g}; τ_cmd against the float64 loop on the card: "
+          + "/".join(f"{e:.3e}" for e in dcmd_h))
+    assert max(dtau_h) <= MASKED_QP_TAU_TOL, (dtau_h, over_h)
 
     # bounds at batch B: bytes of each kernel's inputs and outputs, and its
     # operations on this run's shapes

@@ -1,8 +1,8 @@
 """tick_prestage of this tree against another tree's, on one card in one
 process: each tree's csrc/ is built into its own library, and the kernel
 is timed with CUDA events on the serving inputs of chip_smoke.py (static at
-B = 1024 and B = 1, masked at B = 4096), in the order this, other, other,
-this.
+B = 1024 and B = 1, masked at B = 4096, servo'd at B = 1024), in the order
+this, other, other, this.
 
     python -m libdwbc_tpu_torch.ab_prestage OTHER_REPO_ROOT
 
@@ -27,8 +27,9 @@ import torch
 from . import entry
 from .model.compile import RobotModel
 from .ops import _build
-from .ops.tick_cuda import kernel_table
+from .ops.tick_cuda import kernel_table, pack_servos, servo_mask
 from .ops.tick_kernel import TickProgram
+from .wbc.fused import FusedTick
 from .wbc.pipeline import standard_tocabi_config
 
 
@@ -58,18 +59,24 @@ def build_tree(csrc: Path, out: Path) -> ctypes.CDLL:
     return lib
 
 
-def prestage_call(lib, table_host, table, q, cmask):
+def prestage_call(lib, table_host, table, q, cmask, servo=None):
     """A closure launching the library's tick_prestage on q (nq, B) (and the
-    mask); returns the prestage buffer."""
+    mask; servo: (q̇, f*, servo buffer, level mask), element-leading);
+    returns the prestage buffer."""
     host = table_host.ctypes.data_as(ctypes.c_void_p)
     B = q.shape[1]
-    pre = torch.empty((lib.dwbc_pre_elems(host, 0), B), dtype=torch.float32, device=q.device)
-    ws = torch.empty((lib.dwbc_prestage_ws_elems(host), B), dtype=torch.float32, device=q.device)
+    qd, fs, sv, smask = servo if servo else (None, None, None, 0)
+    pre = torch.empty((lib.dwbc_pre_elems(host, int(smask != 0)), B), dtype=torch.float32,
+                      device=q.device)
+    # B × elements floats serve a scenario-major or an element-leading
+    # workspace alike: each tree's kernel reads its own layout
+    ws = torch.empty((B, lib.dwbc_prestage_ws_elems(host)), dtype=torch.float32, device=q.device)
 
     def run():
         rc = lib.dwbc_tick_prestage(table.data_ptr(), q.data_ptr(),
-                                    None if cmask is None else cmask.data_ptr(), None, None,
-                                    None, 0, pre.data_ptr(), ws.data_ptr(), B,
+                                    None if cmask is None else cmask.data_ptr(),
+                                    *(None if t is None else t.data_ptr() for t in (qd, fs, sv)),
+                                    smask, pre.data_ptr(), ws.data_ptr(), B,
                                     torch.cuda.current_stream(q.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"tick_prestage launch failed: CUDA error {rc}")
@@ -108,15 +115,21 @@ def main():
     qs = np.tile(q0, (1024, 1)).astype(np.float32)
     qs[:, 6:39] += 0.02 * rng.standard_normal((1024, 33)).astype(np.float32)
     mq, _, _, masks = entry._masked_inputs(model, 4096, seed=0)
+    sq, sqd, sfs, servos = entry._servo_inputs(model, 1024, seed=0)
+    el = (lambda a: torch.as_tensor(np.ascontiguousarray(a.T), device=dev))
+    sprog = TickProgram(model, cfg, "cpu", torch.float32)
+    sv_el = FusedTick(model, cfg, dev, backend="cuda")._servos_el(servos, 1024)
+    servo = (el(sqd), torch.cat([el(f) for f in sfs], 0).contiguous(),
+             pack_servos(sv_el, sprog.plan, 1024), servo_mask(sv_el, sprog.plan))
     cases = []
-    for label, masked, q, cm in (("static B 1024", False, qs, None),
-                                 ("static B 1", False, qs[:1], None),
-                                 ("masked B 4096", True, mq, masks)):
+    for label, masked, q, cm, sv in (("static B 1024", False, qs, None, None),
+                                     ("static B 1", False, qs[:1], None, None),
+                                     ("masked B 4096", True, mq, masks, None),
+                                     ("servo'd B 1024", False, sq, None, servo)):
         th = kernel_table(TickProgram(model, cfg, "cpu", torch.float64, masked=masked).plan)
         th = np.ascontiguousarray(th.astype(np.float32))
-        qd = torch.as_tensor(np.ascontiguousarray(q.T), device=dev)
-        cd = None if cm is None else torch.as_tensor(np.ascontiguousarray(cm.T), device=dev)
-        runs = {tag: prestage_call(lib, th, torch.as_tensor(th, device=dev), qd, cd)
+        cd = None if cm is None else el(cm)
+        runs = {tag: prestage_call(lib, th, torch.as_tensor(th, device=dev), el(q), cd, sv)
                 for tag, lib in libs.items()}
         cases.append((label, runs))
 

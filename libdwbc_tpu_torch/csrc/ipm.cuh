@@ -12,13 +12,17 @@
 // cold solves start from (0, 1) with a common step; an iteration freezes
 // once μ ≤ μ_tol, a step with a non-finite dx is skipped, λ is capped at
 // w_cap.  The same recurrence as libdwbc_tpu/ops/pallas_qp.py::_make_kernel
-// and libdwbc_tpu/ops/tick_kernel.py::TickProgram._ipm, with one change in
-// the tick's diagonal-H form, for a pivot of the Gram's Cholesky that is
-// lost (fell to the 1e-30 clamp or, in float32, below 1e-6 of its diagonal
-// entry before elimination).  In float32 near convergence the Gram's
-// entries reach λ/s ~ 1e6 and a pivot that should be ~1 cancels to noise or
-// ≤ 0; a step from the clamped factor then moves x far from the optimum at
-// a small gap (warm single-support lanes of the masked tick).  So a lane
+// and libdwbc_tpu/ops/tick_kernel.py::TickProgram._ipm, with one change, for
+// a pivot of the Gram's Cholesky that is lost (fell to the 1e-30 clamp or,
+// in float32, below 1e-6 of its diagonal entry before elimination): in the
+// tick's diagonal-H form at any precision, in the dense form (qp_solve) at
+// float32 only, so that float64 keeps pallas_qp_solve's recurrence.  In
+// float32 near convergence the Gram's entries reach λ/s ~ 1e6 and a pivot
+// that should be ~1 cancels to noise or ≤ 0; a step from the clamped factor
+// then moves x far from the optimum at a small gap (warm single-support
+// lanes of the masked tick, in both forms: on the masked sweep MaskedTick's
+// float32 qp_solve put such lanes up to 0.036 Nm (H100) and its plain
+// recurrence 0.47 Nm (CPU) from a float64 solve of the same QP).  So a lane
 // whose μ and largest |r_p| are both within kLostPivotNear skips that step;
 // any other lane takes the step with the lost pivot's reciprocal 0 and its
 // column out of the elimination, i.e. holds that variable (dx = 0) and
@@ -237,7 +241,8 @@ DWBC_HD void ipm_iterate(const IPMWS<T>& w, M<T> H, V<T> g, V<T> x, V<T> lam,
     bool collapsed = false;
     for (int j = 0; j < n; ++j) {
       const T ljj = w.L(j, j);
-      const bool lost = !dense && (!(ljj >= (T)1e-30) || (f32 && ljj < (T)1e-6 * w.idg[j]));
+      const bool lost = (!dense || f32) &&
+                        (!(ljj >= (T)1e-30) || (f32 && ljj < (T)1e-6 * w.idg[j]));
       collapsed = collapsed || lost;
       const T dj = sqrt(clamp_min(ljj, (T)1e-30));
       const T inv_d = lost ? (T)0 : (T)1 / dj;

@@ -7,8 +7,9 @@
 // (C = [B; −B; D], the first `mirror` rows mirrored; only [B; D] is read).
 // Its semantics are the Pallas kernel's, not ops/qp.py's XLA loop: warm
 // floors 1e-4 whatever the dtype, the ridge added in the H mat-vec and on
-// the Gram diagonal, a step skipped only when dx is not finite, constants
-// by dtype.  The iterations are csrc/ipm.cuh, shared with tick_qpchain.
+// the Gram diagonal, a step skipped when dx is not finite, constants by
+// dtype; in float32, the tick IPM's rule for a lost Gram pivot (ipm.cuh).
+// The iterations are csrc/ipm.cuh, shared with tick_qpchain.
 //
 // Layout: the inputs are batch-major, as torch holds them (H (B,n,n), g
 // (B,n), C (B,m,n), d (B,m), x0 (B,n), λ0 (B,m)); each thread copies its

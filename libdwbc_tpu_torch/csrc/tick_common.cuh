@@ -4,9 +4,10 @@
 //
 // Layout: every buffer between the kernels is element-leading, [elem][B]
 // with the batch contiguous, so element e of scenario b lives at
-// base[e * B + b].  tick_prestage computes one scenario per thread, so a
-// warp's 32 threads touch 32 neighbouring words; tick_qpchain computes one
-// per warp, on a copy in shared memory (views with stride 1).  The code is
+// base[e * B + b].  Both tick kernels compute one scenario per warp on views
+// with stride 1: tick_prestage on its factorisations in shared memory and
+// the rest in a scenario-major workspace, tick_qpchain on a copy of its
+// inputs in shared memory.  The code is
 // __host__ __device__ and templated on the scalar type, so a host compiler
 // can run it scenario by scenario against the plain torch tick; nvcc builds
 // the float instances only.

@@ -1,4 +1,4 @@
-// tick_prestage: q → everything the QP chain needs, one thread per scenario.
+// tick_prestage: q → everything the QP chain needs, one warp per scenario.
 //
 // Replaces the first stage of the TPU kernel wbc/fused.py::FusedTick.
 // _run_pallas, i.e. libdwbc_tpu/ops/tick_kernel.py::TickProgram.prestage in
@@ -21,118 +21,193 @@
 // of libdwbc_tpu/ops/tick_kernel.py (prestage with servo_req,
 // _apply_servos_el).
 //
-// What bounds it on the H100: about 337k FLOP per scenario of serial small
-// dense factorisations, and the traffic of its intermediates (about 18k
-// floats per scenario, several 39×39 matrices) through L2 and device
-// memory.  The design keeps the TPU's batch-in-lanes mapping: one thread
-// per scenario, every intermediate in a global workspace laid out [elem][B]
-// so a warp's loads coalesce, nothing in per-thread arrays beyond a few 3×3
-// and 6-vectors.  Blocks are one warp, so B = 1024 spreads over 32 SMs
-// (more L1 per lane) instead of 8; it still leaves 100 SMs idle and every
-// thread latency-bound on its own serial chain.  Warp-per-scenario or
-// shared-memory tiles are the later work.
+// Mapping: kPreWarps scenarios per block, a warp each.  The 32 lanes of a
+// warp split every phase's outputs, never a sum (elemlin.cuh,
+// warp_linalg.cuh): the FK's rows of each body's frame, the dof frames and
+// jacobian columns, the bodies' composite inertias and each of their 36
+// entries' backward accumulation, the columns of A, the entries of every
+// product, the triangular solves' right-hand sides.  The chains stay in
+// order (FK parent → child, the CRBA's accumulation, each Cholesky's
+// columns); a sequential sum (a Gram-Schmidt norm, the active-dof count)
+// is every lane's or lane 0's before a sync; the servo runs on lane 0.  So
+// every element gets the same operations in the same order as with one
+// lane, and the results do not depend on the lane count.  A partial last
+// block returns whole warps: a lane past B would run on a zero q (NaNs).
+//
+// Where the working set lives (flagship: nbody 34, ndof 39, mdof 33, cdof
+// 12, cfree 6; 18,423 floats per scenario if nothing shared a place).  The
+// live set by phase:
+//   FK, dof frames, jacobians: Rb pb axw comw (612; Rb, pb, axw to the
+//     end), ax og (234, to S), J (936, to the JKT loop);
+//   CRBA and A⁻¹: IC (1,224), S (234), A (1,521), dead once A⁻¹ is formed
+//     in A's place (the factor in place, then X = L⁻¹, 1,521);
+//   contact space: JC JAinv Mc Lamc Jbar H6 rm G NCG (~2,100; Jbar, JC to
+//     the end);
+//   kernel basis and W: Qb Rres Ny V2T Wf idgW M6 Qp Rp Pinv JbV live
+//     (~2,100; V2T, Wf, idgW to the end);
+//   JKT loop: Jt JtA JtAJc JAN Mt Lam Q QT WQt VtB QWQ Jkt JktLam (~1,950)
+//     per level, Pn (1,089) from level 0 to level 1.
+// The peak is ~10k floats (40 KB), past the 28 KB that a warp can have at
+// two blocks of four per SM.  Held
+// whole in shared memory, a scenario would leave five warps per SM and
+// B = 1024 would run the whole chain in two waves.  So the split: 6,996
+// floats (27,984 bytes, PreWS::smem) in shared memory with the dead
+// buffers overlaid (PreWS), everything that a chain of dependent phases
+// reads back — the factorisations (A⁻¹ at n = 39, W at 33, the small
+// inverses and healths), the FK's frames and the CRBA, the Gram-Schmidt
+// of the kernel basis, the W-apply's solves, the JKT loop's small
+// products; and 2,571 floats (J, G, NCG, J̄, Pn: written once, read in a
+// few passes) in a device-memory workspace laid out scenario-major
+// ([B][elem], stride 1), where a warp's row-split loads are neighbouring
+// words and its broadcast reads one word.  B = 1024 runs in one wave of
+// eight warps per SM.  The prestage output stays element-leading
+// ([elem][B]), as tick_qpchain and the wrappers read it.
+//
+// What bounds it on the H100: about 337k FLOP per scenario of small dense
+// factorisations, which the warp runs as a chain of some hundreds of
+// synced phases (39 Cholesky columns of two barriers each, the FK's 33
+// bodies, the Gram-Schmidt columns, the triangular solves' rows): the
+// latency of that chain, at small batches and at large ones alike (eight
+// warps per SM share an SM's instruction throughput); not the card's FLOP
+// rate nor the bytes in and out.
 #include "elemlin.cuh"
 #include "servo.cuh"
 
+// Phase markers, for libdwbc_tpu_torch/profile_prestage.py: a build with
+// -DDWBC_PRE_STOP=k returns at marker k, leaving the later outputs unwritten,
+// so the kernel's time up to each marker can be read off.
+#ifdef DWBC_PRE_STOP
+#define DWBC_PRE_PHASE(k) \
+  if ((k) >= DWBC_PRE_STOP) return
+#else
+#define DWBC_PRE_PHASE(k)
+#endif
+
 namespace dwbc {
 
+constexpr int kPreWarps = 4;    // scenarios per block
+// Shared floats of one scenario: two blocks of kPreWarps warps per SM,
+// (228 KB − 2 × 1 KB reserved) / 2 / kPreWarps / 4 bytes.
+constexpr long long kPreSmemElems = 7232;
+
+// One scenario's working set: views into its shared part (sh) and into its
+// slice of the scenario-major workspace in device memory (a), stride 1
+// both.  In shared memory, for the whole kernel: A (its Cholesky factor in
+// place, then A⁻¹ in its place), X (the factor's inverse), idg, and the
+// bodies' frames Rb, pb, axw.  Once A⁻¹ is formed, X's buffer holds the
+// small inverses' L and X, JC, and in one place JAinv (contact space), then
+// Jt, JtA, JAN (JKT loop).  Then one region, overlaid in time: the CRBA's
+// comw, ax, og, IC, S until A⁻¹; from the contact space on, W and its
+// factor, the kernel basis' Gram-Schmidt buffers, the small matrices and
+// the JKT loop's products; after them the servo's body velocities wb, vb.
+// The device-memory part: J, G, NCG, Jbar and level 0's null space Pn.
 template <typename T>
 struct PreWS {
-  M<T> Rb, pb, axw, comw, ax, og, J, IC, S, A, Ainv, L, X, JC, JAinv, Mc,
-      Lamc, Jbar, H6, Wf, Qb, Rres, Ny, V2T, M6, Qp, Rp, Pinv, v1, Jt, JtA,
-      JtAJc, JAN, Mt, Lam, Q, QT, WQt, VtB, QWQ, Jkt, JktLam, Pn, NN, Tmp, JbV;
-  V<T> idg, idgW, G, NCG, rm, live;
-  M<T> wb, vb;                   // per-body angular and origin velocity (servo'd calls)
+  M<T> A, Ainv, X, Ls, Xs, Rb, pb, axw, comw, ax, og, IC, S, J, JC, JAinv, Mc, Lamc, Jbar,
+      H6, Wf, Qb, Rres, Ny, V2T, M6, Qp, Rp, Pinv, v1, Jt, JtA, JtAJc, JAN, Mt, Lam, Q, QT,
+      WQt, VtB, QWQ, Jkt, JktLam, Pn, JbV, wb, vb;
+  V<T> idg, G, NCG, idgW, rm, live;
+  long long smem;                // shared elements, the overlays' largest extent (2⁴⁰
+                                 // if X's buffer cannot hold what it is given)
 
-  DWBC_HD PreWS(Arena<T>& a, const Tab<T>& tb) {
+  DWBC_HD PreWS(Arena<T>& a, Arena<T>& sh, const Tab<T>& tb) {
     const int nb = tb.nbody, nd = tb.ndof, md = tb.mdof, cd = tb.cdof,
               cf = tb.cfree, tm = tb.tmax();
-    Rb = a.mat(nb, 9);
-    pb = a.mat(nb, 3);
-    axw = a.mat(nb, 3);
-    comw = a.mat(nb, 3);
-    ax = a.mat(3, nd);
-    og = a.mat(3, nd);
+    A = sh.mat(nd, nd);
+    Ainv = A;
+    X = sh.mat(nd, nd);
+    idg = sh.vec(nd);
+    Arena<T> xa{X.p, 1, 0};
+    Ls = xa.mat(cd, cd);
+    Xs = xa.mat(cd, cd);
+    JC = xa.mat(cd, nd);
+    Arena<T> jkt = xa;
+    JAinv = xa.mat(cd, nd);
+    Jt = jkt.mat(tm, nd);
+    JtA = jkt.mat(tm, nd);
+    JAN = jkt.mat(tm, nd);
+    Rb = sh.mat(nb, 9);
+    pb = sh.mat(nb, 3);
+    axw = sh.mat(nb, 3);
+    Arena<T> crba = sh, servo = sh;         // the region's overlays
+    comw = crba.mat(nb, 3);
+    ax = crba.mat(3, nd);
+    og = crba.mat(3, nd);
+    IC = crba.mat(nb, 36);
+    S = crba.mat(6, nd);
+    wb = servo.mat(nb, 3);
+    vb = servo.mat(nb, 3);
+    Wf = sh.mat(md, md);
+    idgW = sh.vec(md);
+    Qb = sh.mat(cd, 6);
+    Rres = sh.mat(cd, cd);
+    Ny = sh.mat(cd, cf);
+    V2T = sh.mat(md, cf);
+    M6 = sh.mat(cf, cf);
+    Qp = sh.mat(cf, cf);
+    Rp = sh.mat(cf, cf);
+    Pinv = sh.mat(cf, cf);
+    JbV = sh.mat(cd, cf);
+    live = sh.vec(cf);
+    rm = sh.vec(cd);
+    v1 = sh.mat(md, 1);
+    VtB = sh.mat(cf, tm);
+    Mc = sh.mat(cd, cd);
+    Lamc = sh.mat(cd, cd);
+    H6 = sh.mat(6, 6);
+    Mt = sh.mat(tm, tm);
+    Lam = sh.mat(tm, tm);
+    QWQ = sh.mat(tm, tm);
+    Q = sh.mat(tm, md);
+    QT = sh.mat(md, tm);
+    WQt = sh.mat(md, tm);
+    Jkt = sh.mat(md, tm);
+    JktLam = sh.mat(md, tm);
+    JtAJc = sh.mat(tm, cd);
+    smem = vmax(xa.off, jkt.off) <= (long long)nd * nd
+               ? vmax(sh.off, vmax(crba.off, servo.off)) : 1LL << 40;
     J = a.mat(6 * tb.npts, nd);
-    IC = a.mat(nb, 36);
-    S = a.mat(6, nd);
-    A = a.mat(nd, nd);
-    Ainv = a.mat(nd, nd);
-    L = a.mat(nd, nd);
-    X = a.mat(nd, nd);
-    idg = a.vec(nd);
     G = a.vec(nd);
     NCG = a.vec(nd);
-    JC = a.mat(cd, nd);
-    JAinv = a.mat(cd, nd);
-    Mc = a.mat(cd, cd);
-    Lamc = a.mat(cd, cd);
     Jbar = a.mat(cd, nd);
-    H6 = a.mat(6, 6);
-    Wf = a.mat(md, md);
-    idgW = a.vec(md);
-    Qb = a.mat(cd, 6);
-    Rres = a.mat(cd, cd);
-    Ny = a.mat(cd, cf);
-    V2T = a.mat(md, cf);
-    M6 = a.mat(cf, cf);
-    Qp = a.mat(cf, cf);
-    Rp = a.mat(cf, cf);
-    Pinv = a.mat(cf, cf);
-    v1 = a.mat(md, 1);
-    Jt = a.mat(tm, nd);
-    JtA = a.mat(tm, nd);
-    JtAJc = a.mat(tm, cd);
-    JAN = a.mat(tm, nd);
-    Mt = a.mat(tm, tm);
-    Lam = a.mat(tm, tm);
-    Q = a.mat(tm, md);
-    QT = a.mat(md, tm);
-    WQt = a.mat(md, tm);
-    VtB = a.mat(cf, tm);
-    QWQ = a.mat(tm, tm);
-    Jkt = a.mat(md, tm);
-    JktLam = a.mat(md, tm);
     Pn = a.mat(md, md);
-    NN = a.mat(md, md);
-    Tmp = a.mat(md, md);
-    rm = a.vec(cd);
-    JbV = a.mat(cd, cf);
-    live = a.vec(cf);
-    wb = a.mat(nb, 3);
-    vb = a.mat(nb, 3);
   }
 };
 
 // Y = W⁻¹·Bm for Bm (mdof × r): Cholesky solve against Wfree + V2V2ᵀ, then
 // the rank-cfree correction −V2(V2ᵀBm).  Y may alias Bm.
 template <typename T>
-DWBC_HD void w_apply(const Tab<T>& tb, PreWS<T>& w, M<T> Y, M<T> Bm, int r) {
-  mTm(w.VtB, w.V2T, Bm, tb.mdof, tb.cfree, r);
-  cho_solve(Y, w.Wf, w.idgW, Bm, tb.mdof, r);
-  for (int i = 0; i < tb.mdof; ++i)
-    for (int c = 0; c < r; ++c) {
-      T acc = w.V2T(i, 0) * w.VtB(0, c);
-      for (int k = 1; k < tb.cfree; ++k) acc += w.V2T(i, k) * w.VtB(k, c);
-      Y(i, c) = Y(i, c) - acc;
-    }
+DWBC_HD void w_apply(const Tab<T>& tb, const PreWS<T>& w, M<T> Y, M<T> Bm, int r,
+                     Lanes wp = one_lane()) {
+  mTm(w.VtB, w.V2T, Bm, tb.mdof, tb.cfree, r, wp);
+  cho_solve(Y, w.Wf, w.idgW, Bm, tb.mdof, r, wp);
+  for (int e = wp.lane; e < tb.mdof * r; e += wp.nl) {
+    const int i = e / r, c = e - i * r;
+    T acc = w.V2T(i, 0) * w.VtB(0, c);
+    for (int k = 1; k < tb.cfree; ++k) acc += w.V2T(i, k) * w.VtB(k, c);
+    Y(i, c) = Y(i, c) - acc;
+  }
+  wp.sync();
 }
 
 // κ-bounding relative ridge 1e-4·max|diag| on a task-space operator, at
 // float32 only (the plain version applies it exactly where JAX does).
 template <typename T>
-DWBC_HD void f32_ridge(M<T> Ms, int n) {
+DWBC_HD void f32_ridge(M<T> Ms, int n, Lanes wp = one_lane()) {
   if (sizeof(T) != 4) return;
   T dmax = 0;
   for (int i = 0; i < n; ++i) dmax = vmax(dmax, (T)fabs(Ms(i, i)));
-  for (int i = 0; i < n; ++i) Ms(i, i) = Ms(i, i) + (T)1e-4 * dmax;
+  wp.sync();
+  for (int i = wp.lane; i < n; i += wp.nl) Ms(i, i) = Ms(i, i) + (T)1e-4 * dmax;
+  wp.sync();
 }
 
-// The servo branch: per-body velocities, every level's task-link state, and
-// the f* of every level into the prestage buffer's servo section.  smask
-// bit h: level h is servo'd, its ServoIn the next block of the servo buffer.
+// The servo branch, one lane: per-body velocities, every level's task-link
+// state, and the f* of every level into the prestage buffer's servo
+// section.  smask bit h: level h is servo'd, its ServoIn the next block of
+// the servo buffer.
 template <typename T>
-DWBC_HD void servo_lane(const Tab<T>& tb, PreWS<T>& w, const Pre<T>& pre, V<T> qd,
+DWBC_HD void servo_lane(const Tab<T>& tb, const PreWS<T>& w, const Pre<T>& pre, V<T> qd,
                         V<T> fs, const T* svp, int smask, long long B) {
   for (int r = 0; r < 3; ++r) {
     T acc = w.Rb(0, 3 * r) * qd[3];
@@ -201,24 +276,28 @@ DWBC_HD void servo_lane(const Tab<T>& tb, PreWS<T>& w, const Pre<T>& pre, V<T> q
   }
 }
 
-// One lane; cmp is the lane's contact mask (nc, strided by B), read in
-// masked mode only; qdp (ndof), fsp (Σ task dofs) and svp (SERVO_ELEMS per
-// servo'd level) are read only when smask is nonzero.
+// One scenario, run by the lanes of wp.  cmp is the scenario's contact mask
+// (nc, strided by B), read in masked mode only; qdp (ndof), fsp (Σ task
+// dofs) and svp (SERVO_ELEMS per servo'd level), strided by B, are read
+// only when smask is nonzero.  prep is the scenario's column of the
+// element-leading prestage buffer, wsp its slice of the scenario-major
+// workspace (prestage_ws_elems), smp its shared part (prestage_smem_elems).
 template <typename T>
 DWBC_HD void prestage_lane(const T* table, const T* qp, const T* cmp, const T* qdp,
-                           const T* fsp, const T* svp, int smask, T* prep, T* wsp,
-                           long long B) {
+                           const T* fsp, const T* svp, int smask, T* prep, T* wsp, T* smp,
+                           long long B, Lanes wp = one_lane()) {
   const Tab<T> tb(table);
   const int nb = tb.nbody, nd = tb.ndof, md = tb.mdof, cd = tb.cdof,
             cf = tb.cfree;
-  V<T> q{const_cast<T*>(qp), B};
+  const V<T> q{const_cast<T*>(qp), B};
   Arena<T> pa{prep, B, 0};
-  Pre<T> pre(pa, tb, smask != 0);
-  Arena<T> wa{wsp, B, 0};
-  PreWS<T> w(wa, tb);
+  const Pre<T> pre(pa, tb, smask != 0);
+  Arena<T> wa{wsp, 1, 0}, sa{smp, 1, 0};
+  const PreWS<T> w(wa, sa, tb);
 
-  // ---------------- FK
-  {
+  // ---------------- FK: lane 0 the base; then body by body, parent before
+  // child, lane r < 3 the row r of the body's rotation, origin, axis and COM
+  if (wp.lane == 0) {
     T x = q[3], y = q[4], z = q[5], qw = q[nd];
     T n2 = x * x + y * y + z * z + qw * qw;
     T s = n2 > (T)0 ? (T)2 / n2 : (T)0;
@@ -240,51 +319,54 @@ DWBC_HD void prestage_lane(const T* table, const T* qp, const T* cmp, const T* q
       w.comw(0, r) = w.pb(0, r) + acc;
     }
   }
+  wp.sync();
   for (int i = 1; i < nb; ++i) {
-    const int par = (int)tb.parent[i];
-    const T qi = q[(int)tb.qidx[i]];
-    const T c = cos(qi), sn = sin(qi), omc = (T)1 - c;
-    const T* a = tb.axis + 3 * i;
-    const T K[9] = {0, -a[2], a[1], a[2], 0, -a[0], -a[1], a[0], 0};
-    T Rj[9], XR[9];
-    for (int r = 0; r < 3; ++r)
-      for (int cc = 0; cc < 3; ++cc) {
-        T v = r == cc ? c : (T)0;
-        v += sn * K[3 * r + cc];
-        v += omc * (a[r] * a[cc]);
-        Rj[3 * r + cc] = v;
+    if (wp.lane < 3) {
+      const int par = (int)tb.parent[i];
+      const T qi = q[(int)tb.qidx[i]];
+      const T c = cos(qi), sn = sin(qi), omc = (T)1 - c;
+      const T* a = tb.axis + 3 * i;
+      const T K[9] = {0, -a[2], a[1], a[2], 0, -a[0], -a[1], a[0], 0};
+      T Rj[9], XR[9];
+      for (int r = 0; r < 3; ++r)
+        for (int cc = 0; cc < 3; ++cc) {
+          T v = r == cc ? c : (T)0;
+          v += sn * K[3 * r + cc];
+          v += omc * (a[r] * a[cc]);
+          Rj[3 * r + cc] = v;
+        }
+      const T* xr = tb.xrot + 9 * i;
+      for (int r = 0; r < 3; ++r)
+        for (int cc = 0; cc < 3; ++cc) {
+          T acc = xr[3 * r] * Rj[cc];
+          for (int k = 1; k < 3; ++k) acc += xr[3 * r + k] * Rj[3 * k + cc];
+          XR[3 * r + cc] = acc;
+        }
+      for (int r = wp.lane; r < 3; r += wp.nl) {
+        for (int cc = 0; cc < 3; ++cc) {
+          T acc = w.Rb(par, 3 * r) * XR[cc];
+          for (int k = 1; k < 3; ++k) acc += w.Rb(par, 3 * r + k) * XR[3 * k + cc];
+          w.Rb(i, 3 * r + cc) = acc;
+        }
+        T acc = w.Rb(par, 3 * r) * tb.xtrans[3 * i];
+        for (int k = 1; k < 3; ++k) acc += w.Rb(par, 3 * r + k) * tb.xtrans[3 * i + k];
+        w.pb(i, r) = w.pb(par, r) + acc;
+        T aw = w.Rb(i, 3 * r) * a[0], cw = w.Rb(i, 3 * r) * tb.com[3 * i];
+        for (int k = 1; k < 3; ++k) {
+          aw += w.Rb(i, 3 * r + k) * a[k];
+          cw += w.Rb(i, 3 * r + k) * tb.com[3 * i + k];
+        }
+        w.axw(i, r) = aw;
+        w.comw(i, r) = w.pb(i, r) + cw;
       }
-    const T* xr = tb.xrot + 9 * i;
-    for (int r = 0; r < 3; ++r)
-      for (int cc = 0; cc < 3; ++cc) {
-        T acc = xr[3 * r] * Rj[cc];
-        for (int k = 1; k < 3; ++k) acc += xr[3 * r + k] * Rj[3 * k + cc];
-        XR[3 * r + cc] = acc;
-      }
-    for (int r = 0; r < 3; ++r) {
-      for (int cc = 0; cc < 3; ++cc) {
-        T acc = w.Rb(par, 3 * r) * XR[cc];
-        for (int k = 1; k < 3; ++k) acc += w.Rb(par, 3 * r + k) * XR[3 * k + cc];
-        w.Rb(i, 3 * r + cc) = acc;
-      }
-      T acc = w.Rb(par, 3 * r) * tb.xtrans[3 * i];
-      for (int k = 1; k < 3; ++k) acc += w.Rb(par, 3 * r + k) * tb.xtrans[3 * i + k];
-      w.pb(i, r) = w.pb(par, r) + acc;
     }
-    for (int r = 0; r < 3; ++r) {
-      T aw = w.Rb(i, 3 * r) * a[0], cw = w.Rb(i, 3 * r) * tb.com[3 * i];
-      for (int k = 1; k < 3; ++k) {
-        aw += w.Rb(i, 3 * r + k) * a[k];
-        cw += w.Rb(i, 3 * r + k) * tb.com[3 * i + k];
-      }
-      w.axw(i, r) = aw;
-      w.comw(i, r) = w.pb(i, r) + cw;
-    }
+    wp.sync();
   }
+  DWBC_PRE_PHASE(1);
 
   // ---------------- dof frames: base translation, base rotation about
   // R0's columns, one revolute axis per joint
-  for (int j = 0; j < nd; ++j) {
+  for (int j = wp.lane; j < nd; j += wp.nl) {
     const int o = (int)tb.owner[j];
     for (int r = 0; r < 3; ++r) {
       T axv;
@@ -295,8 +377,10 @@ DWBC_HD void prestage_lane(const T* table, const T* qp, const T* cmp, const T* q
       w.og(r, j) = j < 6 ? w.pb(0, r) : w.pb(o, r);
     }
   }
+  wp.sync();
 
-  // ---------------- point jacobians: rows 6k..6k+5 for point k
+  // ---------------- point jacobians: rows 6k..6k+5 for point k, a lane
+  // per column
   for (int k = 0; k < tb.npts; ++k) {
     const int link = (int)tb.pt_link[k];
     const T* off = tb.pt_off + 3 * k;
@@ -307,7 +391,7 @@ DWBC_HD void prestage_lane(const T* table, const T* qp, const T* cmp, const T* q
       pw[r] = w.pb(link, r) + acc;
     }
     M<T> Jk = w.J.sub(6 * k, 0);
-    for (int j = 0; j < nd; ++j) {
+    for (int j = wp.lane; j < nd; j += wp.nl) {
       const T mask = tb.amask[link * nd + j];
       T a0 = w.ax(0, j), a1 = w.ax(1, j), a2 = w.ax(2, j);
       T r0 = pw[0] - w.og(0, j), r1 = pw[1] - w.og(1, j), r2 = pw[2] - w.og(2, j);
@@ -322,9 +406,12 @@ DWBC_HD void prestage_lane(const T* table, const T* qp, const T* cmp, const T* q
       }
     }
   }
+  wp.sync();
+  DWBC_PRE_PHASE(2);
 
-  // ---------------- mass matrix: world-origin composite rigid body
-  for (int i = 0; i < nb; ++i) {
+  // ---------------- mass matrix: world-origin composite rigid body; a lane
+  // per body, then per entry of the 36 its accumulation child → parent
+  for (int i = wp.lane; i < nb; i += wp.nl) {
     const T mi = tb.mass[i];
     const T* In = tb.inertia + 9 * i;
     T RI[9], c3[3];
@@ -350,11 +437,13 @@ DWBC_HD void prestage_lane(const T* table, const T* qp, const T* cmp, const T* q
         IC(0, 6 * (3 + r) + 3 + c) = r == c ? mi : (T)0;
       }
   }
-  for (int i = nb - 1; i > 0; --i) {
-    const int par = (int)tb.parent[i];
-    for (int e = 0; e < 36; ++e) w.IC(par, e) = w.IC(par, e) + w.IC(i, e);
-  }
-  for (int j = 0; j < nd; ++j) {
+  wp.sync();
+  for (int e = wp.lane; e < 36; e += wp.nl)
+    for (int i = nb - 1; i > 0; --i) {
+      const int par = (int)tb.parent[i];
+      w.IC(par, e) = w.IC(par, e) + w.IC(i, e);
+    }
+  for (int j = wp.lane; j < nd; j += wp.nl) {
     if (j < 3) {
       for (int r = 0; r < 6; ++r) w.S(r, j) = r == 3 + j ? (T)1 : (T)0;
     } else {
@@ -366,9 +455,9 @@ DWBC_HD void prestage_lane(const T* table, const T* qp, const T* cmp, const T* q
       w.S(5, j) = o0 * a1 - o1 * a0;
     }
   }
-  for (int i = 0; i < nd; ++i)
-    for (int j = 0; j < nd; ++j) w.A(i, j) = (T)0;
-  for (int j = 0; j < nd; ++j) {
+  for (int e = wp.lane; e < nd * nd; e += wp.nl) w.A(e / nd, e % nd) = (T)0;
+  wp.sync();
+  for (int j = wp.lane; j < nd; j += wp.nl) {      // a lane per column of A
     const int o = (int)tb.owner[j];
     T f[6];
     for (int r = 0; r < 6; ++r) {
@@ -384,9 +473,10 @@ DWBC_HD void prestage_lane(const T* table, const T* qp, const T* cmp, const T* q
       w.A(j, i) = acc;
     }
   }
+  wp.sync();
 
   // gravity vector: G = −A[0:3,:]ᵀ g (zero components of g skipped)
-  for (int k = 0; k < nd; ++k) {
+  for (int k = wp.lane; k < nd; k += wp.nl) {
     T acc = 0;
     bool any = false;
     for (int i = 0; i < 3; ++i) {
@@ -398,198 +488,245 @@ DWBC_HD void prestage_lane(const T* table, const T* qp, const T* cmp, const T* q
     }
     w.G[k] = acc;
   }
+  wp.sync();
 
-  psd_inverse(w.Ainv, w.A, w.L, w.X, w.idg, nd);
+  DWBC_PRE_PHASE(3);
+  psd_inverse(w.Ainv, w.A, w.A, w.X, w.idg, nd, wp);      // A⁻¹ in A's place
+  DWBC_PRE_PHASE(4);
 
   // ---------------- contact jacobian rows (6D contacts: all six rows;
   // masked: times the candidate's 0/1 mask, so dead rows are exact zeros)
-  for (int c = 0; c < tb.nc; ++c) {
+  for (int e = wp.lane; e < cd * nd; e += wp.nl) {
+    const int row = e / nd, j = e - row * nd, c = row / 6, r = row - 6 * c;
     const int slot = (int)tb.c_slot[c];
     const T mk = tb.masked ? cmp[(long long)c * B] : (T)1;
-    for (int r = 0; r < 6; ++r) {
-      if (tb.masked) w.rm[6 * c + r] = mk;
-      for (int j = 0; j < nd; ++j)
-        w.JC(6 * c + r, j) = tb.masked ? w.J(6 * slot + r, j) * mk : w.J(6 * slot + r, j);
-    }
+    if (tb.masked && j == 0) w.rm[row] = mk;
+    w.JC(row, j) = tb.masked ? w.J(6 * slot + r, j) * mk : w.J(6 * slot + r, j);
   }
-  if (tb.masked) {          // the lane's active contact dof
+  wp.sync();
+  if (tb.masked && wp.lane == 0) {         // the lane's active contact dof
     T cact = 0;
     for (int i = 0; i < cd; ++i) cact += w.rm[i];
     pre.acdof[0] = cact;
   }
 
   // ---------------- contact space
-  mm(w.JAinv, w.JC, w.Ainv, cd, nd, nd);
-  mmT_sym(w.Mc, w.JAinv, w.JC, cd, nd);
-  if (tb.masked)            // +1 on the inactive diagonal: the active block inverts exactly
-    for (int i = 0; i < cd; ++i) w.Mc(i, i) = w.Mc(i, i) + ((T)1 - w.rm[i]);
-  mTm_sym(w.H6, w.JC, w.JC, cd, 6);
-  {
-    T h1 = chol_health(w.Mc, w.L, w.idg, cd);
-    T h2 = chol_health(w.H6, w.L, w.idg, 6);
-    pre.health[0] = vmin(h1, h2);
+  mm(w.JAinv, w.JC, w.Ainv, cd, nd, nd, wp);
+  mmT_sym(w.Mc, w.JAinv, w.JC, cd, nd, wp);
+  if (tb.masked) {          // +1 on the inactive diagonal: the active block inverts exactly
+    for (int i = wp.lane; i < cd; i += wp.nl) w.Mc(i, i) = w.Mc(i, i) + ((T)1 - w.rm[i]);
+    wp.sync();
   }
-  psd_inverse(w.Lamc, w.Mc, w.L, w.X, w.idg, cd);
-  if (tb.masked)
-    for (int i = 0; i < cd; ++i)
-      for (int j = 0; j < cd; ++j) w.Lamc(i, j) = w.Lamc(i, j) * w.rm[i] * w.rm[j];
-  mm(w.Jbar, w.Lamc, w.JAinv, cd, cd, nd);
-  for (int r = 0; r < cd; ++r) {
+  mTm_sym(w.H6, w.JC, w.JC, cd, 6, wp);
+  {
+    T h1 = chol_health(w.Mc, w.Ls, w.idg, cd, wp);
+    T h2 = chol_health(w.H6, w.Ls, w.idg, 6, wp);
+    if (wp.lane == 0) pre.health[0] = vmin(h1, h2);
+  }
+  psd_inverse(w.Lamc, w.Mc, w.Ls, w.Xs, w.idg, cd, wp);
+  if (tb.masked) {
+    for (int e = wp.lane; e < cd * cd; e += wp.nl) {
+      const int i = e / cd, j = e - i * cd;
+      w.Lamc(i, j) = w.Lamc(i, j) * w.rm[i] * w.rm[j];
+    }
+    wp.sync();
+  }
+  mm(w.Jbar, w.Lamc, w.JAinv, cd, cd, nd, wp);
+  for (int r = wp.lane; r < cd; r += wp.nl) {
     T acc = w.Jbar(r, 0) * w.G[0];
     for (int k = 1; k < nd; ++k) acc += w.Jbar(r, k) * w.G[k];
     pre.PC[r] = acc;
   }
-  for (int k = 0; k < nd; ++k) {
+  wp.sync();
+  for (int k = wp.lane; k < nd; k += wp.nl) {
     T acc = w.JC(0, k) * pre.PC[0];
     for (int r = 1; r < cd; ++r) acc += w.JC(r, k) * pre.PC[r];
     w.NCG[k] = w.G[k] - acc;
   }
-  for (int i = 0; i < md; ++i)
-    for (int j = 0; j <= i; ++j) {
+  {
+    int i = 0, j = 0;
+    for (walk_lower(i, j, wp.lane); i < md; walk_lower(i, j, wp.nl)) {
       T acc = w.JAinv(0, 6 + i) * w.Jbar(0, 6 + j);
       for (int r = 1; r < cd; ++r) acc += w.JAinv(r, 6 + i) * w.Jbar(r, 6 + j);
       w.Wf(i, j) = w.Ainv(6 + i, 6 + j) - acc;
       w.Wf(j, i) = w.Wf(i, j);
     }
+  }
+  wp.sync();
+  DWBC_PRE_PHASE(5);
 
   // kernel basis V2 of the contact space and the factored W-apply.  In a
   // single-support lane the dead rows of J_C are exact zeros, so Q stays
   // exactly zero there, Ny picks exact unit vectors on them, and the raw
   // basis is exactly zero: orthonormalize_drop drops it to zero columns
-  complete_basis_tail(w.Ny, w.JC, w.Qb, w.Rres, cd, 6);
-  mTm(w.V2T, w.JC.sub(0, 6), w.Ny, cd, md, cf);
+  complete_basis_tail(w.Ny, w.JC, w.Qb, w.Rres, cd, 6, wp);
+  mTm(w.V2T, w.JC.sub(0, 6), w.Ny, cd, md, cf, wp);
   if (tb.masked) {
-    orthonormalize_drop(w.V2T, md, cf, (T)1e-8);
-    compact_columns(w.V2T, md, cf, (T)1e-10);
+    orthonormalize_drop(w.V2T, md, cf, (T)1e-8, wp);
+    compact_columns(w.V2T, md, cf, (T)1e-10, wp);
   } else {
-    qr_thin(w.V2T, w.V2T, md, cf, (T)0);
+    qr_thin(w.V2T, w.V2T, md, cf, (T)0, wp);
   }
-  for (int i = 0; i < md; ++i)
-    for (int j = 0; j <= i; ++j) {
+  {
+    int i = 0, j = 0;
+    for (walk_lower(i, j, wp.lane); i < md; walk_lower(i, j, wp.nl)) {
       T acc = w.V2T(i, 0) * w.V2T(j, 0);
       for (int k = 1; k < cf; ++k) acc += w.V2T(i, k) * w.V2T(j, k);
       w.Wf(i, j) = w.Wf(i, j) + acc;
     }
-  chol_factor(w.Wf, w.idgW, md);
+  }
+  wp.sync();
+  chol_factor(w.Wf, w.idgW, md, wp);
   if (!tb.masked) {
-    mm(w.M6, w.Jbar.sub(0, 6), w.V2T, cf, md, cf);
+    mm(w.M6, w.Jbar.sub(0, 6), w.V2T, cf, md, cf, wp);
   } else {
     // the inner system against the first (c_act − 6) ACTIVE rows of J̄ᵀ: an
     // integer prefix count gives row i_t of the t-th active row (the same
     // selection as the plain version's |idx − t| < 0.5); rows and columns
-    // t ≥ c_act − 6 are dead and padded with identity
+    // t ≥ c_act − 6 are dead and padded with identity.  Every lane counts;
+    // the lanes split a picked row's columns
     const T lim = pre.acdof[0] - (T)6;
-    for (int t = 0; t < cf; ++t) w.live[t] = (T)t < lim ? (T)1 : (T)0;
-    mm(w.JbV, w.Jbar.sub(0, 6), w.V2T, cd, md, cf);
-    for (int t = 0; t < cf; ++t)
-      for (int c = 0; c < cf; ++c) w.M6(t, c) = (T)0;
+    for (int t = wp.lane; t < cf; t += wp.nl) w.live[t] = (T)t < lim ? (T)1 : (T)0;
+    for (int e = wp.lane; e < cf * cf; e += wp.nl) w.M6(e / cf, e % cf) = (T)0;
+    mm(w.JbV, w.Jbar.sub(0, 6), w.V2T, cd, md, cf, wp);
     int cnt = 0;
     for (int i = 0; i < cd; ++i) {
       if (!(w.rm[i] > (T)0.5)) continue;
       const int t = cnt++;
       if (t < cf && w.live[t] != (T)0)
-        for (int c = 0; c < cf; ++c) w.M6(t, c) = w.JbV(i, c) * w.rm[i];
+        for (int c = wp.lane; c < cf; c += wp.nl) w.M6(t, c) = w.JbV(i, c) * w.rm[i];
     }
-    for (int t = 0; t < cf; ++t)
-      for (int c = 0; c < cf; ++c)
-        w.M6(t, c) = w.M6(t, c) * w.live[t] * w.live[c] + (t == c ? (T)1 - w.live[t] : (T)0);
+    wp.sync();
+    for (int e = wp.lane; e < cf * cf; e += wp.nl) {
+      const int t = e / cf, c = e - t * cf;
+      w.M6(t, c) = w.M6(t, c) * w.live[t] * w.live[c] + (t == c ? (T)1 - w.live[t] : (T)0);
+    }
+    wp.sync();
   }
-  qr_pinv(w.Pinv, w.M6, w.Qp, w.Rp, cf, (T)1e-6);
-  mm(pre.NwJw, w.V2T, w.Pinv, md, cf, cf);
-  if (tb.masked)
-    for (int i = 0; i < md; ++i)
-      for (int c = 0; c < cf; ++c) pre.NwJw(i, c) = pre.NwJw(i, c) * w.live[c];
+  qr_pinv(w.Pinv, w.M6, w.Qp, w.Rp, cf, (T)1e-6, wp);
+  mm(pre.NwJw, w.V2T, w.Pinv, md, cf, cf, wp);
+  if (tb.masked) {
+    for (int e = wp.lane; e < md * cf; e += wp.nl) {
+      const int i = e / cf, c = e - i * cf;
+      pre.NwJw(i, c) = pre.NwJw(i, c) * w.live[c];
+    }
+    wp.sync();
+  }
+
+  DWBC_PRE_PHASE(6);
 
   // τ_grav = W⁻¹·(A⁻¹[6:]·NCG)
-  for (int i = 0; i < md; ++i) {
+  for (int i = wp.lane; i < md; i += wp.nl) {
     T acc = w.Ainv(6 + i, 0) * w.NCG[0];
     for (int k = 1; k < nd; ++k) acc += w.Ainv(6 + i, k) * w.NCG[k];
     w.v1(i, 0) = acc;
   }
-  w_apply(tb, w, w.v1, w.v1, 1);
-  for (int i = 0; i < md; ++i) pre.tg[i] = w.v1(i, 0);
+  wp.sync();
+  w_apply(tb, w, w.v1, w.v1, 1, wp);
+  for (int i = wp.lane; i < md; i += wp.nl) pre.tg[i] = w.v1(i, 0);
+  DWBC_PRE_PHASE(7);
 
   // ---------------- per-level JKT + Ntorque
   for (int h = 0; h < tb.nlev; ++h) {
     const int t = tb.lev_t[h];                 // 6 (6D task) or 3 (rotation)
     const int slot = (int)tb.spec_slot[h];
     const int r0 = (int)tb.spec_mode[h] == SPEC_ROT ? 3 : 0;
-    for (int r = 0; r < t; ++r)
-      for (int j = 0; j < nd; ++j) w.Jt(r, j) = w.J(6 * slot + r0 + r, j);
-    mm(w.JtA, w.Jt, w.Ainv, t, nd, nd);
-    mmT(w.JtAJc, w.JtA, w.JC, t, nd, cd);
-    for (int i = 0; i < t; ++i)
-      for (int j = 0; j < nd; ++j) {
-        T acc = w.JtAJc(i, 0) * w.Jbar(0, j);
-        for (int r = 1; r < cd; ++r) acc += w.JtAJc(i, r) * w.Jbar(r, j);
-        w.JAN(i, j) = w.JtA(i, j) - acc;
+    const M<T> Nt = pre.Nt[h];
+    for (int e = wp.lane; e < t * nd; e += wp.nl) {
+      const int r = e / nd, j = e - r * nd;
+      w.Jt(r, j) = w.J(6 * slot + r0 + r, j);
+    }
+    wp.sync();
+    mm(w.JtA, w.Jt, w.Ainv, t, nd, nd, wp);
+    mmT(w.JtAJc, w.JtA, w.JC, t, nd, cd, wp);
+    for (int e = wp.lane; e < t * nd; e += wp.nl) {
+      const int i = e / nd, j = e - i * nd;
+      T acc = w.JtAJc(i, 0) * w.Jbar(0, j);
+      for (int r = 1; r < cd; ++r) acc += w.JtAJc(i, r) * w.Jbar(r, j);
+      w.JAN(i, j) = w.JtA(i, j) - acc;
+    }
+    wp.sync();
+    mmT_sym(w.Mt, w.JAN, w.Jt, t, nd, wp);
+    f32_ridge(w.Mt, t, wp);
+    psd_inverse(w.Lam, w.Mt, w.Ls, w.Xs, w.idg, t, wp);
+    mm(w.Q, w.Lam, w.JAN.sub(0, 6), t, t, md, wp);
+    for (int e = wp.lane; e < md * t; e += wp.nl) {
+      const int i = e / t, c = e - i * t;
+      w.QT(i, c) = w.Q(c, i);
+    }
+    wp.sync();
+    w_apply(tb, w, w.WQt, w.QT, t, wp);
+    mm_sym(w.QWQ, w.Q, w.WQt, t, md, wp);
+    f32_ridge(w.QWQ, t, wp);
+    psd_inverse(w.QWQ, w.QWQ, w.Ls, w.Xs, w.idg, t, wp);   // inv_mid
+    mm(w.Jkt, w.WQt, w.QWQ, md, t, t, wp);
+    mm(w.JktLam, w.Jkt, w.Lam, md, t, t, wp);
+    if (h == 0) copy_mat(Nt, w.JktLam, md, t, wp);
+    else mm(Nt, w.Pn, w.JktLam, md, md, t, wp);
+    static_assert(NLEV_MAX == 2, "a third level needs Pn·(I − Jkt·Q) here");
+    if (h + 1 < tb.nlev) {      // level 0's null space I − Jkt·Q, for level 1
+      for (int e = wp.lane; e < md * md; e += wp.nl) {
+        const int i = e / md, j = e - i * md;
+        T acc = w.Jkt(i, 0) * w.Q(0, j);
+        for (int k = 1; k < t; ++k) acc += w.Jkt(i, k) * w.Q(k, j);
+        w.Pn(i, j) = (i == j ? (T)1 : (T)0) - acc;
       }
-    mmT_sym(w.Mt, w.JAN, w.Jt, t, nd);
-    f32_ridge(w.Mt, t);
-    psd_inverse(w.Lam, w.Mt, w.L, w.X, w.idg, t);
-    mm(w.Q, w.Lam, w.JAN.sub(0, 6), t, t, md);
-    for (int i = 0; i < md; ++i)
-      for (int c = 0; c < t; ++c) w.QT(i, c) = w.Q(c, i);
-    w_apply(tb, w, w.WQt, w.QT, t);
-    mm_sym(w.QWQ, w.Q, w.WQt, t, md);
-    f32_ridge(w.QWQ, t);
-    psd_inverse(w.QWQ, w.QWQ, w.L, w.X, w.idg, t);     // inv_mid
-    mm(w.Jkt, w.WQt, w.QWQ, md, t, t);
-    mm(w.JktLam, w.Jkt, w.Lam, md, t, t);
-    if (h == 0) copy_mat(pre.Nt[h], w.JktLam, md, t);
-    else mm(pre.Nt[h], w.Pn, w.JktLam, md, md, t);
-    if (h < tb.nlev - 1) {
-      mm(w.NN, w.Jkt, w.Q, md, t, md);
-      for (int i = 0; i < md; ++i)
-        for (int j = 0; j < md; ++j) w.NN(i, j) = (i == j ? (T)1 : (T)0) - w.NN(i, j);
-      if (h == 0) {
-        copy_mat(w.Pn, w.NN, md, md);
-      } else {
-        mm(w.Tmp, w.Pn, w.NN, md, md, md);
-        copy_mat(w.Pn, w.Tmp, md, md);
-      }
+      wp.sync();
     }
   }
 
-  // ---------------- constraint rows: CM_c = blk_c·(Rᵀ ⊕ Rᵀ), Atemp, bA0
-  for (int c = 0; c < tb.nc; ++c) {
+  DWBC_PRE_PHASE(8);
+
+  // ---------------- constraint rows: CM_c = blk_c·(Rᵀ ⊕ Rᵀ), Atemp, bA0;
+  // a lane per row
+  for (int o = wp.lane; o < tb.nc * CROWS; o += wp.nl) {
+    const int c = o / CROWS, r = o - c * CROWS;
     const int link = (int)tb.c_link[c];
     const T* blk = tb.c_blk + c * CROWS * 6;
-    for (int r = 0; r < CROWS; ++r) {
-      T cm[6];
-      for (int cc = 0; cc < 6; ++cc) {
-        const int h0 = cc < 3 ? 0 : 3, col = cc < 3 ? cc : cc - 3;
-        T acc = blk[6 * r + h0] * w.Rb(link, 3 * col);
-        for (int k = 1; k < 3; ++k) acc += blk[6 * r + h0 + k] * w.Rb(link, 3 * col + k);
-        cm[cc] = acc;
-      }
-      const int orow = CROWS * c + r;
-      for (int j = 0; j < md; ++j) {
-        T acc = cm[0] * w.Jbar(6 * c, 6 + j);
-        for (int cc = 1; cc < 6; ++cc) acc += cm[cc] * w.Jbar(6 * c + cc, 6 + j);
-        pre.Atemp(orow, j) = acc;
-      }
-      T acc = cm[0] * pre.PC[6 * c];
-      for (int cc = 1; cc < 6; ++cc) acc += cm[cc] * pre.PC[6 * c + cc];
-      pre.bA0[orow] = acc;
+    T cm[6];
+    for (int cc = 0; cc < 6; ++cc) {
+      const int h0 = cc < 3 ? 0 : 3, col = cc < 3 ? cc : cc - 3;
+      T acc = blk[6 * r + h0] * w.Rb(link, 3 * col);
+      for (int k = 1; k < 3; ++k) acc += blk[6 * r + h0 + k] * w.Rb(link, 3 * col + k);
+      cm[cc] = acc;
     }
+    for (int j = 0; j < md; ++j) {
+      T acc = cm[0] * w.Jbar(6 * c, 6 + j);
+      for (int cc = 1; cc < 6; ++cc) acc += cm[cc] * w.Jbar(6 * c + cc, 6 + j);
+      pre.Atemp(o, j) = acc;
+    }
+    T acc = cm[0] * pre.PC[6 * c];
+    for (int cc = 1; cc < 6; ++cc) acc += cm[cc] * pre.PC[6 * c + cc];
+    pre.bA0[o] = acc;
   }
-  for (int r = 0; r < cd; ++r)
-    for (int j = 0; j < md; ++j) pre.Jbar_act(r, j) = w.Jbar(r, 6 + j);
+  for (int e = wp.lane; e < cd * md; e += wp.nl) {
+    const int r = e / md, j = e - r * md;
+    pre.Jbar_act(r, j) = w.Jbar(r, 6 + j);
+  }
   if (tb.masked)            // 6D candidates: every constraint row follows its contact
-    for (int c = 0; c < tb.nc; ++c)
-      for (int r = 0; r < CROWS; ++r) pre.crow[CROWS * c + r] = cmp[(long long)c * B];
-  if (smask != 0)
+    for (int o = wp.lane; o < tb.nc * CROWS; o += wp.nl)
+      pre.crow[o] = cmp[(long long)(o / CROWS) * B];
+  if (smask != 0 && wp.lane == 0)
     servo_lane(tb, w, pre, V<T>{const_cast<T*>(qdp), B}, V<T>{const_cast<T*>(fsp), B}, svp,
                smask, B);
+  wp.sync();
+}
+
+// Elements per scenario of the workspace in device memory and of the
+// shared part.
+template <typename T>
+DWBC_HD long long prestage_ws_elems(const T* table) {
+  const Tab<T> tb(table);
+  Arena<T> a{nullptr, 0, 0}, sh{nullptr, 0, 0};
+  PreWS<T> w(a, sh, tb);
+  return a.off;
 }
 
 template <typename T>
-long long prestage_ws_elems(const T* table) {
+DWBC_HD long long prestage_smem_elems(const T* table) {
   const Tab<T> tb(table);
-  Arena<T> a{nullptr, 0, 0};
-  PreWS<T> w(a, tb);
-  return a.off;
+  Arena<T> a{nullptr, 0, 0}, sh{nullptr, 0, 0};
+  return PreWS<T>(a, sh, tb).smem;
 }
 
 template <typename T>
@@ -610,37 +747,64 @@ extern "C" long long dwbc_pre_elems(const float* table_host, int servo) {
   return dwbc::pre_elems(table_host, servo != 0);
 }
 
+// The shared floats a scenario of this table needs; the kernel takes the
+// table if they are at most dwbc_prestage_smem_cap().
+extern "C" long long dwbc_prestage_smem_elems(const float* table_host) {
+  return dwbc::prestage_smem_elems(table_host);
+}
+
+extern "C" long long dwbc_prestage_smem_cap() { return dwbc::kPreSmemElems; }
+
 #ifdef __CUDACC__
-__global__ void __launch_bounds__(32)
+// Two blocks per SM, as the shared part allows; the bound also lets ptxas
+// use 179 registers without spills, where without it it chose 128 and
+// spilled.
+__global__ void __launch_bounds__(32 * dwbc::kPreWarps, 2)
     tick_prestage_kernel(const float* table, const float* q, const float* cmask,
                          const float* qdot, const float* fs, const float* servo,
                          int smask, float* pre, float* ws, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;          // no padded lanes: a zero q would give NaNs
+  extern __shared__ float sm[];
+  const int w = threadIdx.x / 32;
+  const long long b = (long long)blockIdx.x * dwbc::kPreWarps + w;
+  if (b >= B) return;          // whole warps only: a zero q would give NaNs
+  // beyond the shared part: refused by the wrapper
+  if (dwbc::prestage_smem_elems(table) > dwbc::kPreSmemElems) return;
+  const long long wse = dwbc::prestage_ws_elems(table);
   dwbc::prestage_lane<float>(table, q + b, cmask ? cmask + b : nullptr,
                              smask ? qdot + b : nullptr, smask ? fs + b : nullptr,
-                             smask ? servo + b : nullptr, smask, pre + b, ws + b,
-                             (long long)B);
+                             smask ? servo + b : nullptr, smask, pre + b, ws + b * wse,
+                             sm + w * dwbc::kPreSmemElems, (long long)B,
+                             dwbc::Lanes{(int)threadIdx.x % 32, 32, nullptr});
+}
+
+static constexpr size_t kPreSmemBytes = sizeof(float) * dwbc::kPreWarps * dwbc::kPreSmemElems;
+
+static cudaError_t prestage_allow_smem() {
+  static cudaError_t rc = cudaFuncSetAttribute(
+      tick_prestage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kPreSmemBytes);
+  return rc;
 }
 
 // q (nq, B), cmask (nc, B) in masked mode or null, pre (pre_elems(servo =
-// smask != 0), B), ws (prestage_ws_elems, B); with a nonzero level mask
-// smask also qdot (ndof, B), fs (Σ task dofs, B) and servo (SERVO_ELEMS ×
-// servo'd levels, B): float32, contiguous, on the device; launched on
+// smask != 0), B), ws (B × prestage_ws_elems, scenario-major); with a
+// nonzero level mask smask also qdot (ndof, B), fs (Σ task dofs, B) and
+// servo (SERVO_ELEMS × servo'd levels, B): float32, contiguous, on the
+// device; dwbc_prestage_smem_elems ≤ dwbc_prestage_smem_cap; launched on
 // `stream`, no synchronisation.
 extern "C" int dwbc_tick_prestage(const float* table, const float* q,
                                   const float* cmask, const float* qdot,
                                   const float* fs, const float* servo, int smask,
                                   float* pre, float* ws, int B, void* stream) {
-  const int threads = 32;               // one warp per block: spread lanes over SMs
-  const int blocks = (B + threads - 1) / threads;
-  tick_prestage_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  if (cudaError_t rc = prestage_allow_smem()) return (int)rc;
+  const int blocks = (B + dwbc::kPreWarps - 1) / dwbc::kPreWarps;
+  tick_prestage_kernel<<<blocks, 32 * dwbc::kPreWarps, kPreSmemBytes, (cudaStream_t)stream>>>(
       table, q, cmask, qdot, fs, servo, smask, pre, ws, B);
   return (int)cudaGetLastError();
 }
 
 // The kernel's resources (dwbc::kernel_info).
 extern "C" int dwbc_tick_prestage_info(int* out) {
-  return dwbc::kernel_info(tick_prestage_kernel, 32, 0, out);
+  if (cudaError_t rc = prestage_allow_smem()) return (int)rc;
+  return dwbc::kernel_info(tick_prestage_kernel, 32 * dwbc::kPreWarps, kPreSmemBytes, out);
 }
 #endif

@@ -86,13 +86,15 @@ def library() -> ctypes.CDLL:
     so, _ = build()
     lib = ctypes.CDLL(str(so))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name in ("dwbc_prestage_ws_elems", "dwbc_qpchain_smem_elems", "dwbc_out_elems",
-                 "dwbc_warm_elems"):
+    for name in ("dwbc_prestage_ws_elems", "dwbc_prestage_smem_elems",
+                 "dwbc_qpchain_smem_elems", "dwbc_out_elems", "dwbc_warm_elems"):
         fn = getattr(lib, name)
         fn.argtypes = [p]
         fn.restype = ll
     lib.dwbc_pre_elems.argtypes = [p, i]
     lib.dwbc_pre_elems.restype = ll
+    lib.dwbc_prestage_smem_cap.argtypes = []
+    lib.dwbc_prestage_smem_cap.restype = ll
     lib.dwbc_tick_prestage.argtypes = [p, p, p, p, p, p, i, p, p, i, p]
     lib.dwbc_tick_prestage.restype = i
     lib.dwbc_tick_qpchain.argtypes = [p, p, p, p, p, p, i, i, i, p]

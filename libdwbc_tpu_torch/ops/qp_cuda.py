@@ -5,9 +5,17 @@ qp_solve.cu``) and its plain version (counterpart of
 Both solve B problems  min ½xᵀHx + gᵀx  s.t.  Cx ≤ d  by a fixed number of
 Mehrotra predictor-corrector iterations, with ``pallas_qp_solve``'s
 semantics: warm floors 1e-4 whatever the dtype, the ridge added in the H
-mat-vec and on the Gram diagonal, a step skipped only when dx is not
-finite, constants by dtype, and ``mirror`` rows folded (C[mirror:2·mirror]
-== −C[:mirror], the ± torque-limit pairs; the caller guarantees it).
+mat-vec and on the Gram diagonal, a step skipped when dx is not finite,
+constants by dtype, and ``mirror`` rows folded (C[mirror:2·mirror] ==
+−C[:mirror], the ± torque-limit pairs; the caller guarantees it).  In
+float32 they depart from it where the Gram's Cholesky loses a pivot, as
+the fused tick's IPM does (``csrc/ipm.cuh``, ``TickProgram._ipm``): the
+pivot's variable is held for the step, or a lane already within
+``LOST_PIVOT_NEAR`` in μ and max |r_p| skips it.  On the masked sweep,
+``pallas_qp_solve``'s float32 step from the clamped factor put warm
+single-support lanes of MaskedTick up to 0.036 Nm (the kernel, H100) and
+0.47 Nm (this plain version, CPU) from a float64 solve of the same QP.
+Float64 is the Pallas recurrence unchanged.
 
 ``qp_solve`` follows the wrappers' rule: CPU tensors go to the plain
 version; CUDA tensors go to the kernel, or the call raises (dtype other
@@ -21,6 +29,7 @@ import torch
 
 from . import _build
 from .linalg_cuda import chol_inv_diag
+from .tick_kernel import LOST_PIVOT_NEAR
 
 launches = {"qp_solve": 0}
 
@@ -66,6 +75,32 @@ def _cho_solve(L, inv_diag, b):
     return x
 
 
+def _chol_held(K):
+    """``chol_inv_diag`` with the float32 rule for a lost pivot (one that
+    fell to the 1e-30 clamp or below 1e-6 of its diagonal entry before
+    elimination): its reciprocal is 0 and its column leaves the
+    elimination, so a step holds that variable.  Also returns, per problem,
+    whether a pivot was lost."""
+    n = K.shape[-1]
+    S = K.clone()
+    L = torch.zeros_like(K)
+    inv_diag = torch.empty(K.shape[:-1], dtype=K.dtype, device=K.device)
+    diag0 = torch.diagonal(K, dim1=-2, dim2=-1)
+    collapsed = torch.zeros(K.shape[:-2], dtype=torch.bool, device=K.device)
+    for j in range(n):
+        ljj = S[..., j, j]
+        lost = ~(ljj >= 1e-30) | (ljj < 1e-6 * diag0[..., j])
+        collapsed = collapsed | lost
+        dj = torch.sqrt(torch.clamp_min(ljj, 1e-30))
+        inv_d = torch.where(lost, torch.zeros_like(dj), 1.0 / dj)
+        inv_diag[..., j] = inv_d
+        L[..., j, j] = dj
+        col = S[..., j + 1:, j] * inv_d[..., None]
+        L[..., j + 1:, j] = col
+        S[..., j + 1:, j + 1:] -= col[..., :, None] * col[..., None, :]
+    return L, inv_diag, collapsed
+
+
 def _alpha_max(v, dv):
     neg = dv < 0
     ratio = torch.where(neg, -v / torch.where(neg, dv, -torch.ones_like(dv)),
@@ -78,6 +113,7 @@ def qp_solve_plain(H, g, C, d, x0=None, lam0=None, iters=12, ridge=1e-6, mirror=
     (B,n), C (B,m,n), d (B,m), optional x0 (B,n) and λ0 (B,m) → (x, s, λ)."""
     B, m, n = C.shape
     mr = mirror
+    f32 = C.dtype == torch.float32
     s_floor, w_cap, mu_tol = _consts(C.dtype)
     H = H.expand(B, n, n)
     g = g.expand(B, n)
@@ -125,7 +161,11 @@ def qp_solve_plain(H, g, C, d, x0=None, lam0=None, iters=12, ridge=1e-6, mirror=
         r_p = matvec_C(x) + s - d
         w = torch.clamp(lam * inv_s, 0.0, w_cap)
         K = H + Cs.transpose(1, 2) @ (fold(w, 1.0)[..., None] * Cs) + ridge * eye
-        fac = (inv_s, r_d, r_p, w) + chol_inv_diag(K)
+        if f32:
+            L, inv_diag, collapsed = _chol_held(K)
+        else:
+            L, inv_diag = chol_inv_diag(K)
+        fac = (inv_s, r_d, r_p, w, L, inv_diag)
         dx_a, ds_a, dlam_a = newton(fac, s, lam, torch.zeros_like(s))
         a_p = _alpha_max(s, ds_a)[:, None]
         a_d = _alpha_max(lam, dlam_a)[:, None]
@@ -139,6 +179,9 @@ def qp_solve_plain(H, g, C, d, x0=None, lam0=None, iters=12, ridge=1e-6, mirror=
             a_pc = live * torch.minimum(_alpha_max(s, ds), _alpha_max(lam, dlam))[:, None]
             a_dc = a_pc
         ok = torch.isfinite(dx).all(-1, keepdim=True)
+        if f32:      # a lane within the bars does not step on a lost pivot
+            near = (mu <= LOST_PIVOT_NEAR) & (r_p.abs().amax(-1) <= LOST_PIVOT_NEAR)
+            ok = ok & ~(collapsed & near)[:, None]
         x = torch.where(ok, x + a_pc * dx, x)
         s = torch.where(ok, s + a_pc * ds, s)
         lam = torch.where(ok, torch.clamp_max(lam + a_dc * dlam, w_cap), lam)

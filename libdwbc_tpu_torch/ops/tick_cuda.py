@@ -88,7 +88,8 @@ def kernel_unsupported(plan) -> str | None:
     """Why the CUDA kernels cannot run this plan, or None if they can: they
     take the flagship's shape (two 6D contacts, static or as the masked
     candidate set, a torque limit, at most NLEV_MAX levels of one 6D or
-    rotation link task each)."""
+    rotation link task each).  The library also refuses a model whose
+    prestage would not fit its shared part (``TickKernels``)."""
     cfg = plan.cfg
     if len(cfg.contacts) != 2 or any(c.contact_type != T.CONTACT_6D
                                      for c in cfg.contacts):
@@ -268,7 +269,12 @@ class TickKernels(nn.Module):
                          pre_servo=lib.dwbc_pre_elems(host, 1), out=lib.dwbc_out_elems(host),
                          warm=lib.dwbc_warm_elems(host),
                          ws_pre=lib.dwbc_prestage_ws_elems(host),
+                         smem_pre=lib.dwbc_prestage_smem_elems(host),
                          smem_qp=lib.dwbc_qpchain_smem_elems(host))
+            if sizes["smem_pre"] > lib.dwbc_prestage_smem_cap():
+                raise NotImplementedError(
+                    f"tick_prestage needs {sizes['smem_pre']} shared floats per scenario "
+                    f"for this model, the kernel has {lib.dwbc_prestage_smem_cap()}")
             want = dict(pre=_elems(pre_layout(self.plan)),
                         pre_servo=_elems(pre_layout(self.plan, servo=True)),
                         out=_elems(out_layout(self.plan)),
@@ -323,7 +329,7 @@ class TickKernels(nn.Module):
         lib, sz = self._lib_and_sizes()
         pre = torch.empty((sz["pre_servo" if smask else "pre"], B), dtype=torch.float32,
                           device=q.device)
-        ws = torch.empty((sz["ws_pre"], B), dtype=torch.float32, device=q.device)
+        ws = torch.empty((B, sz["ws_pre"]), dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dwbc_tick_prestage(self.table.data_ptr(), q.data_ptr(),
                                     None if cmask is None else cmask.data_ptr(),

@@ -119,6 +119,51 @@ void walks(int kind, int n, int j, int nl, int* cnt) {
     }
   }
 }
+// A routine of elemlin.cuh by nl lanes, on 64×64 row-major buffers: A and
+// Bm the inputs, C the result, S1, S2 (64×64) and D (64) scratch, all
+// NaN-filled by the caller but the inputs.  kind: the index in ELEM_KINDS
+// of the test; shapes (m, k, n) as the routine names them.
+void elem64(int kind, int m, int k, int n, const double* A, const double* Bm, double* C,
+            double* S1, double* S2, double* D, int nl) {
+  using Mt = dwbc::M<double>;
+  const Mt a{const_cast<double*>(A), 1, 64}, bm{const_cast<double*>(Bm), 1, 64}, c{C, 1, 64},
+      s1{S1, 1, 64}, s2{S2, 1, 64};
+  const dwbc::V<double> d{D, 1};
+  run_lanes(nl, [&](dwbc::Lanes wp) {
+    switch (kind) {
+      case 0: dwbc::mm(c, a, bm, m, k, n, wp); break;
+      case 1: dwbc::mmT(c, a, bm, m, k, n, wp); break;
+      case 2: dwbc::mTm(c, a, bm, k, m, n, wp); break;
+      case 3: dwbc::mmT_sym(c, a, bm, m, k, wp); break;
+      case 4: dwbc::mTm_sym(c, a, bm, k, m, wp); break;
+      case 5: dwbc::mm_sym(c, a, bm, m, k, wp); break;
+      case 6: dwbc::copy_mat(c, a, m, n, wp); break;
+      case 7:
+        dwbc::copy_mat(s1, a, m, m, wp);
+        dwbc::chol_factor(s1, d, m, wp);
+        dwbc::cho_solve(c, s1, d, bm, m, n, wp);
+        break;
+      case 8: dwbc::qr_thin(c, a, m, k, 0.0, wp); break;
+      case 9:
+        dwbc::copy_mat(c, a, m, k, wp);
+        dwbc::orthonormalize_drop(c, m, k, 1e-8, wp);
+        break;
+      case 10:
+        dwbc::copy_mat(c, a, m, k, wp);
+        dwbc::compact_columns(c, m, k, 1e-10, wp);
+        break;
+      case 11: dwbc::complete_basis_tail(c, a, s1, s2, m, k, wp); break;
+      case 12: dwbc::qr_pinv(c, a, s1, s2, m, 1e-6, wp); break;
+      case 13: dwbc::psd_inverse(c, a, s1, s2, d, m, wp); break;
+      case 14: {
+        const double h = dwbc::chol_health(a, s1, d, m, wp);
+        if (wp.lane == 0) C[0] = h;
+        wp.sync();
+        break;
+      }
+    }
+  });
+}
 long long qpws64(int n, int m, int mr) { return dwbc::qp_solve_ws_elems<double>(n, m, mr); }
 void qpsolve64(const double* H, const double* g, const double* C, const double* d,
                const double* x0, const double* l0, double* x, double* s, double* l,
@@ -130,12 +175,22 @@ void qpsolve64(const double* H, const double* g, const double* C, const double* 
                                 s + bm, l + bm, w + b, B, n, m, mr, iters, ridge);
   }
 }
+// The prestage of B scenarios, one at a time, run by nl lanes: w is the
+// scenario-major workspace (B × prestage_ws_elems), the shared part a
+// NaN-filled scratch per scenario.
 void pre64(const double* t, const double* q, const double* cm, const double* qd,
-           const double* fs, const double* sv, int smask, double* p, double* w, int B) {
-  for (int b = 0; b < B; ++b)
-    dwbc::prestage_lane<double>(t, q + b, cm ? cm + b : nullptr, qd ? qd + b : nullptr,
-                                fs ? fs + b : nullptr, sv ? sv + b : nullptr, smask, p + b,
-                                w + b, B);
+           const double* fs, const double* sv, int smask, double* p, double* w, int B,
+           int nl) {
+  const long long wse = dwbc::prestage_ws_elems(t);
+  std::vector<double> sm(dwbc::prestage_smem_elems(t));
+  for (int b = 0; b < B; ++b) {
+    std::fill(sm.begin(), sm.end(), (double)NAN);
+    run_lanes(nl, [&](dwbc::Lanes wp) {
+      dwbc::prestage_lane<double>(t, q + b, cm ? cm + b : nullptr, qd ? qd + b : nullptr,
+                                  fs ? fs + b : nullptr, sv ? sv + b : nullptr, smask, p + b,
+                                  w + b * wse, sm.data(), B, wp);
+    });
+  }
 }
 void qp64(const double* t, const double* p, const double* f, const double* wi,
           double* o, double* wo, int B, int iters, int nl) {
@@ -150,6 +205,7 @@ void sizes64(const double* t, long long* out) {
   out[0] = dwbc::prestage_ws_elems(t); out[1] = dwbc::pre_elems(t, false);
   out[2] = dwbc::qpchain_smem_elems(tb); out[3] = dwbc::out_elems(tb);
   out[4] = dwbc::warm_elems(tb); out[5] = dwbc::pre_elems(t, true);
+  out[6] = dwbc::prestage_smem_elems(t); out[7] = dwbc::kPreSmemElems;
 }
 }
 """
@@ -221,8 +277,9 @@ def setup(request):
 
 def _sizes(lanes, tab):
     """(prestage workspace, pre, QP chain's shared working set, out, warm,
-    servo'd pre) elements per lane."""
-    sz = (ctypes.c_longlong * 6)()
+    servo'd pre, prestage's shared part, the kernel's shared floats per
+    scenario) elements per lane."""
+    sz = (ctypes.c_longlong * 8)()
     lanes.sizes64(_ptr(tab), sz)
     return list(sz)
 
@@ -234,10 +291,11 @@ def _lane_run(lanes, prog, tab, q_el, fs_el, cm_el=None):
     from libdwbc_tpu_torch.ops import tick_cuda as tc
 
     plan = prog.plan
-    ws_pre, n_pre, _, n_out, n_warm, _ = _sizes(lanes, tab)
+    ws_pre, n_pre, _, n_out, n_warm, _, smem_pre, smem_cap = _sizes(lanes, tab)
+    assert smem_pre <= smem_cap
     pre = np.zeros((n_pre, B))
     lanes.pre64(_ptr(tab), _ptr(q_el), _ptr(cm_el), None, None, None, 0, _ptr(pre),
-                _ptr(np.full((ws_pre, B), np.nan)), B)
+                _ptr(np.full((B, ws_pre), np.nan)), B, 1)
     fsb = np.ascontiguousarray(np.concatenate(fs_el, 0))
     k = tc.TickKernels(prog)
     ref_pre = prog.prestage(torch.as_tensor(q_el),
@@ -288,6 +346,36 @@ def _warp_lanes_match_one_lane(r):
 
 def test_qpchain_warp_lanes_match_one_lane(run):
     _warp_lanes_match_one_lane(run)
+
+
+def _prestage_buffers(lanes, tab, q_el, nl, cm_el=None, servo=None):
+    """The prestage lanes on every scenario, run by nl lanes as threads (a
+    NaN-filled workspace and shared part): (prestage buffer, workspace)."""
+    n_ws, n_pre, n_pre_servo = (_sizes(lanes, tab)[i] for i in (0, 1, 5))
+    nb = q_el.shape[1]
+    pre = np.full((n_pre_servo if servo else n_pre, nb), np.nan)
+    ws = np.full((nb, n_ws), np.nan)
+    qd, fs, sv, smask = servo if servo else (None, None, None, 0)
+    lanes.pre64(_ptr(tab), _ptr(q_el), _ptr(cm_el), _ptr(qd), _ptr(fs), _ptr(sv), smask,
+                _ptr(pre), _ptr(ws), nb, nl)
+    return pre, ws
+
+
+def _prestage_warp_lanes_match_one_lane(lanes, tab, q_el, cm_el=None, servo=None):
+    """The prestage run by 32 and by 5 lanes as threads (the kernel's warp,
+    each phase concurrent between syncs) gives the one-lane prestage buffer
+    and workspace bit for bit: every element is computed, once, by the same
+    operations in the same order."""
+    pre1, ws1 = _prestage_buffers(lanes, tab, q_el, 1, cm_el, servo)
+    assert np.isfinite(pre1).all()
+    for nl in (32, 5):
+        pre, ws = _prestage_buffers(lanes, tab, q_el, nl, cm_el, servo)
+        assert np.array_equal(pre, pre1), nl
+        assert np.array_equal(ws, ws1, equal_nan=True), nl
+
+
+def test_prestage_warp_lanes_match_one_lane(lanes, setup):
+    _prestage_warp_lanes_match_one_lane(lanes, setup[1], setup[2])
 
 
 def test_buffer_sizes_match_wrapper_layouts(run, setup):
@@ -364,6 +452,12 @@ def mrun(lanes, msetup):
 
 def test_masked_qpchain_warp_lanes_match_one_lane(mrun):
     _warp_lanes_match_one_lane(mrun)
+
+
+def test_masked_prestage_warp_lanes_match_one_lane(lanes, msetup):
+    """As test_prestage_warp_lanes_match_one_lane, one lane per support
+    hypothesis (both feet, left, right)."""
+    _prestage_warp_lanes_match_one_lane(lanes, msetup[1], msetup[2], msetup[4])
 
 
 def test_masked_buffer_sizes_match_wrapper_layouts(mrun, msetup):
@@ -488,13 +582,13 @@ def srun(lanes, request):
     sv_el = tick._servos_el(servos, B)
     k = tc.TickKernels(prog)
     tab = np.ascontiguousarray(tc.kernel_table(prog.plan))
-    ws_pre, _, _, n_out, n_warm, n_pre = _sizes(lanes, tab)
+    ws_pre, _, _, n_out, n_warm, n_pre, _, _ = _sizes(lanes, tab)
     pre = np.zeros((n_pre, B))
     smask = tc.servo_mask(sv_el, prog.plan)
     lanes.pre64(_ptr(tab), _ptr(q_el.numpy()), _ptr(None if cm_el is None else cm_el.numpy()),
                 _ptr(qd_el.numpy()), _ptr(np.ascontiguousarray(torch.cat(fs_el).numpy())),
                 _ptr(tc.pack_servos(sv_el, prog.plan, B).numpy()), smask, _ptr(pre),
-                _ptr(np.full((ws_pre, B), np.nan)), B)
+                _ptr(np.full((B, ws_pre), np.nan)), B, 1)
     ref_pre = k.prestage(q_el, cm_el, qd_el, fs_el, sv_el)
     # the QP chain's lanes on the plain servo'd prestage (see _lane_run)
     buf = np.ascontiguousarray(k.pack_pre(ref_pre).buf.numpy())
@@ -505,7 +599,11 @@ def srun(lanes, request):
         return out, wout
 
     out, wout = qp(1)
-    return dict(smask=smask, n_pre=n_pre, plan=prog.plan, qp=qp, raw=(out, wout),
+    servo = (np.ascontiguousarray(qd_el.numpy()), np.ascontiguousarray(torch.cat(fs_el).numpy()),
+             np.ascontiguousarray(tc.pack_servos(sv_el, prog.plan, B).numpy()), smask)
+    return dict(smask=smask, n_pre=n_pre, plan=prog.plan, qp=qp, raw=(out, wout), tab=tab,
+                q_el=np.ascontiguousarray(q_el.numpy()), servo=servo,
+                cm_el=None if cm_el is None else np.ascontiguousarray(cm_el.numpy()),
                 pre=k.unpack_pre(tc.PackedPre(torch.as_tensor(pre), True)),
                 ref_pre=ref_pre, out=tc._unpack(torch.as_tensor(out), tc.out_layout(prog.plan)),
                 ref_out=prog.qpchain(ref_pre, ref_pre["fstars"], None, 25))
@@ -516,6 +614,13 @@ def test_servo_qpchain_warp_lanes_match_one_lane(srun):
     section: 32 lanes as threads give the one-lane results bit for bit."""
     out, wout = srun["qp"](32)
     assert np.array_equal(out, srun["raw"][0]) and np.array_equal(wout, srun["raw"][1])
+
+
+def test_servo_prestage_warp_lanes_match_one_lane(lanes, srun):
+    """As test_prestage_warp_lanes_match_one_lane on a servo'd call (the
+    servo on lane 0), static and masked."""
+    _prestage_warp_lanes_match_one_lane(lanes, srun["tab"], srun["q_el"], srun["cm_el"],
+                                        srun["servo"])
 
 
 def test_servo_lanes_match_plain(srun):
@@ -612,6 +717,52 @@ def test_float32_servo_qpchain_lanes_within_servo_bars(lanes, s32, mode):
 
 
 # ------------------------------------------------ psd_inverse and qp_solve
+# the routines of elemlin.cuh in elem64's order, each with the region of C
+# it writes, for shapes (m, k, n)
+ELEM_KINDS = (
+    ("mm", lambda m, k, n: (m, n)), ("mmT", lambda m, k, n: (m, n)),
+    ("mTm", lambda m, k, n: (m, n)), ("mmT_sym", lambda m, k, n: (m, m)),
+    ("mTm_sym", lambda m, k, n: (m, m)), ("mm_sym", lambda m, k, n: (m, m)),
+    ("copy_mat", lambda m, k, n: (m, n)), ("cho_solve", lambda m, k, n: (m, n)),
+    ("qr_thin", lambda m, k, n: (m, k)), ("orthonormalize_drop", lambda m, k, n: (m, k)),
+    ("compact_columns", lambda m, k, n: (m, k)),
+    ("complete_basis_tail", lambda m, k, n: (m, m - k)),
+    ("qr_pinv", lambda m, k, n: (m, m)), ("psd_inverse", lambda m, k, n: (m, m)),
+    ("chol_health", lambda m, k, n: (1, 1)))
+
+
+def _elem_lanes_match_one_lane(lanes, n):
+    """Every routine of elemlin.cuh, run by 32 and by 5 lanes as threads on
+    NaN-filled outputs and scratch, writes every element of its result and
+    nothing else of it, and gives the one-lane result bit for bit."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lanes.elem64.argtypes = [i] * 4 + [p] * 6 + [i]
+    rng = np.random.default_rng(100 + n)
+    m, k, nn = n, max(1, min(7, n - 1)), 5
+    U, _ = np.linalg.qr(rng.standard_normal((64, 64)))
+    spd = np.ascontiguousarray((U * np.logspace(0, 3, 64)) @ U.T)
+    gen = np.ascontiguousarray(rng.standard_normal((64, 64)))
+    gen_drop = gen.copy()
+    gen_drop[:, 1] = 0.0                          # dropped and compacted away
+    gen_drop[:, min(3, k - 1)] *= 1e-12
+    bm = np.ascontiguousarray(rng.standard_normal((64, 64)))
+    for kind, (name, region) in enumerate(ELEM_KINDS):
+        a = spd if name in ("cho_solve", "psd_inverse", "chol_health") else (
+            gen_drop if name in ("orthonormalize_drop", "compact_columns") else gen)
+        outs = {}
+        for nl in (1, 32, 5):
+            c, s1, s2, d = (np.full(sh, np.nan) for sh in ((64, 64), (64, 64), (64, 64), 64))
+            lanes.elem64(kind, m, k, nn, _ptr(a), _ptr(bm), _ptr(c), _ptr(s1), _ptr(s2),
+                         _ptr(d), nl)
+            outs[nl] = c
+        r, cc = region(m, k, nn)
+        want = np.zeros((64, 64), bool)
+        want[:r, :cc] = True
+        assert np.array_equal(np.isfinite(outs[1]), want), (name, n)
+        for nl in (32, 5):
+            assert np.array_equal(outs[nl], outs[1], equal_nan=True), (name, n, nl)
+
+
 @pytest.mark.parametrize("n", [6, 9, 12, 33, 39, 64])
 def test_lane_routines_cover_every_element_once(lanes, n):
     """The lane-strided walks of warp_linalg.cuh visit every entry of their
@@ -620,7 +771,9 @@ def test_lane_routines_cover_every_element_once(lanes, n):
     L⁻ᵀL⁻¹ and the lower triangle of the IPM's Gram.  And psd_inverse's
     warp code (Cholesky, L⁻¹, L⁻ᵀL⁻¹ on a NaN-filled scratch) run by 32
     and by 5 lanes as threads, each phase concurrent between syncs, gives
-    the one-lane inverse bit for bit."""
+    the one-lane inverse bit for bit.  And so does every routine of
+    elemlin.cuh, tick_prestage's lane walks over entries, triangles,
+    columns and rows (_elem_lanes_match_one_lane)."""
     lanes.walks.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lanes.psdinv64.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
     ii, kk = np.indices((n, n))
@@ -639,6 +792,7 @@ def test_lane_routines_cover_every_element_once(lanes, n):
         lanes.psdinv64(_ptr(A), _ptr(outs[nl]), 2, n, nl)
     assert np.isfinite(outs[1]).all()
     assert np.array_equal(outs[32], outs[1]) and np.array_equal(outs[5], outs[1])
+    _elem_lanes_match_one_lane(lanes, n)
 
 
 def test_psd_inverse_lanes_match_plain(lanes):

@@ -139,6 +139,66 @@ def test_qpchain_kernel_partial_blocks(case, dev, nb, masked):
         assert float(g_["qp_primal_res"].max()) <= 1e-3
 
 
+@pytest.mark.parametrize("mode", ["static", "masked", "servo"])
+@pytest.mark.parametrize("nb", [1, 5, 1024, 4097])
+def test_prestage_kernel_partial_blocks(case, dev, nb, mode):
+    """tick_prestage (a warp per scenario, four per block) at batches that
+    fill one block partly (1, 5), whole blocks (1024) and one warp of a
+    last block (4097), against the plain prestage in float64: every field
+    within PRE_TOL (masked: PRE_TOL_MASKED, the sweep's inputs; servo'd:
+    entry._servo_inputs, the f* and task-link states within SERVO_TOL)."""
+    from libdwbc_tpu_torch.entry import _example_inputs, _masked_inputs, _servo_inputs
+    from libdwbc_tpu_torch.ops.tick_cuda import PRE_TOL_MASKED, SERVO_TOL
+    from libdwbc_tpu_torch.wbc.fused import FusedTick
+
+    m, cfg = case["model"], case["cfg"]
+    masked = mode == "masked"
+    fused = FusedTick(m, cfg, dev, backend="cuda", masked=masked)
+    plain = FusedTick(m, cfg, "cpu", torch.float64, backend="torch", masked=masked)
+    kern = fused.kernels
+
+    def el(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a.T)).to(dtype)
+
+    if mode == "servo":
+        q, qd, fs, servos = _servo_inputs(m, nb, seed=nb)
+        sv = fused._servos_el(servos, nb)
+        sv = tuple(tuple({k: v.to(dev) for k, v in d.items()} for d in lvl) for lvl in sv)
+        got = kern.prestage(el(q).to(dev), None, el(qd).to(dev), [el(f).to(dev) for f in fs],
+                            sv)
+        ref = plain.prog.prestage_servo(el(q, torch.float64), None, el(qd, torch.float64),
+                                        [el(f, torch.float64) for f in fs],
+                                        plain._servos_el(servos, nb))
+    else:
+        if masked:
+            q, _, _, masks = _masked_inputs(m, nb, seed=nb)
+            cm = el(masks)
+        else:
+            q0, _, _ = _example_inputs(m)
+            q = np.tile(q0, (nb, 1))
+            q[:, 6:39] += 0.02 * np.random.default_rng(nb).standard_normal((nb, 33))
+            cm = None
+        got = kern.prestage(el(q).to(dev), None if cm is None else cm.to(dev))
+        ref = plain.prog.prestage(el(q, torch.float64), None if cm is None else cm.double())
+    torch.cuda.synchronize()
+    assert kern.launches["tick_prestage"] == 1
+    for k, tol in (PRE_TOL_MASKED if masked else PRE_TOL).items():
+        pairs = zip(got[k], ref[k]) if k == "Ntorques" else [(got[k], ref[k])]
+        for g, r in pairs:
+            assert torch.isfinite(g).all(), k
+            err = float((g.cpu().double() - r).abs().max())
+            print(f"prestage {mode} B {nb} {k}: {err:.3e}")
+            assert err <= tol, (k, err, tol)
+    if mode == "servo":
+        for h in range(2):
+            err = float((got["fstars"][h].cpu().double() - ref["fstars"][h]).abs().max())
+            assert err <= SERVO_TOL["fstars"], (h, err)
+            for name, g, r in zip(("task_pos", "task_vel", "task_rot", "task_w"),
+                                  got["task_states"][(h, 0)], ref["task_states"][(h, 0)]):
+                err = float((g.cpu().double() - r).abs().max())
+                assert err <= SERVO_TOL[name], (h, name, err)
+
+
 def test_wrapper_raises_on_bad_inputs(case, dev):
     kern = case["kern"]
     q = case["q_el"].to(dev)

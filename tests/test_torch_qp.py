@@ -8,6 +8,8 @@ seed:
   in interpret mode: cold, warm and with mirrored rows, x to 1e-9.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ import jax.numpy as jnp
 # oversubscribed OpenMP barriers make small batched ops ~100x slower
 torch.set_num_threads(1)
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 X_TOL = 1e-9
 # The polish solves the penalty system H + ρCᵀDC with ρ = 1/ridge = 1e9 at
 # float64: its conditioning turns summation-order roundoff (1e-16) into
@@ -201,3 +204,54 @@ def test_qp_solve_flops_match_the_benchmark_count(shape):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     assert qp_solve_flops(*shape) == mod.kernel_flops(*shape)["flops_per_solve"]
+
+
+def test_float32_masked_tick_qps_stay_near_float64(monkeypatch):
+    """MaskedTick in float32 on 96 lanes of the masked sweep (seed 0; both
+    feet, left, right cycled), four ticks of make_control_loop (cold, then
+    warm at 7 iterations, gap_fallback 1e-3), every QP through qp_cuda.
+    qp_solve (on the CPU its plain version, the kernel's recurrence): each
+    solution moves the torque (C[:mirror]·x, the QP's torque-limit block)
+    within 1e-3 Nm of a float64 solve of the same QP from the same warm
+    start, on every lane of every call.  Without the float32 lost-pivot
+    rule a warm single-support lane lands 0.47 Nm away."""
+    from libdwbc_tpu_torch import entry
+    from libdwbc_tpu_torch.model.compile import RobotModel
+    from libdwbc_tpu_torch.ops import qp, qp_cuda
+    from libdwbc_tpu_torch.wbc.loop import make_control_loop
+    from libdwbc_tpu_torch.wbc.masked import MaskedTick
+    from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
+
+    monkeypatch.setattr(qp, "_use_kernel", lambda H, A, lb, Aeq, backend: (
+        backend == "cuda" and lb is None and Aeq is None and H.dtype == torch.float32))
+    real, dtau = qp_cuda.qp_solve, []
+
+    def beside_float64(H, g, C, d, x0=None, lam0=None, iters=12, ridge=1e-6, mirror=0):
+        out = real(H, g, C, d, x0, lam0, iters=iters, ridge=ridge, mirror=mirror)
+        dbl = [None if t is None else t.double() for t in (H, g, C, d, x0, lam0)]
+        ref = qp_cuda.qp_solve_plain(*dbl, iters=iters, ridge=ridge, mirror=mirror)
+        dtau.append((dbl[2][:, :mirror] @ (out[0].double() - ref[0])[..., None])[..., 0]
+                    .abs().amax(-1))
+        return out
+
+    monkeypatch.setattr(qp_cuda, "qp_solve", beside_float64)
+    m = RobotModel.load(os.path.join(ROOT, "models", "tocabi.npz"))
+    tick = MaskedTick(m, standard_tocabi_config(m, qp_iters=12), "cpu", torch.float32,
+                      backend="torch")
+    tick.backend = "cuda"                 # route the QPs as on the card
+    md = m.model_dof
+
+    def advance(q, qd, res, dt):
+        q = q.clone()
+        q[:, 6:6 + md] += 1e-6 * torch.tanh(res.torque_cmd)
+        return q, qd
+
+    q, qd, fs, masks = entry._masked_inputs(m, 96, seed=0)
+    loop = make_control_loop(tick, transition=advance, K=4, warm_start=True, warm_iters=7,
+                             gap_fallback=1e-3)
+    res = loop(torch.as_tensor(q), torch.as_tensor(qd), tuple(torch.as_tensor(f) for f in fs),
+               torch.as_tensor(masks))
+    assert torch.isfinite(res.torques).all()
+    err = torch.stack(dtau)
+    assert len(dtau) == 3 * (4 + res.refined_ticks)
+    assert float(err.max()) <= 1e-3, (float(err.max()), (err > 1e-3).nonzero().tolist())
