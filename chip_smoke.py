@@ -105,7 +105,35 @@ Phases, each fatal on failure (nothing is caught):
    solve's, C[:33]·Δx (the torque-limit block is the QP's torque map),
    within MASKED_QP_TAU_TOL on every lane of every call, per hypothesis; the
    same loop in float64 on the card beside it, τ_cmd per hypothesis
-   recorded.
+   recorded;
+17. the general-plan kernels against their plain versions at batch 1024
+   (general_kernels): BASELINE's config 3 (single support, a swing-foot
+   third level; entry._swing_inputs), and the mixed task set
+   (entry._mixed_tasks_config: a
+   whole-body COM level, a custom-frame position and a rotation task in
+   one level, a COM-frame position level) on the two 6D feet, static on
+   phase 3's states and masked on the masked sweep's first 1024 lanes (per
+   hypothesis); each within tick_cuda.GENERAL_TOL;
+18. config 3's serving path (swing_serving), its launch counts set to 0
+   just before and read just after: FusedTick(backend="cuda"), a cold tick
+   at 12 iterations, 15 warm ticks at 7, one unbatched tick; every output
+   finite, no qp_error, gap and primal residual ≤ 1e-3, exactly one launch
+   of each tick kernel per tick; the truth guard on 4 lanes against the
+   plain fused tick and CompiledTick in float64 on the CPU; the kernels'
+   times at B = 1024 and 1, the warm chain's solves/s, the unbatched warm
+   tick against the 1 ms bar;
+19. config 3's servo'd closed loop (swing_loop), the counterpart of
+   tests/test_servo.py::test_on_device_swing_tracking_rollout: B = 1024
+   robots, the pelvis and torso held and the swing foot lifted 1.5 cm over
+   K = 150 ticks of 1 ms, through make_control_loop(FusedTick(cuda),
+   forward_dynamics_transition(CompiledTick(cuda)), warm, 7 iterations,
+   gap_fallback 1e-3), its launch counts set to 0 just before and read
+   just after; on every lane swing progress > 0.5, the foot's |Δx|, |Δy| <
+   0.05 m and the pelvis height within 0.03 m; launches exactly 2 × (K +
+   refined ticks) of the tick kernels and K of psd_inverse; flagged
+   lane-ticks no more than through the plain float32 tick on the card, the
+   float64 loop beside it; the time per tick split into ticks and
+   transition.
 
 Then each kernel's resources (registers and local bytes per thread, shared
 bytes and threads per block, resident blocks per SM, ptxas's spill bytes).
@@ -302,11 +330,371 @@ def servo_extra_flops(plan):
     return vel + nlev * (state + servo) + blend
 
 
+def tick_flops(plan, iters):
+    """Operations per solve of the two tick kernels on a static plan (a
+    multiply-add is 2), read off csrc/tick_prestage.cu and
+    csrc/tick_qpchain.cu routine by routine: (prestage, qpchain).  For the
+    general plans, which benchmarks/sol_tick_r05.json does not count; its
+    count of the flagship is printed beside this one's."""
+    from libdwbc_tpu_torch.ops.linalg_cuda import psd_inverse_flops as inv
+    from libdwbc_tpu_torch.ops.qp_cuda import qp_solve_flops
+
+    nb, nd, md, cd, cf, kr = (plan.nbody, plan.ndof, plan.mdof, plan.cdof, plan.cfree,
+                              plan.k_rows)
+
+    def chol(n):                           # chol_factor: scalings, rsqrt, trailing updates
+        return sum(2 * (n - j - 1) * (n - j) // 2 + (n - j) for j in range(n))
+
+    def w_apply(r):                        # V2ᵀB, the two triangular solves, −V2(V2ᵀB)
+        return 2 * md * md * r + (4 * md * cf * r if cf else 0)
+
+    pre = 40 + (nb - 1) * 180              # FK: base, then per body Rj, X·Rj, R, p, axis, COM
+    pre += len(plan.points) * nd * 12      # point jacobians: a cross product per column
+    pre += nb * 140 + (nb - 1) * 36        # composite inertias and their accumulation
+    pre += nd * 72 + 12 * int(plan.anc_pairs.sum()) + 6 * nd   # A's columns, G
+    if plan.uses_tot:                      # the whole-body COM jacobian
+        pre += 250 + nd * 50
+    pre += inv(nd)                         # A⁻¹
+    pre += (2 * cd * nd * nd + cd * (cd + 1) * nd + 42 * cd + chol(cd) + chol(6) + inv(cd)
+            + 2 * cd * cd * nd + 4 * cd * nd + md * (md + 1) * cd)   # contact space, Wfree
+    if cf:                                 # kernel basis, Wfree + V2V2ᵀ, NwJw
+        pre += (4 * cd ** 3 + 2 * cd * md * cf + 2 * (3 * md * cf + 2 * md * cf * (cf - 1))
+                + md * (md + 1) * cf + 2 * cf * cf * md + 4 * cf ** 3 + 2 * md * cf * cf)
+    pre += chol(md) + 2 * md * nd + w_apply(1)                     # W's factor, τ_grav
+    nlev = len(plan.level_tdofs)
+    for h, t in enumerate(plan.level_tdofs):                      # JKT and Ntorque
+        pre += (2 * t * nd * nd + 4 * t * nd * cd + t * (t + 1) * nd + 2 * inv(t)
+                + 2 * t * t * md + w_apply(t) + t * (t + 1) * md + 4 * md * t * t)
+        pre += 2 * md * md * t if h else 0                        # Nt = Pn·JktLam
+        if h + 1 < nlev:
+            pre += 2 * md * md * t * (2 if h else 1)              # the null space
+    pre += kr * (36 + 12 * md)                                    # constraint rows
+    qp = 2 * cd * md
+    for nv, m in plan.qp_dims:                                    # QPs, rows, torque sums
+        qp += qp_solve_flops(nv, m, md, iters) + 2 * kr * md * nv + 2 * kr * md + 4 * md * nv
+    return pre, qp
+
+
 def per_hyp(got, want, n):
     """Max abs error of (elem..., n) tensors per hypothesis (lane % 3)."""
     d = (got.detach().cpu().double() - want.detach().cpu().double()).abs().reshape(-1, n)
     lane = torch.arange(n) % 3
     return [float(d[:, lane == h].max()) for h in range(3)]
+
+
+def cast(x, fn):
+    """fn on every tensor of a (nested) prestage dict; None stays None."""
+    if isinstance(x, dict):
+        return {k: cast(v, fn) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(cast(v, fn) for v in x)
+    return None if x is None else fn(x)
+
+
+def general_kernels(dev, model, tag, cfg, masked, q_el, fs_el, cm_el, limits, split):
+    """Phase 17 on one plan, every lane: "pre", tick_prestage vs the plain
+    float64 prestage; "qp", tick_qpchain vs the plain float32 qpchain on
+    that prestage cast to float32, cold at COLD_ITERS and warm at
+    WARM_ITERS from the plain cold warm state; "qp32", the same on the plain
+    float32 prestage, the QPs that float32 serving solves (its task-space
+    inverses carry the float32 ridge, the float64 prestage's do not); and
+    "chain", the two kernels chained vs the plain float64 tick.  Each max
+    abs error (split: a list, per hypothesis in masked mode) beside the
+    plain float32 tick's own error against float64 on the same inputs and
+    its limit (limits: tick_cuda.GENERAL_TOL[tag]).
+    The QP chain may leave no more lanes with a primal residual above
+    QP_FAIL than the plain float32 QP chain, within phase 13's spread of two
+    rollouts.  Returns (τ_grav error, QP chain τ_cmd error), max over the
+    split."""
+    from libdwbc_tpu_torch.ops.tick_cuda import TickKernels
+    from libdwbc_tpu_torch.ops.tick_kernel import TickProgram
+
+    p64 = TickProgram(model, cfg, "cpu", torch.float64, masked=masked)
+    p32 = TickProgram(model, cfg, "cpu", torch.float32, masked=masked)
+    kern = TickKernels(TickProgram(model, cfg, dev, torch.float32, masked=masked))
+    d = (lambda t: t.to(dev))
+    nb = q_el.shape[1]
+    cm64 = None if cm_el is None else cm_el.double()
+    pre64 = p64.prestage(q_el.double(), cm64)
+    pre_k = kern.prestage(d(q_el), None if cm_el is None else d(cm_el))
+    torch.cuda.synchronize()
+    own = p32.prestage(q_el, cm_el)
+    fields = ["torque_grav", "P_C", "Jbar_act", "NwJw", "Ntorques", "Atemp", "bA0", "health"]
+    if p64.plan.cfree == 0:                 # one contact: no NwJw, as the plain prestage
+        assert pre_k["NwJw"] is None and pre64["NwJw"] is None
+        fields.remove("NwJw")
+    err = {"pre": {}, "qp": {}, "qp32": {}, "chain": {}}
+    own_err = {k: {} for k in err}
+    for name in fields:
+        got, o, want = pre_k[name], own[name], pre64[name]
+        if name == "Ntorques":
+            got, o, want = (torch.cat([t.reshape(-1, nb) for t in x], 0) for x in (got, o, want))
+        assert torch.isfinite(got).all(), f"tick_prestage ({tag}): non-finite {name}"
+        err["pre"][name], own_err["pre"][name] = split(got, want), split(o, want)
+    fs_d = [d(f) for f in fs_el]
+    fs64 = [f.double() for f in fs_el]
+    outs = ("torque_task", "torque_contact", "torque_cmd", "contact_force")
+    unsolved = []
+    for part, pre32 in (("qp", cast(pre64, lambda t: t.float())), ("qp32", own)):
+        ref_c = p32.qpchain(pre32, fs_el, None, COLD_ITERS)
+        ker_c = kern.qpchain(cast(pre32, d), fs_d, None, COLD_ITERS)
+        w_cpu = ref_c["warm_out"]
+        ref_w = p32.qpchain(pre32, fs_el, w_cpu, WARM_ITERS)
+        ker_w = kern.qpchain(cast(pre32, d), fs_d, [(d(x), d(l)) for x, l in w_cpu],
+                             WARM_ITERS)
+        pre32_64 = cast(pre32, lambda t: t.double())
+        r64_c = p64.qpchain(pre32_64, fs64, None, COLD_ITERS)
+        r64_w = p64.qpchain(pre32_64, fs64, [(x.double(), l.double()) for x, l in w_cpu],
+                            WARM_ITERS)
+        torch.cuda.synchronize()
+        for mode, ref, ker, r64 in (("cold", ref_c, ker_c, r64_c),
+                                    ("warm", ref_w, ker_w, r64_w)):
+            for name in outs + ("qp_gap", "qp_primal_res"):
+                assert torch.isfinite(ker[name]).all(), f"tick_qpchain ({tag}): non-finite {name}"
+            for name in outs:
+                err[part][f"{mode}.{name}"] = split(ker[name], ref[name])
+                own_err[part][f"{mode}.{name}"] = split(ref[name], r64[name])
+            n_k, n_p = (int((r["qp_primal_res"] > QP_FAIL).sum()) for r in (ker, ref))
+            unsolved.append((f"{part}.{mode}", n_k, n_p))
+            if p64.plan.cfree == 0:
+                assert not ker["torque_contact"].any(), (tag, part, mode)
+    ch_k = kern.qpchain(pre_k, fs_d, None, COLD_ITERS)
+    ch64 = p64.qpchain(pre64, fs64, None, COLD_ITERS)
+    ch32 = p32.qpchain(own, fs_el, None, COLD_ITERS)
+    for name in ("torque_task", "torque_cmd", "contact_force"):
+        err["chain"][name] = split(ch_k[name], ch64[name])
+        own_err["chain"][name] = split(ch32[name], ch64[name])
+
+    def fmt(v):
+        return "/".join(f"{e:.3e}" for e in v)
+
+    for part, label in (("pre", "tick_prestage vs plain float64"),
+                        ("qp", "tick_qpchain on the float64 prestage vs plain float32 [plain "
+                               "float32's own vs float64 on the same prestage]"),
+                        ("qp32", "tick_qpchain on the plain float32 prestage vs plain float32 "
+                                 "[plain float32's own vs float64 on the same prestage]"),
+                        ("chain", "tick_prestage → tick_qpchain vs plain float64 tick")):
+        print(f"{label} ({tag}, max abs err [plain float32's own] <= limit): " + "  ".join(
+            f"{k} {fmt(v)} [{fmt(own_err[part][k])}] <= {fmt(limits[part][k])}"
+            for k, v in err[part].items()))
+    print(f"tick_qpchain ({tag}): lanes with a primal residual above {QP_FAIL:g}, kernel "
+          f"[plain float32]: " + "  ".join(f"{m_} {k_} [{p_}]" for m_, k_, p_ in unsolved))
+    for mode, n_k, n_p in unsolved:
+        assert n_k <= 1.25 * n_p + 1e-3 * nb, (tag, mode, n_k, n_p)
+    for part in err:
+        for k, v in err[part].items():
+            assert all(e <= t for e, t in zip(v, limits[part][k])), (tag, part, k, v)
+    return max(err["pre"]["torque_grav"]), max(err["qp"]["cold.torque_cmd"]
+                                               + err["qp"]["warm.torque_cmd"])
+
+
+def swing_serving(dev, model, cfg3, card, times):
+    """Phase 18: config 3's serving path at batch B — a cold tick at
+    COLD_ITERS, then K − 1 warm ticks at WARM_ITERS (q[:, 6:39] += 1e-6·
+    tanh(τ_cmd) between ticks), then one unbatched tick — its launch counts
+    set to 0 just before and read just after; the truth guard on 4 lanes;
+    the kernels' times at B and 1 against their plain versions on the card
+    (into times), the warm chain's solves/s and the unbatched warm tick.
+    Returns (launches, the tick's TickKernels)."""
+    from libdwbc_tpu_torch import entry
+    from libdwbc_tpu_torch.ops.tick_kernel import TickProgram
+    from libdwbc_tpu_torch.wbc.fused import FusedTick
+    from libdwbc_tpu_torch.wbc.pipeline import CompiledTick
+
+    md = model.model_dof
+    q, qd, fs = entry._swing_inputs(model, B, seed=0)
+    q_d, qd_d = torch.as_tensor(q, device=dev), torch.as_tensor(qd, device=dev)
+    fs_d = tuple(torch.as_tensor(f, device=dev) for f in fs)
+    tick = FusedTick(model, cfg3, dev, backend="cuda")
+    assert tick.prog.plan.qp_dims == [(6, 76), (3, 76), (6, 76)], tick.prog.plan.qp_dims
+
+    def step(qq, warm, iters):
+        res, warm = tick._tick_impl(qq, qd_d, fs_d, warm=warm, qp_iters=iters)
+        qq = qq.clone()
+        qq[:, 6:6 + md] += 1e-6 * torch.tanh(res.torque_cmd)
+        return res, qq, warm
+
+    for k in tick.kernels.launches:
+        tick.kernels.launches[k] = 0
+    qq, warm = q_d, tick.init_warm((B,))
+    results = []
+    for k in range(K):
+        res, qq, warm = step(qq, warm, COLD_ITERS if k == 0 else WARM_ITERS)
+        results.append(res)
+    res1 = tick._tick_impl(q_d[0], qd_d[0], tuple(f[0] for f in fs_d))
+    torch.cuda.synchronize()
+    launches = dict(tick.kernels.launches)
+    print(f"config 3 serving path: {K} ticks at batch {B} + 1 unbatched tick, "
+          f"launches {launches}")
+    assert launches == {"tick_prestage": K + 1, "tick_qpchain": K + 1}, launches
+    for r in results + [res1]:
+        for name, v in r._asdict().items():
+            if v.dtype != torch.bool:
+                assert torch.isfinite(v).all(), f"config 3: non-finite {name}"
+    assert res1.torque_cmd.shape == (md,) and not bool(res1.qp_error)
+    assert [tuple(x.shape) + tuple(l.shape) for x, l in warm] == [
+        (B, 6, B, 76), (B, 3, B, 76), (B, 6, B, 76)]
+    gap_max = max(float(r.qp_gap.max()) for r in results)
+    pres_max = max(float(r.qp_primal_res.max()) for r in results)
+    n_err = sum(int(r.qp_error.sum()) for r in results)
+    print(f"config 3 serving path: gap max {gap_max:.3e}  pres max {pres_max:.3e}  "
+          f"qp_error lanes {n_err}  unbatched τ_cmd[0:3] {res1.torque_cmd[:3].tolist()}")
+    assert n_err == 0 and gap_max <= QP_FAIL and pres_max <= QP_FAIL
+
+    # the truth guard: tick 0 on four lanes against float64 CPU ticks, the
+    # plain fused tick and CompiledTick (the independent formulation)
+    lanes = (q[:4].astype(np.float64), qd[:4].astype(np.float64),
+             tuple(f[:4].astype(np.float64) for f in fs))
+    f64 = FusedTick(model, cfg3, "cpu", torch.float64, backend="torch")
+    r64, _ = f64._tick_impl(*lanes, warm=f64.init_warm((4,)), qp_iters=COLD_ITERS)
+    c64 = CompiledTick(model, cfg3, "cpu", torch.float64, backend="torch")
+    rc64, _ = c64._tick_impl(*lanes, warm=c64.init_warm((4,)), qp_iters=COLD_ITERS)
+    for label, want in (("plain fused float64", r64), ("CompiledTick float64", rc64)):
+        d_grav = maxerr(results[0].torque_grav[:4], want.torque_grav)
+        d_cmd = maxerr(results[0].torque_cmd[:4], want.torque_cmd)
+        print(f"config 3 truth guard, FusedTick(cuda) vs {label} (4 lanes): τ_grav "
+              f"{d_grav:.3e}  τ_cmd {d_cmd:.3e}")
+        assert d_grav <= TAU_GRAV_TOL and d_cmd <= TAU_CMD_TOL, (label, d_grav, d_cmd)
+
+    # times: each kernel against its plain version on the card
+    kern = tick.kernels
+    plain_dev = TickProgram(model, cfg3, dev, torch.float32)
+    q_el = q_d.T.contiguous()
+    fs_el = [f.T.contiguous() for f in fs_d]
+    for nb in (B, 1):
+        qe = q_el[:, :nb].contiguous()
+        fe = [f[:, :nb].contiguous() for f in fs_el]
+        pre_buf = kern.prestage_packed(qe)
+        pre_d = kern.unpack_pre(pre_buf)
+        w_d = kern.unpack_result(*kern.qpchain_packed(pre_buf, fe, None, COLD_ITERS))["warm_out"]
+        times[("tick_prestage_swing", nb)] = interleaved(
+            lambda: plain_dev.prestage(qe), lambda: kern.prestage_packed(qe), 2, 5)
+        times[("tick_qpchain_swing", nb)] = interleaved(
+            lambda: plain_dev.qpchain(pre_d, fe, w_d, WARM_ITERS),
+            lambda: kern.qpchain_packed(pre_buf, fe, w_d, WARM_ITERS), 2, 5)
+        for name in ("tick_prestage_swing", "tick_qpchain_swing"):
+            p, kt, gk = times[(name, nb)]
+            print(f"time {name} batch {nb}: kernel {kt:.3f} ms (graph replay {gk:.3f} ms)  "
+                  f"plain (torch on the card) {p:.3f} ms  [{card}]")
+
+    def chain():
+        qq_, w_ = q_d, warm
+        for _ in range(K - 1):
+            _, qq_, w_ = step(qq_, w_, WARM_ITERS)
+
+    chain_ms = cuda_time(chain, 2)
+    q1, qd1, fs1 = q_d[0], qd_d[0], tuple(f[0] for f in fs_d)
+    _, warm1 = tick._tick_impl(q1, qd1, fs1, warm=tick.init_warm(()), qp_iters=COLD_ITERS)
+    single_warm_ms = cuda_time(lambda: tick._tick_impl(q1, qd1, fs1, warm=warm1,
+                                                       qp_iters=WARM_ITERS), 10)
+    print(f"config 3 warm chain: {K - 1} ticks at batch {B} in {chain_ms:.3f} ms -> "
+          f"{B * (K - 1) / (chain_ms / 1e3):.1f} solves/s; unbatched warm tick ({WARM_ITERS} "
+          f"iterations) {single_warm_ms:.3f} ms, against the single-lane bar of 1 ms  [{card}]")
+    return launches, kern
+
+
+def swing_loop(dev, model, cfg3, card):
+    """Phase 19: config 3's servo'd closed loop at batch B (every level
+    servo'd: pelvis and torso held, the right foot lifted 1.5 cm over
+    K_SWING ticks of 1 ms), through the kernels with the launch counts set
+    to 0 just before and read just after, then through the plain float32
+    tick and in float64 (tick and transition), both on the card; the split
+    of the kernels' loop per tick into ticks and transition.  Returns the
+    kernels' launches."""
+    from libdwbc_tpu_torch import entry
+    from libdwbc_tpu_torch.kin.engine import Kinematics
+    from libdwbc_tpu_torch.ops import linalg_cuda
+    from libdwbc_tpu_torch.wbc.fused import FusedTick
+    from libdwbc_tpu_torch.wbc.loop import forward_dynamics_transition, make_control_loop
+    from libdwbc_tpu_torch.wbc.pipeline import CompiledTick, servos_to
+
+    K_SWING, DT, LIFT = 150, 1e-3, 0.015
+    q, qd, fs, servos, foot0, pelvis0 = entry._swing_servo_inputs(
+        model, B, seed=0, lift=LIFT, tf=K_SWING * DT)
+    trans32 = forward_dynamics_transition(CompiledTick(model, cfg3, dev, backend="cuda"))
+    trans64 = forward_dynamics_transition(CompiledTick(model, cfg3, dev, torch.float64,
+                                                       backend="torch"))
+    kin = Kinematics(model)
+
+    def run(tk, label, trans, count=False, ev=None):
+        dt_ = tk.dtype
+        args = (torch.as_tensor(q, device=dev, dtype=dt_),
+                torch.as_tensor(qd, device=dev, dtype=dt_),
+                tuple(torch.as_tensor(f, device=dev, dtype=dt_) for f in fs))
+        if ev is not None:              # CUDA events around every tick and transition
+            def timed(name, fn):
+                def f(*a, **k):
+                    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    e0.record()
+                    out = fn(*a, **k)
+                    e1.record()
+                    ev[name].append((e0, e1))
+                    return out
+                return f
+            tk._tick_impl = timed("tick", tk._tick_impl)
+            trans = timed("transition", trans)
+        loop = make_control_loop(tk, transition=trans, K=K_SWING, dt=DT, warm_start=True,
+                                 warm_iters=WARM_ITERS, gap_fallback=GAP_FALLBACK)
+        torch.cuda.synchronize()
+        if count:
+            for k in tk.kernels.launches:
+                tk.kernels.launches[k] = 0
+            linalg_cuda.launches["psd_inverse"] = 0
+        t0_ = time.perf_counter()
+        try:
+            lr = loop(*args, servos=servos_to(servos, dt_, dev))
+            torch.cuda.synchronize()
+        finally:
+            if ev is not None:
+                del tk._tick_impl
+        wall = time.perf_counter() - t0_
+        for name, v in lr._asdict().items():
+            if isinstance(v, torch.Tensor) and v.dtype != torch.bool:
+                assert torch.isfinite(v).all(), f"config 3 loop ({label}): non-finite {name}"
+        fk = kin.fk(lr.q_final.detach().cpu().double())
+        foot, pelvis = fk.p[:, 12].numpy(), fk.p[:, 0].numpy()
+        out = dict(wall=wall, progress=(foot[:, 2] - foot0[:, 2]) / LIFT,
+                   dxy=np.abs(foot[:, :2] - foot0[:, :2]).max(1),
+                   dz=np.abs(pelvis[:, 2] - pelvis0[:, 2]),
+                   n_err=int(lr.qp_error.sum()), pres=float(lr.qp_primal_res.max()))
+        print(f"config 3 servo'd loop ({label}): {K_SWING} ticks at batch {B}, refined ticks "
+              f"{lr.refined_ticks}, {wall * 1e3:.3f} ms; swing progress min "
+              f"{out['progress'].min():.4f} mean {out['progress'].mean():.4f}, foot |Δx|,|Δy| "
+              f"max {out['dxy'].max():.4e} m, pelvis |Δz| max {out['dz'].max():.4e} m; "
+              f"qp_error ticks×lanes {out['n_err']}, qp_primal_res max {out['pres']:.3e}")
+        if count:
+            n_solve = K_SWING + lr.refined_ticks
+            out["launches"] = dict(tk.kernels.launches)
+            out["psd"] = linalg_cuda.launches["psd_inverse"]
+            print(f"config 3 servo'd loop ({label}): launches {out['launches']}, psd_inverse "
+                  f"{out['psd']}")
+            assert out["launches"] == {"tick_prestage": n_solve, "tick_qpchain": n_solve}, \
+                out["launches"]
+            assert out["psd"] == K_SWING, out["psd"]
+        return out
+
+    tick = FusedTick(model, cfg3, dev, backend="cuda")
+    kern = run(tick, "kernels", trans32, count=True)
+    plain = run(FusedTick(model, cfg3, dev, torch.float32, backend="torch"),
+                "plain float32 tick on the card", trans32)
+    f64 = run(FusedTick(model, cfg3, dev, torch.float64, backend="torch"),
+              "plain float64 tick and transition on the card", trans64)
+    for r in (kern, plain, f64):
+        assert (r["progress"] > 0.5).all(), float(r["progress"].min())
+        assert (r["dxy"] < 0.05).all() and (r["dz"] < 0.03).all()
+    # flagged lane-ticks: no more than through the plain float32 tick, within
+    # the spread of two rollouts that part on roundoff (phase 13's rule)
+    assert kern["n_err"] <= 1.25 * plain["n_err"] + 1e-3 * K_SWING * B, (kern["n_err"],
+                                                                           plain["n_err"])
+    ev = {"tick": [], "transition": []}
+    split = run(tick, "kernels, timed per call", trans32, ev=ev)
+    t_tick, t_tr = (sum(a.elapsed_time(b) for a, b in ev[k]) / K_SWING
+                    for k in ("tick", "transition"))
+    t_wall = split["wall"] * 1e3 / K_SWING
+    print(f"config 3 servo'd loop per tick at batch {B}: wall {t_wall:.3f} ms, of which ticks "
+          f"{t_tick:.3f} ms and transition {t_tr:.3f} ms (CUDA events), the rest "
+          f"{t_wall - t_tick - t_tr:.3f} ms  [{card}]")
+    return kern["launches"]
 
 
 def main():
@@ -844,14 +1232,6 @@ def main():
     sfs_el = [torch.as_tensor(np.ascontiguousarray(f.T)) for f in sfs]
     sv_dev, sv64, sv32 = (t._servos_el(servos, B) for t in (stick, s64, s32))
 
-    def cast(x, fn):
-        """fn on every tensor of a (nested) prestage dict."""
-        if isinstance(x, dict):
-            return {k: cast(v, fn) for k, v in x.items()}
-        if isinstance(x, (list, tuple)):
-            return type(x)(cast(v, fn) for v in x)
-        return fn(x)
-
     def servo_fields(pre):
         """The servo section of a prestage dict: f* and the task states,
         each over the levels, (elem, lanes)."""
@@ -1203,6 +1583,31 @@ def main():
           + "/".join(f"{e:.3e}" for e in dcmd_h))
     assert max(dtau_h) <= MASKED_QP_TAU_TOL, (dtau_h, over_h)
 
+    # ------------- 17. the general-plan kernels vs their plain versions
+    from libdwbc_tpu_torch.ops.tick_cuda import GENERAL_TOL
+
+    cfg3 = standard_tocabi_config(model, both_feet=False, swing_task=True, qp_iters=COLD_ITERS)
+    mcfg = entry._mixed_tasks_config(model, cfg)
+    q3, _, fs3 = entry._swing_inputs(model, B, seed=0)
+    gfs = [torch.as_tensor(np.ascontiguousarray(
+        (0.05 * np.random.default_rng(1).standard_normal((B, t)).astype(np.float32)).T))
+        for t in (6, 6, 3)]
+    one = (lambda g, w: [maxerr(g, w)])
+    g_err = {}
+    for tag, gcfg, masked, gq, gf, gcm, split in (
+            ("config 3", cfg3, False, torch.as_tensor(np.ascontiguousarray(q3.T)),
+             [torch.as_tensor(np.ascontiguousarray(f.T)) for f in fs3], None, one),
+            ("mixed", mcfg, False, q_el, gfs, None, one),
+            ("mixed masked", mcfg, True, q_n, gfs, cm_n, lambda g, w: per_hyp(g, w, N_M))):
+        g_err[tag] = general_kernels(dev, model, tag, gcfg, masked, gq, gf, gcm,
+                                     GENERAL_TOL[tag], split)
+
+    # ----------------------------------------- 18. config 3's serving path
+    launches3, kern3 = swing_serving(dev, model, cfg3, card, times)
+
+    # -------------------------------- 19. config 3's servo'd closed loop
+    swing_loop(dev, model, cfg3, card)
+
     # bounds at batch B: bytes of each kernel's inputs and outputs, and its
     # operations on this run's shapes
     plan = kern.plan
@@ -1244,6 +1649,19 @@ def main():
         (PRESTAGE_FLOPS + x_servo) * B)
     bounds["tick_qpchain_servo"] = bound(
         4 * (B * (s_pre + 2 * n_warm + n_out) + kern.table.numel()), QPCHAIN_FLOPS * B)
+    plan3 = kern3.plan
+    n_pre3, n_out3, n_warm3 = (tc._elems(lay(plan3)) for lay in
+                               (tc.pre_layout, tc.out_layout, tc.warm_layout))
+    pre3_ops, qp3_ops = tick_flops(plan3, WARM_ITERS)
+    pre_ops, qp_ops = tick_flops(plan, WARM_ITERS)
+    print(f"config 3 operations per solve (tick_flops): prestage {pre3_ops}, qpchain "
+          f"{qp3_ops}; the flagship by the same count: prestage {pre_ops}, qpchain {qp_ops} "
+          f"(benchmarks/sol_tick_r05.json: {PRESTAGE_FLOPS:.1f}, {QPCHAIN_FLOPS:.1f})")
+    bounds["tick_prestage_swing"] = bound(4 * (B * (n_q + n_pre3) + kern3.table.numel()),
+                                          pre3_ops * B)
+    bounds["tick_qpchain_swing"] = bound(
+        4 * (B * (n_pre3 + sum(plan3.level_tdofs) + 2 * n_warm3 + n_out3) + kern3.table.numel()),
+        qp3_ops * B)
     for name, (ms, by) in bounds.items():
         print(f"bound {name} at batch {B_M if name.endswith('masked') else B}: "
               f"{ms:.6f} ms ({by})")
@@ -1251,7 +1669,8 @@ def main():
     # each kernel's resources at the launch shape of its record: registers
     # and local bytes per thread, shared bytes per block, blocks per SM, and
     # ptxas's spill bytes
-    smem_qp = {tag: k._lib_and_sizes()[1]["smem_qp"] for tag, k in (("", kern), ("_masked", mkern))}
+    smem_qp = {tag: k._lib_and_sizes()[1]["smem_qp"]
+               for tag, k in (("", kern), ("_masked", mkern), ("_swing", kern3))}
     resources = {"tick_prestage": _build.kernel_info("tick_prestage"),
                  "psd_inverse": _build.kernel_info("psd_inverse", 39),
                  "qp_solve": _build.kernel_info("qp_solve")}
@@ -1260,12 +1679,13 @@ def main():
     for name, res in resources.items():
         print(f"resources {name}: " + "  ".join(f"{k} {v}" for k, v in res.items())
               + "  ptxas spill stores/loads {}/{} bytes".format(
-                  *spills.get(name.removesuffix("_masked"), ("not reported",) * 2)))
+                  *spills.get(name.removesuffix("_masked").removesuffix("_swing"),
+                              ("not reported",) * 2)))
 
     def entry_(name, launches_, err, key, library_ms, replaces):
         """The record of one kernel; key: its times at the recorded batch."""
         plain_ms, ms, graph_ms = times[key]
-        src = name.removesuffix("_masked").removesuffix("_servo")
+        src = name.removesuffix("_masked").removesuffix("_servo").removesuffix("_swing")
         res = resources.get(name.removesuffix("_servo"), resources[src])
         st, ld = spills.get(src, (None, None))
         return {"name": name, "route": "cuda",
@@ -1299,6 +1719,10 @@ def main():
                max(sfs_err, msfs_err), ("tick_prestage_servo", B), None, fused_site),
         entry_("tick_qpchain_servo", serve_b["launches"]["tick_qpchain"], max(sqp_err, msqp_err),
                ("tick_qpchain_servo", B), None, fused_site),
+        entry_("tick_prestage_swing", launches3["tick_prestage"], g_err["config 3"][0],
+               ("tick_prestage_swing", B), None, fused_site),
+        entry_("tick_qpchain_swing", launches3["tick_qpchain"], g_err["config 3"][1],
+               ("tick_qpchain_swing", B), None, fused_site),
     ]}
     print(json.dumps(record))
     print(gpu_line())

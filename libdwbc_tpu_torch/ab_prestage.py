@@ -2,20 +2,24 @@
 process: each tree's csrc/ is built into its own library, and the kernel
 is timed with CUDA events on the serving inputs of chip_smoke.py (static at
 B = 1024 and B = 1, masked at B = 4096, servo'd at B = 1024), in the order
-this, other, other, this.
+this, other, other, this; then config 3 (single support, a swing-foot
+third level) at B = 1024 on this tree alone.
 
     python -m libdwbc_tpu_torch.ab_prestage OTHER_REPO_ROOT
 
 The other tree's tick_prestage must take the same C arguments as this
 one's (``dwbc_tick_prestage``, ``dwbc_pre_elems``,
-``dwbc_prestage_ws_elems``).  Prints each time, the mean of each tree's two
-runs, whether the two prestage buffers agree bit for bit, and the card's
-name and power limit.  Needs a CUDA device.
+``dwbc_prestage_ws_elems``); each tree's kernels read the table that its
+own ``kernel_table`` packs (computed by a python run in that tree).  Prints
+each time, the mean of each tree's two runs, whether the two prestage
+buffers agree bit for bit, and the card's name and power limit.  Needs a
+CUDA device.
 """
 
 from __future__ import annotations
 
 import ctypes
+import json
 import subprocess
 import sys
 import tempfile
@@ -57,6 +61,32 @@ def build_tree(csrc: Path, out: Path) -> ctypes.CDLL:
     lib.dwbc_tick_prestage.argtypes = [p, p, p, p, p, p, i, p, p, i, p]
     lib.dwbc_tick_prestage.restype = i
     return lib
+
+
+# run in a tree: the flagship's kernel tables, static and masked, as that
+# tree packs them (JSON lists of float64)
+_TABLES = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from libdwbc_tpu_torch import entry
+from libdwbc_tpu_torch.model.compile import RobotModel
+from libdwbc_tpu_torch.ops.tick_cuda import kernel_table
+from libdwbc_tpu_torch.ops.tick_kernel import TickProgram
+from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
+m = RobotModel.load(str(entry.MODEL_PATH))
+cfg = standard_tocabi_config(m, qp_iters=12)
+print(json.dumps({str(int(k)): kernel_table(TickProgram(m, cfg, "cpu", torch.float64,
+                                                        masked=k).plan).tolist()
+                  for k in (False, True)}))
+"""
+
+
+def tree_tables(root: Path):
+    """{masked: float32 table} of the flagship as the tree at root packs it."""
+    out = subprocess.run([sys.executable, "-c", _TABLES, str(root)], capture_output=True,
+                         text=True, check=True, cwd=str(root)).stdout
+    return {k == "1": np.asarray(v, np.float32) for k, v in json.loads(out).items()}
 
 
 def prestage_call(lib, table_host, table, q, cmask, servo=None):
@@ -103,10 +133,11 @@ def main():
     other = Path(sys.argv[1]).resolve() / "libdwbc_tpu_torch" / "csrc"
     dev = torch.device("cuda", 0)
     tmp = Path(tempfile.mkdtemp(prefix="ab_prestage_"))
-    libs = {}
+    libs, tables = {}, {}
     for tag, csrc in (("this", _build.CSRC), ("other", other)):
         (tmp / tag).mkdir()
         libs[tag] = build_tree(csrc, tmp / tag)
+        tables[tag] = tree_tables(csrc.parent.parent)
 
     model = RobotModel.load(str(entry.MODEL_PATH))
     cfg = standard_tocabi_config(model, qp_iters=12)
@@ -126,17 +157,29 @@ def main():
                                      ("static B 1", False, qs[:1], None, None),
                                      ("masked B 4096", True, mq, masks, None),
                                      ("servo'd B 1024", False, sq, None, servo)):
-        th = kernel_table(TickProgram(model, cfg, "cpu", torch.float64, masked=masked).plan)
-        th = np.ascontiguousarray(th.astype(np.float32))
         cd = None if cm is None else el(cm)
-        runs = {tag: prestage_call(lib, th, torch.as_tensor(th, device=dev), el(q), cd, sv)
-                for tag, lib in libs.items()}
+        runs = {}
+        for tag, lib in libs.items():
+            th = np.ascontiguousarray(tables[tag][masked])
+            runs[tag] = prestage_call(lib, th, torch.as_tensor(th, device=dev), el(q), cd, sv)
         cases.append((label, runs))
+    # config 3: this tree only (a tree before the general plans refuses it)
+    cfg3 = standard_tocabi_config(model, both_feet=False, swing_task=True, qp_iters=12)
+    q3, _, _ = entry._swing_inputs(model, 1024, seed=0)
+    th3 = np.ascontiguousarray(kernel_table(TickProgram(model, cfg3, "cpu", torch.float64).plan)
+                               .astype(np.float32))
+    cases.append(("config 3 B 1024", {"this": prestage_call(
+        libs["this"], th3, torch.as_tensor(th3, device=dev), el(q3), None)}))
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     for label, runs in cases:
         t = {tag: [] for tag in runs}
+        if "other" not in runs:
+            t["this"] = [event_ms(runs["this"]) for _ in range(2)]
+            print(f"tick_prestage {label}: this " + " ".join(f"{v:.3f}" for v in t["this"])
+                  + f" (mean {np.mean(t['this']):.3f}) ms  [{card}]")
+            continue
         for tag in ("this", "other", "other", "this"):
             t[tag].append(event_ms(runs[tag]))
         same = torch.equal(runs["this"]().clone(), runs["other"]().clone())

@@ -1,5 +1,5 @@
-// The on-device trajectory-PD servo of one task link, one lane: the servo
-// branch of tick_prestage.
+// The on-device trajectory-PD servo of one task (a link's point or the
+// whole-body COM), one lane: the servo branch of tick_prestage.
 //
 // Replaces the servo branch of the TPU kernel wbc/fused.py::FusedTick.
 // _run_pallas: libdwbc_tpu/ops/tick_kernel.py::_servo_fstar_el and its
@@ -7,7 +7,7 @@
 // _quat_to_matrix_el, _rotation_log_el, _get_phi_el).  A quintic position
 // trajectory, a slerp rotation trajectory with quintic time scaling, the
 // GetPhi rotation error and a PD law with acceleration feedforward and ±max
-// error clamps, then the use_pos / use_rot blend into the level's f* rows.
+// error clamps, then the use_pos / use_rot blend into the task's f* rows.
 // A few hundred scalar operations per servo'd task: negligible beside the
 // prestage's factorisations, so it runs as plain per-thread code after them.
 // The branches and clamps are the plain version's, kept as branches.
@@ -152,7 +152,7 @@ DWBC_HDI void rotation_log(const T R[9], T v[3]) {
   v[2] = (R[3] - R[1]) * scale;
 }
 
-// The servo of one task link at its state (pos, vel, rot row-major, w) →
+// The servo of one task at its point's state (pos, vel, rot row-major, w) →
 // f6 = [f*_pos; f*_rot].
 template <typename T>
 DWBC_HD void servo_fstar(const ServoIn<T>& sp, const T pos[3], const T vel[3],

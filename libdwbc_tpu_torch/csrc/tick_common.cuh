@@ -89,33 +89,40 @@ DWBC_HDI double rsqrt_(double x) { return 1.0 / sqrt(x); }
 //   parent[nbody] q_index[nbody] owner[ndof] axis[nbody,3] X_rot[nbody,3,3]
 //   X_trans[nbody,3] com[nbody,3] inertia[nbody,3,3] mass[nbody]
 //   amask[nbody,ndof] gravity[3] pt_link[npts] pt_off[npts,3]
-//   c_slot[nc] c_link[nc] c_blk[nc,10,6] spec_slot[2] spec_mode[2]
-//   tlim[mdof]
-// The configurations taken are the flagship's shape: 6D contacts (in masked
-// mode a 6D candidate set), at most NLEV_MAX task levels of one link task
-// each, 6D or rotation.  Header slots 0-9 hold the dims, 10-11 the task
-// dofs per level, 12 the masked flag.
+//   c_slot[nc] c_link[nc] c_blk[nc,10,6] task[ntask,4] tlim[mdof]
+// The configurations taken: one or two 6D contacts (in masked mode a 6D
+// candidate set), a torque limit, at most NLEV_MAX task levels of tasks in
+// level order, NTASK_MAX in all.  Header slots 0-9 hold the dims, 10 the
+// masked flag, 11 the task count, 12 whether a task is the whole-body COM,
+// 13 the model's total mass, 16-19 the task dofs per level.  Task k's four
+// fields: its level, its point slot (TASK_TOT: the whole-body COM), and the
+// rows it takes of that point's 6-row jacobian, first row and count (0, 6:
+// 6D; 0, 3: position; 3, 3: rotation).
 constexpr int HDR = 32;
-constexpr int NLEV_MAX = 2;
-constexpr int H_MASKED = 12;
+constexpr int NLEV_MAX = 4;
+constexpr int NTASK_MAX = 16;    // the servo's task mask is an int
+constexpr int H_MASKED = 10, H_NTASK = 11, H_TOT = 12, H_MASS = 13, H_LEV_T = 16;
+constexpr int TASK_FIELDS = 4, TASK_TOT = -1;
 constexpr int CROWS = 10;        // constraint rows of a 6D contact
-enum { SPEC_6D = 0, SPEC_ROT = 1 };
 
 template <typename T>
 struct Tab {
-  int nbody, ndof, mdof, npts, nc, cdof, cfree, krows, nlev, nq;
-  int lev_t[NLEV_MAX];
+  int nbody, ndof, mdof, npts, nc, cdof, cfree, krows, nlev, nq, ntask;
   bool masked;                   // a per-scenario contact mask picks the candidates
-  const T *parent, *qidx, *owner, *axis, *xrot, *xtrans, *com, *inertia,
-      *mass, *amask, *gravity, *pt_link, *pt_off, *c_slot, *c_link, *c_blk,
-      *spec_slot, *spec_mode, *tlim;
+  bool tot;                      // a task on the whole-body COM
+  T mtot;                        // the model's total mass
+  const T *hdr, *parent, *qidx, *owner, *axis, *xrot, *xtrans, *com, *inertia,
+      *mass, *amask, *gravity, *pt_link, *pt_off, *c_slot, *c_link, *c_blk, *task, *tlim;
 
   DWBC_HD explicit Tab(const T* t) {
     nbody = (int)t[0]; ndof = (int)t[1]; mdof = (int)t[2]; npts = (int)t[3];
     nc = (int)t[4]; cdof = (int)t[5]; cfree = (int)t[6]; krows = (int)t[7];
     nlev = (int)t[8]; nq = (int)t[9];
-    for (int h = 0; h < NLEV_MAX; ++h) lev_t[h] = (int)t[10 + h];
     masked = t[H_MASKED] != (T)0;
+    ntask = (int)t[H_NTASK];
+    tot = t[H_TOT] != (T)0;
+    mtot = t[H_MASS];
+    hdr = t;
     const T* o = t + HDR;
     parent = o;  o += nbody;
     qidx = o;    o += nbody;
@@ -133,52 +140,67 @@ struct Tab {
     c_slot = o;  o += nc;
     c_link = o;  o += nc;
     c_blk = o;   o += nc * CROWS * 6;
-    spec_slot = o; o += NLEV_MAX;
-    spec_mode = o; o += NLEV_MAX;
+    task = o;    o += ntask * TASK_FIELDS;
     tlim = o;
   }
+  // read from the table, not from an array of the struct: a run-time
+  // index into a local array would put it in the stack frame
+  DWBC_HDI int lev_t(int h) const { return (int)hdr[H_LEV_T + h]; }
+  DWBC_HDI int task_lev(int k) const { return (int)task[TASK_FIELDS * k]; }
+  DWBC_HDI int task_slot(int k) const { return (int)task[TASK_FIELDS * k + 1]; }
+  DWBC_HDI int task_r0(int k) const { return (int)task[TASK_FIELDS * k + 2]; }
+  DWBC_HDI int task_nr(int k) const { return (int)task[TASK_FIELDS * k + 3]; }
   DWBC_HDI int tmax() const {
     int t = 0;
-    for (int h = 0; h < nlev; ++h) t = lev_t[h] > t ? lev_t[h] : t;
+    for (int h = 0; h < nlev; ++h) t = lev_t(h) > t ? lev_t(h) : t;
     return t;
   }
   DWBC_HDI int tsum() const {                               // Σ task dofs
     int t = 0;
-    for (int h = 0; h < nlev; ++h) t += lev_t[h];
+    for (int h = 0; h < nlev; ++h) t += lev_t(h);
     return t;
   }
   DWBC_HDI int mrows() const { return 2 * mdof + krows; }   // QP rows m
   DWBC_HDI int srows() const { return mdof + krows; }       // stored rows
+  DWBC_HDI int nqp() const { return nlev + (cfree > 0 ? 1 : 0); }   // + redistribution
 };
 
 // ------------------------------------------ the prestage output ("pre")
-// Same order as ops/tick_cuda.py::pre_layout.  Masked mode appends the
-// per-lane constraint-row mask (krows) and the active contact dof (1).  A
-// servo'd call appends the f* of every level (Σ lev_t rows: the servo's
-// blend on servo'd levels, the caller's f* on the others), which the QP
-// chain then reads, and per level the task link's state: pos (3), vel (3),
-// rot (9, row-major), w (3).
+// Same order as ops/tick_cuda.py::pre_layout.  The levels' Nt blocks
+// follow each other (level h: mdof × lev_t(h), at Σ_{h'<h} lev_t(h')
+// columns' worth of rows).  Masked mode appends the per-lane constraint-row
+// mask (krows) and the active contact dof (1).  A servo'd call appends the
+// f* of every level (Σ lev_t rows: the servo's blend on servo'd tasks, the
+// caller's f* elsewhere), which the QP chain then reads, and per task its
+// point's state: pos (3), vel (3), rot (9, row-major), w (3).  The views
+// of a level or a task are computed from offsets, never picked from an
+// array by a run-time index.
 constexpr int TSTATE = 18;
 
 template <typename T>
 struct Pre {
   V<T> tg, PC;
-  M<T> Jbar_act, NwJw, Nt[NLEV_MAX], Atemp;
-  V<T> bA0, health, crow, acdof, fstar, tstate[NLEV_MAX];
+  M<T> Jbar_act, NwJw, Nt0, Atemp;
+  V<T> bA0, health, crow, acdof, fstar, tstate0;
   DWBC_HD Pre(Arena<T>& a, const Tab<T>& tb, bool servo) {
     tg = a.vec(tb.mdof);
     PC = a.vec(tb.cdof);
     Jbar_act = a.mat(tb.cdof, tb.mdof);
     NwJw = a.mat(tb.mdof, tb.cfree);
-    for (int h = 0; h < tb.nlev; ++h) Nt[h] = a.mat(tb.mdof, tb.lev_t[h]);
+    Nt0 = M<T>{a.vec(tb.mdof * tb.tsum()).p, a.s, 0};
     Atemp = a.mat(tb.krows, tb.mdof);
     bA0 = a.vec(tb.krows);
     health = a.vec(1);
     crow = tb.masked ? a.vec(tb.krows) : V<T>{nullptr, 0};
     acdof = tb.masked ? a.vec(1) : V<T>{nullptr, 0};
     fstar = servo ? a.vec(tb.tsum()) : V<T>{nullptr, 0};
-    for (int h = 0; h < tb.nlev; ++h) tstate[h] = servo ? a.vec(TSTATE) : V<T>{nullptr, 0};
+    tstate0 = servo ? a.vec(TSTATE * tb.ntask) : V<T>{nullptr, 0};
   }
+  // the Nt block (mdof × t) of the level whose first task dof is toff
+  DWBC_HDI M<T> Nt(int mdof, int toff, int t) const {
+    return M<T>{Nt0.p + (long long)mdof * toff * Nt0.s, Nt0.s, t};
+  }
+  DWBC_HDI V<T> tstate(int k) const { return tstate0.at(TSTATE * k); }
 };
 
 // --------------------------------------------------- the tick's results
@@ -199,12 +221,13 @@ struct Out {
 };
 
 // ------------------------------------------- warm state: (x, λ) per QP
-// x (n) then λ (m) of each QP in turn: QP h < nlev has n = lev_t[h] +
-// cfree, the redistribution QP n = cfree; every QP has m = 2·mdof + krows
-// rows.  Same order as ops/tick_cuda.py::warm_layout.
+// x (n) then λ (m) of each QP in turn: QP h < nlev has n = lev_t(h) +
+// cfree, the redistribution QP (only where cfree > 0) n = cfree; every QP
+// has m = 2·mdof + krows rows.  Same order as ops/tick_cuda.py::warm_layout
+// (TickPlan.qp_dims).
 template <typename T>
 DWBC_HDI long long warm_elems(const Tab<T>& tb) {
-  return (long long)tb.tsum() + (tb.nlev + 1) * (tb.cfree + tb.mrows());
+  return (long long)tb.tsum() + (long long)tb.nqp() * (tb.cfree + tb.mrows());
 }
 
 #ifdef __CUDACC__

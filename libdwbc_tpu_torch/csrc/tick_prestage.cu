@@ -9,14 +9,23 @@
 // (complete_basis + qr_thin), the factored W-apply (Cholesky of Wfree+V2V2ᵀ
 // with a rank-cfree correction: W⁻¹ is never formed), NwJw (qr_pinv), τ_grav,
 // per-level JKT and Ntorque with the f32 relative ridge, and Atemp, bA0.
+// General plans (kernel_unsupported in ops/tick_cuda.py): one or two 6D
+// contacts (one: cfree = 0, no kernel basis, W = Wfree factored alone),
+// up to NLEV_MAX levels, each a list of 6D, position or rotation tasks on a
+// point (link origin, COM-frame or custom-frame) or on the whole-body COM,
+// whose jacobian Jcom_total (linear rows A[0:3]/M, angular rows the
+// centroidal inertia's solve against the COM momentum map) is formed from
+// A before A⁻¹ overwrites it; each level after the first in the null space
+// of those above, Pn ← Pn·(I − Jkt·Q).
 // Masked mode (a per-scenario 0/1 mask over two 6D candidates): J_C rows ×
 // the mask, +1 on the inactive diagonal of Mc and Λc re-masked, the kernel
 // basis by orthonormalize_drop + compact_columns (exact zero columns for a
 // single-support lane), NwJw through the first (c_act − 6) active rows, and
 // the per-lane constraint-row mask and active contact dof as outputs.
-// Servo'd calls (a nonzero level mask smask): the per-body velocities from
-// q̇, each level's task-link state, and on every servo'd level the
-// trajectory-PD f* (csrc/servo.cuh) blended into the caller's f*, written
+// Servo'd calls (a nonzero task mask smask): the per-body velocities from
+// q̇, each task's point state (the whole-body COM's: its position from
+// A[3:6, 0:3], its velocity Jcom_total[0:3]·q̇), and on every servo'd task
+// the trajectory-PD f* (csrc/servo.cuh) blended into the caller's f*, written
 // to the prestage buffer's servo section for tick_qpchain; the servo branch
 // of libdwbc_tpu/ops/tick_kernel.py (prestage with servo_req,
 // _apply_servos_el).
@@ -100,13 +109,15 @@ constexpr long long kPreSmemElems = 7232;
 // comw, ax, og, IC, S until A⁻¹; from the contact space on, W and its
 // factor, the kernel basis' Gram-Schmidt buffers, the small matrices and
 // the JKT loop's products; after them the servo's body velocities wb, vb.
-// The device-memory part: J, G, NCG, Jbar and level 0's null space Pn.
+// The device-memory part: J, G, NCG, Jbar, the null space Pn of the levels
+// above the current one, and with a whole-body COM task Jcom_total and the
+// COM's offset from the base, cfb.
 template <typename T>
 struct PreWS {
   M<T> A, Ainv, X, Ls, Xs, Rb, pb, axw, comw, ax, og, IC, S, J, JC, JAinv, Mc, Lamc, Jbar,
       H6, Wf, Qb, Rres, Ny, V2T, M6, Qp, Rp, Pinv, v1, Jt, JtA, JtAJc, JAN, Mt, Lam, Q, QT,
-      WQt, VtB, QWQ, Jkt, JktLam, Pn, JbV, wb, vb;
-  V<T> idg, G, NCG, idgW, rm, live;
+      WQt, VtB, QWQ, Jkt, JktLam, Pn, JbV, wb, vb, Jcom;
+  V<T> idg, G, NCG, idgW, rm, live, cfb;
   long long smem;                // shared elements, the overlays' largest extent (2⁴⁰
                                  // if X's buffer cannot hold what it is given)
 
@@ -171,14 +182,21 @@ struct PreWS {
     NCG = a.vec(nd);
     Jbar = a.mat(cd, nd);
     Pn = a.mat(md, md);
+    Jcom = a.mat(tb.tot ? 6 : 0, nd);
+    cfb = a.vec(tb.tot ? 3 : 0);
   }
 };
 
 // Y = W⁻¹·Bm for Bm (mdof × r): Cholesky solve against Wfree + V2V2ᵀ, then
-// the rank-cfree correction −V2(V2ᵀBm).  Y may alias Bm.
+// the rank-cfree correction −V2(V2ᵀBm); with cfree = 0 the solve against
+// Wfree alone.  Y may alias Bm.
 template <typename T>
 DWBC_HD void w_apply(const Tab<T>& tb, const PreWS<T>& w, M<T> Y, M<T> Bm, int r,
                      Lanes wp = one_lane()) {
+  if (tb.cfree == 0) {
+    cho_solve(Y, w.Wf, w.idgW, Bm, tb.mdof, r, wp);
+    return;
+  }
   mTm(w.VtB, w.V2T, Bm, tb.mdof, tb.cfree, r, wp);
   cho_solve(Y, w.Wf, w.idgW, Bm, tb.mdof, r, wp);
   for (int e = wp.lane; e < tb.mdof * r; e += wp.nl) {
@@ -202,13 +220,13 @@ DWBC_HD void f32_ridge(M<T> Ms, int n, Lanes wp = one_lane()) {
   wp.sync();
 }
 
-// The servo branch, one lane: per-body velocities, every level's task-link
+// The servo branch, one lane: per-body velocities, every task's point
 // state, and the f* of every level into the prestage buffer's servo
-// section.  smask bit h: level h is servo'd, its ServoIn the next block of
+// section.  smask bit k: task k is servo'd, its ServoIn the next block of
 // the servo buffer.
 template <typename T>
-DWBC_HD void servo_lane(const Tab<T>& tb, const PreWS<T>& w, const Pre<T>& pre, V<T> qd,
-                        V<T> fs, const T* svp, int smask, long long B) {
+DWBC_HD void servo_lane(const Tab<T>& tb, const PreWS<T>& w, const Pre<T>& pre, V<T> q,
+                        V<T> qd, V<T> fs, const T* svp, int smask, long long B) {
   for (int r = 0; r < 3; ++r) {
     T acc = w.Rb(0, 3 * r) * qd[3];
     for (int k = 1; k < 3; ++k) acc += w.Rb(0, 3 * r + k) * qd[3 + k];
@@ -229,24 +247,38 @@ DWBC_HD void servo_lane(const Tab<T>& tb, const PreWS<T>& w, const Pre<T>& pre, 
   }
   Arena<T> sa{const_cast<T*>(svp), B, 0};
   int foff = 0;
-  for (int h = 0; h < tb.nlev; ++h) {
-    // the task link's point (origin or offset) and its velocity
-    const int slot = (int)tb.spec_slot[h];
-    const int link = (int)tb.pt_link[slot];
-    const T* off = tb.pt_off + 3 * slot;
-    T pos[3], vel[3], rot[9], wv[3], rr[3];
-    for (int r = 0; r < 9; ++r) rot[r] = w.Rb(link, r);
-    for (int r = 0; r < 3; ++r) {
-      T acc = rot[3 * r] * off[0];
-      for (int c = 1; c < 3; ++c) acc += rot[3 * r + c] * off[c];
-      rr[r] = acc;
-      wv[r] = w.wb(link, r);
-      pos[r] = w.pb(link, r) + rr[r];
+  for (int k = 0; k < tb.ntask; ++k) {
+    const int slot = tb.task_slot(k), r0 = tb.task_r0(k), nr = tb.task_nr(k);
+    T pos[3], vel[3], rot[9], wv[3];
+    if (slot == TASK_TOT) {
+      // the whole-body COM: base position + cfb, velocity Jcom_total[0:3]·q̇,
+      // identity rotation, zero angular velocity
+      for (int r = 0; r < 3; ++r) {
+        T acc = w.Jcom(r, 0) * qd[0];
+        for (int j = 1; j < tb.ndof; ++j) acc += w.Jcom(r, j) * qd[j];
+        pos[r] = w.cfb[r] + q[r];
+        vel[r] = acc;
+        wv[r] = (T)0;
+      }
+      for (int r = 0; r < 9; ++r) rot[r] = r % 4 == 0 ? (T)1 : (T)0;
+    } else {
+      // the task link's point (origin or offset) and its velocity
+      const int link = (int)tb.pt_link[slot];
+      const T* off = tb.pt_off + 3 * slot;
+      T rr[3];
+      for (int r = 0; r < 9; ++r) rot[r] = w.Rb(link, r);
+      for (int r = 0; r < 3; ++r) {
+        T acc = rot[3 * r] * off[0];
+        for (int c = 1; c < 3; ++c) acc += rot[3 * r + c] * off[c];
+        rr[r] = acc;
+        wv[r] = w.wb(link, r);
+        pos[r] = w.pb(link, r) + rr[r];
+      }
+      vel[0] = w.vb(link, 0) + (wv[1] * rr[2] - wv[2] * rr[1]);
+      vel[1] = w.vb(link, 1) + (wv[2] * rr[0] - wv[0] * rr[2]);
+      vel[2] = w.vb(link, 2) + (wv[0] * rr[1] - wv[1] * rr[0]);
     }
-    vel[0] = w.vb(link, 0) + (wv[1] * rr[2] - wv[2] * rr[1]);
-    vel[1] = w.vb(link, 1) + (wv[2] * rr[0] - wv[0] * rr[2]);
-    vel[2] = w.vb(link, 2) + (wv[0] * rr[1] - wv[1] * rr[0]);
-    V<T> ts = pre.tstate[h];
+    const V<T> ts = pre.tstate(k);
     for (int r = 0; r < 3; ++r) {
       ts[r] = pos[r];
       ts[3 + r] = vel[r];
@@ -254,25 +286,21 @@ DWBC_HD void servo_lane(const Tab<T>& tb, const PreWS<T>& w, const Pre<T>& pre, 
     }
     for (int r = 0; r < 9; ++r) ts[6 + r] = rot[r];
 
-    const int t = tb.lev_t[h];
-    if (!((smask >> h) & 1)) {
-      for (int r = 0; r < t; ++r) pre.fstar[foff + r] = fs[foff + r];
+    if (!((smask >> k) & 1)) {
+      for (int r = 0; r < nr; ++r) pre.fstar[foff + r] = fs[foff + r];
     } else {
+      // the f6 rows r0 .. r0 + nr − 1, blended by use_pos (rows 0-2) and
+      // use_rot (rows 3-5)
       const ServoIn<T> sp(sa);
       T f6[6];
       servo_fstar(sp, pos, vel, rot, wv, f6);
       const T up = sp.use_pos[0], ur = sp.use_rot[0];
-      if ((int)tb.spec_mode[h] == SPEC_ROT) {
-        for (int r = 0; r < 3; ++r)
-          pre.fstar[foff + r] = ur * f6[3 + r] + ((T)1 - ur) * fs[foff + r];
-      } else {
-        for (int r = 0; r < 3; ++r) {
-          pre.fstar[foff + r] = up * f6[r] + ((T)1 - up) * fs[foff + r];
-          pre.fstar[foff + 3 + r] = ur * f6[3 + r] + ((T)1 - ur) * fs[foff + 3 + r];
-        }
+      for (int r = 0; r < nr; ++r) {
+        const T u = r0 + r < 3 ? up : ur;
+        pre.fstar[foff + r] = u * f6[r0 + r] + ((T)1 - u) * fs[foff + r];
       }
     }
-    foff += t;
+    foff += nr;
   }
 }
 
@@ -490,6 +518,73 @@ DWBC_HD void prestage_lane(const T* table, const T* qp, const T* cmp, const T* q
   }
   wp.sync();
 
+  // whole-body COM jacobian (a "tot" task): from A before A⁻¹ overwrites
+  // it.  Every lane forms the 3×3 quantities alike (skm = R0·A[3:6, 0:3]/M,
+  // the COM offset cfb, the centroidal inertia and its Cholesky factor);
+  // the lanes split the columns of the linear rows A[0:3]/M and of the
+  // angular rows, the inertia's solve against the momentum map's column
+  // cfb̂ᵀ·A[0:3] + R0·A[3:6]
+  if (tb.tot) {
+    const T Mt = tb.mtot;
+    T R0[9], skm[9], RA[9], Ic[9];
+    for (int r = 0; r < 9; ++r) R0[r] = w.Rb(0, r);
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) {
+        T acc = R0[3 * i] * w.A(3, j), ra = R0[3 * i] * w.A(3, 3 + j);
+        for (int k = 1; k < 3; ++k) {
+          acc += R0[3 * i + k] * w.A(3 + k, j);
+          ra += R0[3 * i + k] * w.A(3 + k, 3 + j);
+        }
+        skm[3 * i + j] = acc / Mt;
+        RA[3 * i + j] = ra;
+      }
+    const T c0 = skm[7], c1 = skm[2], c2 = skm[3];
+    const T ch[9] = {0, -c2, c1, c2, 0, -c0, -c1, c0, 0};
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) {
+        T acc = RA[3 * i] * R0[3 * j], cc = ch[3 * i] * ch[3 * j];
+        for (int k = 1; k < 3; ++k) {
+          acc += RA[3 * i + k] * R0[3 * j + k];
+          cc += ch[3 * i + k] * ch[3 * j + k];
+        }
+        Ic[3 * i + j] = acc - Mt * cc;
+      }
+    // lower Cholesky factor of Ic, pivots clamped at 1e-30 (elemlin.py's chol)
+    T L[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
+    {
+      T s00 = Ic[0], s10 = Ic[3], s20 = Ic[6];
+      const T i0 = rsqrt_(clamp_min(s00, (T)1e-30));
+      L[0] = s00 * i0; L[3] = s10 * i0; L[6] = s20 * i0;
+      const T s11 = Ic[4] - L[3] * L[3], s21 = Ic[7] - L[6] * L[3];
+      const T i1 = rsqrt_(clamp_min(s11, (T)1e-30));
+      L[4] = s11 * i1; L[7] = s21 * i1;
+      const T s22 = (Ic[8] - L[6] * L[6]) - L[7] * L[7];
+      L[8] = s22 * rsqrt_(clamp_min(s22, (T)1e-30));
+    }
+    for (int j = wp.lane; j < nd; j += wp.nl) {
+      T y[3];
+      for (int i = 0; i < 3; ++i) {
+        T acc = ch[i] * w.A(0, j);
+        for (int k = 1; k < 3; ++k) acc += ch[3 * k + i] * w.A(k, j);
+        T acc2 = R0[3 * i] * w.A(3, j);
+        for (int k = 1; k < 3; ++k) acc2 += R0[3 * i + k] * w.A(3 + k, j);
+        y[i] = acc + acc2;
+        w.Jcom(i, j) = w.A(i, j) / Mt;
+      }
+      y[0] = y[0] / L[0];                              // L y = b
+      y[1] = (y[1] - L[3] * y[0]) / L[4];
+      y[2] = (y[2] - (L[6] * y[0] + L[7] * y[1])) / L[8];
+      y[2] = y[2] / L[8];                              // Lᵀ x = y
+      y[1] = (y[1] - L[7] * y[2]) / L[4];
+      y[0] = (y[0] - (L[3] * y[1] + L[6] * y[2])) / L[0];
+      for (int i = 0; i < 3; ++i) w.Jcom(3 + i, j) = y[i];
+    }
+    if (wp.lane == 0) {
+      w.cfb[0] = c0; w.cfb[1] = c1; w.cfb[2] = c2;
+    }
+    wp.sync();
+  }
+
   DWBC_PRE_PHASE(3);
   psd_inverse(w.Ainv, w.A, w.A, w.X, w.idg, nd, wp);      // A⁻¹ in A's place
   DWBC_PRE_PHASE(4);
@@ -558,59 +653,62 @@ DWBC_HD void prestage_lane(const T* table, const T* qp, const T* cmp, const T* q
   // kernel basis V2 of the contact space and the factored W-apply.  In a
   // single-support lane the dead rows of J_C are exact zeros, so Q stays
   // exactly zero there, Ny picks exact unit vectors on them, and the raw
-  // basis is exactly zero: orthonormalize_drop drops it to zero columns
-  complete_basis_tail(w.Ny, w.JC, w.Qb, w.Rres, cd, 6, wp);
-  mTm(w.V2T, w.JC.sub(0, 6), w.Ny, cd, md, cf, wp);
-  if (tb.masked) {
-    orthonormalize_drop(w.V2T, md, cf, (T)1e-8, wp);
-    compact_columns(w.V2T, md, cf, (T)1e-10, wp);
-  } else {
-    qr_thin(w.V2T, w.V2T, md, cf, (T)0, wp);
-  }
-  {
+  // basis is exactly zero: orthonormalize_drop drops it to zero columns.
+  // One contact (cfree = 0): no kernel basis, Wfree factored alone, no NwJw
+  if (cf > 0) {
+    complete_basis_tail(w.Ny, w.JC, w.Qb, w.Rres, cd, 6, wp);
+    mTm(w.V2T, w.JC.sub(0, 6), w.Ny, cd, md, cf, wp);
+    if (tb.masked) {
+      orthonormalize_drop(w.V2T, md, cf, (T)1e-8, wp);
+      compact_columns(w.V2T, md, cf, (T)1e-10, wp);
+    } else {
+      qr_thin(w.V2T, w.V2T, md, cf, (T)0, wp);
+    }
     int i = 0, j = 0;
     for (walk_lower(i, j, wp.lane); i < md; walk_lower(i, j, wp.nl)) {
       T acc = w.V2T(i, 0) * w.V2T(j, 0);
       for (int k = 1; k < cf; ++k) acc += w.V2T(i, k) * w.V2T(j, k);
       w.Wf(i, j) = w.Wf(i, j) + acc;
     }
+    wp.sync();
   }
-  wp.sync();
   chol_factor(w.Wf, w.idgW, md, wp);
-  if (!tb.masked) {
-    mm(w.M6, w.Jbar.sub(0, 6), w.V2T, cf, md, cf, wp);
-  } else {
-    // the inner system against the first (c_act − 6) ACTIVE rows of J̄ᵀ: an
-    // integer prefix count gives row i_t of the t-th active row (the same
-    // selection as the plain version's |idx − t| < 0.5); rows and columns
-    // t ≥ c_act − 6 are dead and padded with identity.  Every lane counts;
-    // the lanes split a picked row's columns
-    const T lim = pre.acdof[0] - (T)6;
-    for (int t = wp.lane; t < cf; t += wp.nl) w.live[t] = (T)t < lim ? (T)1 : (T)0;
-    for (int e = wp.lane; e < cf * cf; e += wp.nl) w.M6(e / cf, e % cf) = (T)0;
-    mm(w.JbV, w.Jbar.sub(0, 6), w.V2T, cd, md, cf, wp);
-    int cnt = 0;
-    for (int i = 0; i < cd; ++i) {
-      if (!(w.rm[i] > (T)0.5)) continue;
-      const int t = cnt++;
-      if (t < cf && w.live[t] != (T)0)
-        for (int c = wp.lane; c < cf; c += wp.nl) w.M6(t, c) = w.JbV(i, c) * w.rm[i];
+  if (cf > 0) {
+    if (!tb.masked) {
+      mm(w.M6, w.Jbar.sub(0, 6), w.V2T, cf, md, cf, wp);
+    } else {
+      // the inner system against the first (c_act − 6) ACTIVE rows of J̄ᵀ: an
+      // integer prefix count gives row i_t of the t-th active row (the same
+      // selection as the plain version's |idx − t| < 0.5); rows and columns
+      // t ≥ c_act − 6 are dead and padded with identity.  Every lane counts;
+      // the lanes split a picked row's columns
+      const T lim = pre.acdof[0] - (T)6;
+      for (int t = wp.lane; t < cf; t += wp.nl) w.live[t] = (T)t < lim ? (T)1 : (T)0;
+      for (int e = wp.lane; e < cf * cf; e += wp.nl) w.M6(e / cf, e % cf) = (T)0;
+      mm(w.JbV, w.Jbar.sub(0, 6), w.V2T, cd, md, cf, wp);
+      int cnt = 0;
+      for (int i = 0; i < cd; ++i) {
+        if (!(w.rm[i] > (T)0.5)) continue;
+        const int t = cnt++;
+        if (t < cf && w.live[t] != (T)0)
+          for (int c = wp.lane; c < cf; c += wp.nl) w.M6(t, c) = w.JbV(i, c) * w.rm[i];
+      }
+      wp.sync();
+      for (int e = wp.lane; e < cf * cf; e += wp.nl) {
+        const int t = e / cf, c = e - t * cf;
+        w.M6(t, c) = w.M6(t, c) * w.live[t] * w.live[c] + (t == c ? (T)1 - w.live[t] : (T)0);
+      }
+      wp.sync();
     }
-    wp.sync();
-    for (int e = wp.lane; e < cf * cf; e += wp.nl) {
-      const int t = e / cf, c = e - t * cf;
-      w.M6(t, c) = w.M6(t, c) * w.live[t] * w.live[c] + (t == c ? (T)1 - w.live[t] : (T)0);
+    qr_pinv(w.Pinv, w.M6, w.Qp, w.Rp, cf, (T)1e-6, wp);
+    mm(pre.NwJw, w.V2T, w.Pinv, md, cf, cf, wp);
+    if (tb.masked) {
+      for (int e = wp.lane; e < md * cf; e += wp.nl) {
+        const int i = e / cf, c = e - i * cf;
+        pre.NwJw(i, c) = pre.NwJw(i, c) * w.live[c];
+      }
+      wp.sync();
     }
-    wp.sync();
-  }
-  qr_pinv(w.Pinv, w.M6, w.Qp, w.Rp, cf, (T)1e-6, wp);
-  mm(pre.NwJw, w.V2T, w.Pinv, md, cf, cf, wp);
-  if (tb.masked) {
-    for (int e = wp.lane; e < md * cf; e += wp.nl) {
-      const int i = e / cf, c = e - i * cf;
-      pre.NwJw(i, c) = pre.NwJw(i, c) * w.live[c];
-    }
-    wp.sync();
   }
 
   DWBC_PRE_PHASE(6);
@@ -626,15 +724,20 @@ DWBC_HD void prestage_lane(const T* table, const T* qp, const T* cmp, const T* q
   for (int i = wp.lane; i < md; i += wp.nl) pre.tg[i] = w.v1(i, 0);
   DWBC_PRE_PHASE(7);
 
-  // ---------------- per-level JKT + Ntorque
-  for (int h = 0; h < tb.nlev; ++h) {
-    const int t = tb.lev_t[h];                 // 6 (6D task) or 3 (rotation)
-    const int slot = (int)tb.spec_slot[h];
-    const int r0 = (int)tb.spec_mode[h] == SPEC_ROT ? 3 : 0;
-    const M<T> Nt = pre.Nt[h];
-    for (int e = wp.lane; e < t * nd; e += wp.nl) {
-      const int r = e / nd, j = e - r * nd;
-      w.Jt(r, j) = w.J(6 * slot + r0 + r, j);
+  // ---------------- per-level JKT + Ntorque: level h's task rows gathered
+  // from its task list (t = Σ of its tasks' rows), its Nt block in the
+  // prestage buffer at its first task dof toff
+  for (int h = 0, k = 0, toff = 0; h < tb.nlev; ++h) {
+    const int t = tb.lev_t(h);
+    const M<T> Nt = pre.Nt(md, toff, t);
+    for (int row = 0; k < tb.ntask && tb.task_lev(k) == h; ++k) {
+      const int slot = tb.task_slot(k), r0 = tb.task_r0(k), nr = tb.task_nr(k);
+      const M<T> src = slot == TASK_TOT ? w.Jcom : w.J.sub(6 * slot, 0);
+      for (int e = wp.lane; e < nr * nd; e += wp.nl) {
+        const int r = e / nd, j = e - r * nd;
+        w.Jt(row + r, j) = src(r0 + r, j);
+      }
+      row += nr;
     }
     wp.sync();
     mm(w.JtA, w.Jt, w.Ainv, t, nd, nd, wp);
@@ -663,16 +766,29 @@ DWBC_HD void prestage_lane(const T* table, const T* qp, const T* cmp, const T* q
     mm(w.JktLam, w.Jkt, w.Lam, md, t, t, wp);
     if (h == 0) copy_mat(Nt, w.JktLam, md, t, wp);
     else mm(Nt, w.Pn, w.JktLam, md, md, t, wp);
-    static_assert(NLEV_MAX == 2, "a third level needs Pn·(I − Jkt·Q) here");
-    if (h + 1 < tb.nlev) {      // level 0's null space I − Jkt·Q, for level 1
-      for (int e = wp.lane; e < md * md; e += wp.nl) {
-        const int i = e / md, j = e - i * md;
-        T acc = w.Jkt(i, 0) * w.Q(0, j);
-        for (int k = 1; k < t; ++k) acc += w.Jkt(i, k) * w.Q(k, j);
-        w.Pn(i, j) = (i == j ? (T)1 : (T)0) - acc;
+    if (h + 1 < tb.nlev) {
+      if (h == 0) {             // level 0's null space I − Jkt·Q
+        for (int e = wp.lane; e < md * md; e += wp.nl) {
+          const int i = e / md, j = e - i * md;
+          T acc = w.Jkt(i, 0) * w.Q(0, j);
+          for (int c = 1; c < t; ++c) acc += w.Jkt(i, c) * w.Q(c, j);
+          w.Pn(i, j) = (i == j ? (T)1 : (T)0) - acc;
+        }
+      } else {
+        // Pn ← Pn·(I − Jkt·Q) = Pn − (Pn·Jkt)·Q: Pn·Jkt (mdof × t) in
+        // JktLam's place, which Nt has been read from; each entry of Pn
+        // then reads only its own old value
+        mm(w.JktLam, w.Pn, w.Jkt, md, md, t, wp);
+        for (int e = wp.lane; e < md * md; e += wp.nl) {
+          const int i = e / md, j = e - i * md;
+          T acc = w.JktLam(i, 0) * w.Q(0, j);
+          for (int c = 1; c < t; ++c) acc += w.JktLam(i, c) * w.Q(c, j);
+          w.Pn(i, j) = w.Pn(i, j) - acc;
+        }
       }
       wp.sync();
     }
+    toff += t;
   }
 
   DWBC_PRE_PHASE(8);
@@ -707,8 +823,8 @@ DWBC_HD void prestage_lane(const T* table, const T* qp, const T* cmp, const T* q
     for (int o = wp.lane; o < tb.nc * CROWS; o += wp.nl)
       pre.crow[o] = cmp[(long long)(o / CROWS) * B];
   if (smask != 0 && wp.lane == 0)
-    servo_lane(tb, w, pre, V<T>{const_cast<T*>(qdp), B}, V<T>{const_cast<T*>(fsp), B}, svp,
-               smask, B);
+    servo_lane(tb, w, pre, q, V<T>{const_cast<T*>(qdp), B}, V<T>{const_cast<T*>(fsp), B},
+               svp, smask, B);
   wp.sync();
 }
 
@@ -757,7 +873,7 @@ extern "C" long long dwbc_prestage_smem_cap() { return dwbc::kPreSmemElems; }
 
 #ifdef __CUDACC__
 // Two blocks per SM, as the shared part allows; the bound also lets ptxas
-// use 179 registers without spills, where without it it chose 128 and
+// use 220 registers without spills, where without it it chose 128 and
 // spilled.
 __global__ void __launch_bounds__(32 * dwbc::kPreWarps, 2)
     tick_prestage_kernel(const float* table, const float* q, const float* cmask,

@@ -6,7 +6,8 @@
 // TickProgram._ipm in static, masked and servo'd mode: per task level a
 // one-sided Mehrotra predictor-corrector IPM for min ½xᵀdiag(H)x s.t. Cx ≤ d
 // (H = 1 on the task block, 0 on the contact block; float32 ridge 1e-6),
-// then the contact redistribution QP.  The IPM itself is csrc/ipm.cuh,
+// then the contact redistribution QP (none with one contact: cfree = 0,
+// τ_contact stays zero).  The IPM itself is csrc/ipm.cuh,
 // shared with the standalone solver csrc/qp_solve.cu.  Masked mode: the
 // cone/ZMP rows of an inactive candidate become 0·x ≤ 1, and a lane with at
 // most 6 active contact dof keeps the redistribution QP out of its gap and
@@ -70,7 +71,7 @@ struct QPIn {
   DWBC_HD QPIn(Arena<T>& a, const Tab<T>& tb) {
     tg = a.vec(tb.mdof);
     NwJw = a.mat(tb.mdof, tb.cfree);
-    Nt = a.vec(tb.mdof * tb.tsum());              // level h: mdof × lev_t[h], in turn
+    Nt = a.vec(tb.mdof * tb.tsum());              // level h: mdof × lev_t(h), in turn
     Atemp = a.mat(tb.krows, tb.mdof);
     bA0 = a.vec(tb.krows);
     crow = tb.masked ? a.vec(tb.krows) : V<T>{nullptr, 0};
@@ -203,9 +204,9 @@ DWBC_HD void build_rows(const Tab<T>& tb, const QPWS<T>& w, const QPIn<T>& in, i
 
 // The chain of one scenario on its shared working set sh; pg is the
 // scenario's view of the prestage buffer in device memory (J̄ᵀ, P_C, the
-// health), read once.  QP h < nlev is task level h (n = lev_t[h] + cfree,
+// health), read once.  QP h < nlev is task level h (n = lev_t(h) + cfree,
 // H = 1 on the task block), QP nlev the contact redistribution (n = cfree,
-// H = 1): one loop, so the IPM is compiled once.
+// H = 1; only where cfree > 0): one loop, so the IPM is compiled once.
 template <typename T>
 DWBC_HD void qpchain_warp(const Tab<T>& tb, const QPShared<T>& sh, const Pre<T>& pg, int iters,
                           bool warm, Lanes wp) {
@@ -220,9 +221,9 @@ DWBC_HD void qpchain_warp(const Tab<T>& tb, const QPShared<T>& sh, const Pre<T>&
   }
   T gap = 0, pres = 0;
   int foff = 0, woff = 0;
-  for (int h = 0; h <= tb.nlev; ++h) {
+  for (int h = 0; h < tb.nqp(); ++h) {
     const bool redis = h == tb.nlev;
-    const int t = redis ? 0 : tb.lev_t[h], nv = t + cf;
+    const int t = redis ? 0 : tb.lev_t(h), nv = t + cf;
     const M<T> Nt{in.Nt.p + (long long)md * foff, 1, t};
     const V<T> f = in.fstar.at(foff);
     for (int i = wp.lane; i < md; i += wp.nl) {
@@ -246,9 +247,11 @@ DWBC_HD void qpchain_warp(const Tab<T>& tb, const QPShared<T>& sh, const Pre<T>&
         for (int c = 1; c < t; ++c) acc += Nt(i, c) * (f[c] + x[c]);
         w.tau_task[i] = w.tau_task[i] + acc;
       }
-      T tc = in.NwJw(i, 0) * x[t];
-      for (int c = 1; c < cf; ++c) tc += in.NwJw(i, c) * x[t + c];
-      w.tau_contact[i] = redis ? w.tau_contact[i] + tc : tc;
+      if (cf > 0) {
+        T tc = in.NwJw(i, 0) * x[t];
+        for (int c = 1; c < cf; ++c) tc += in.NwJw(i, c) * x[t + c];
+        w.tau_contact[i] = redis ? w.tau_contact[i] + tc : tc;
+      }
     }
     if (redis && tb.masked) {  // no redistribution problem unless active_cdof > 6
       const T live = in.acdof[0] > (T)6.5 ? (T)1 : (T)0;
@@ -297,7 +300,12 @@ extern "C" long long dwbc_warm_elems(const float* table_host) {
 }
 
 #ifdef __CUDACC__
-__global__ void __launch_bounds__(32 * dwbc::kQPWarps)
+// Four blocks per SM: ptxas then keeps the kernel within 128 registers
+// without spills.  Left free it took 168 and three blocks, 2-5% faster on
+// the flagship at B = 1024 and B = 1 but 27% slower on the masked sweep at
+// B = 4096 (bit for bit the same results either way; NVIDIA H100 80GB
+// HBM3, 700 W).
+__global__ void __launch_bounds__(32 * dwbc::kQPWarps, 4)
     tick_qpchain_kernel(const float* table, const float* pre, const float* fs,
                         const float* warm_in, float* out, float* warm_out, int B, int iters,
                         int S) {

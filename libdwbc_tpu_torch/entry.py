@@ -11,10 +11,18 @@ scenario (``_masked_inputs``: the 4096-scenario sweep of
 by the on-device trajectory-PD servo (``_servo_inputs``: moving states
 with per-lane targets and clocks; ``_tracking_inputs``: a standing robot
 whose pelvis steps 1 cm, for the closed loop).
+
+BASELINE's config 3 is single support with a swing-foot third level:
+``standard_tocabi_config(model, both_feet=False, swing_task=True)``, the left
+foot (link 6) down, a 6D pelvis task, a rotation task on link 15 and a 6D
+task on the right foot (link 12).  Its inputs: ``_swing_inputs`` (the
+standing state with joint noise) and ``_swing_servo_inputs`` (every level
+servo'd: pelvis and torso held, the swing foot lifted).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -23,6 +31,7 @@ import torch
 from .kin.engine import Kinematics
 from .kin.rotations import axis_angle_matrix
 from .model.compile import RobotModel
+from .wbc import types as T
 from .wbc.fused import FusedTick
 from .wbc.pipeline import CompiledTick, make_servo, standard_tocabi_config
 
@@ -94,6 +103,63 @@ def _link_frames(model, q):
     (B, 3, 3)) of the states q (B, nq), in float64."""
     fk = Kinematics(model).fk(torch.as_tensor(np.asarray(q, np.float64)))
     return fk.p[:, 0], fk.R[:, 0], fk.R[:, 15]
+
+
+def _mixed_tasks_config(model, cfg):
+    """cfg with a task set of the general plans beside the flagship's: a
+    whole-body COM 6D level (``link == nbody``), a custom-frame position
+    task on link 15 and a rotation task on link 31 in one level, and a
+    COM-frame position task on link 27 (the mixed variant's tasks in the
+    port's tests)."""
+    tasks = (((T.TASK_LINK_6D, model.nbody),),
+             ((T.TASK_LINK_POSITION_CUSTOM_FRAME, 15, np.array([0.1, 0.0, 0.2])),
+              (T.TASK_LINK_ROTATION, 31)),
+             ((T.TASK_LINK_POSITION_COM_FRAME, 27),))
+    return dataclasses.replace(cfg, task_specs=tasks)
+
+
+def _swing_inputs(model, B=1024, seed=0, dtype=np.float32):
+    """Config 3's serving inputs (numpy, ``dtype``): the standing q (the
+    joints of the repo's test case 1) with 0.02·N(0,1) on the joints, zero
+    q̇, and f* per level — the flagship's pelvis and torso f* and a zero
+    swing-foot f* — each + 0.05·N(0,1) per lane."""
+    rng = np.random.default_rng(seed)
+    q0, qd0, f0 = _example_inputs(model, np.float64)
+    q = np.tile(q0, (B, 1))
+    q[:, 6:6 + model.model_dof] += 0.02 * rng.standard_normal((B, model.model_dof))
+    fs = tuple(np.tile(f, (B, 1)) + 0.05 * rng.standard_normal((B, f.shape[0]))
+               for f in f0 + (np.zeros(6),))
+    return (q.astype(dtype), np.tile(qd0, (B, 1)).astype(dtype),
+            tuple(f.astype(dtype) for f in fs))
+
+
+def _swing_servo_inputs(model, B=1024, seed=0, noise=1e-3, lift=0.015, tf=0.15,
+                        dtype=np.float32):
+    """Config 3's servo'd closed loop (numpy q, q̇, f*; servos): B robots at
+    rest in the standing q with noise·N(0,1) on the joints; every level
+    servo'd from each lane's own frames at t = 0 — the pelvis held (gains
+    400 / 40, tf 0.01), link 15's rotation held (100 / 20, tf 0.01), and
+    the right foot (link 12) lifted by ``lift`` m over [0, tf] with its
+    rotation held (400 / 40).  Returns also the swing foot's start (B, 3)
+    and the pelvis's (B, 3)."""
+    rng = np.random.default_rng(seed)
+    q0, qd0, _ = _example_inputs(model, np.float64)
+    q = np.tile(q0, (B, 1))
+    q[:, 6:6 + model.model_dof] += noise * rng.standard_normal((B, model.model_dof))
+    fk = Kinematics(model).fk(torch.as_tensor(q))
+    p0, R0, R15, pf, Rf = fk.p[:, 0], fk.R[:, 0], fk.R[:, 15], fk.p[:, 12], fk.R[:, 12]
+    tdt = torch.from_numpy(np.zeros((), dtype)).dtype
+    pelvis = make_servo(pos_init=p0, pos_des=p0, rot_init=R0, rot_des=R0, t0=0.0, tf=0.01,
+                        pos_p=400.0, pos_d=40.0, rot_p=400.0, rot_d=40.0, dtype=tdt)
+    torso = make_servo(rot_init=R15, rot_des=R15, t0=0.0, tf=0.01, rot_p=100.0, rot_d=20.0,
+                       dtype=tdt)
+    swing = make_servo(pos_init=pf, pos_des=pf + torch.tensor([0.0, 0.0, lift],
+                                                              dtype=torch.float64),
+                       rot_init=Rf, rot_des=Rf, t0=0.0, tf=tf, pos_p=400.0, pos_d=40.0,
+                       rot_p=400.0, rot_d=40.0, dtype=tdt)
+    fs = tuple(np.zeros((B, t), dtype) for t in (6, 3, 6))
+    return (q.astype(dtype), np.tile(qd0, (B, 1)).astype(dtype), fs,
+            ((pelvis,), (torso,), (swing,)), pf.numpy(), p0.numpy())
 
 
 def _servo_inputs(model, B=1024, seed=0, dtype=np.float32):

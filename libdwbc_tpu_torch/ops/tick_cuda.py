@@ -36,10 +36,14 @@ from .tick_kernel import _POS, _SIX, SERVO_ELEM_SHAPES
 # ---- packed kernel table: header slots and caps (csrc/tick_common.cuh)
 HDR = 32
 H_NBODY, H_NDOF, H_MDOF, H_NPTS, H_NC, H_CDOF, H_CFREE, H_KROWS, H_NLEV, H_NQ = range(10)
-H_LEV_T = 10            # NLEV_MAX slots: task dofs per level
-NLEV_MAX = 2
-H_MASKED = 12           # 1: the padded candidate layout with a contact mask
-SPEC_6D, SPEC_ROT = 0, 1
+H_MASKED = 10           # 1: the padded candidate layout with a contact mask
+H_NTASK = 11            # tasks in all levels
+H_TOT = 12              # 1: a task on the whole-body COM
+H_MASS = 13             # the model's total mass
+H_LEV_T = 16            # NLEV_MAX slots: task dofs per level
+NLEV_MAX = 4
+NTASK_MAX = 16          # the servo's task mask is an int
+TASK_TOT = -1           # a task's point slot for the whole-body COM
 
 # Max abs error of the kernels against their plain versions on the serving
 # inputs of chip_smoke.py (batch 1024, seed 0), about ten times what an H100
@@ -78,29 +82,125 @@ SERVO_TOL = {"fstars": 6e-4, "task_pos": 3e-8, "task_vel": 8e-8, "task_rot": 1.1
 # SERVO_LANES_OVER of the lanes exceed it.
 SERVO_OWN, SERVO_LANES_OVER = 4.0, 0.1
 
+# The general-plan kernels against their plain versions on chip_smoke.py
+# phase 17's inputs (batch 1024, seed 0): BASELINE's config 3 on
+# entry._swing_inputs; the mixed task set (entry._mixed_tasks_config) on the two
+# 6D feet, static on phase 3's states and masked on the masked sweep's first
+# 1024 lanes, per hypothesis (both feet, left, right), f* 0.05·N(0,1).  Each
+# limit is four times the plain float32 tick's own error against float64 on
+# the same inputs, rounded up (zero where that is exactly zero: τ_contact
+# with one contact, NwJw of a single-support lane).  "pre": tick_prestage
+# vs the plain float64 prestage; "qp": tick_qpchain vs the plain float32
+# qpchain on the float64 prestage cast to float32, cold at 12 iterations
+# and warm at 7 (in masked single support these QPs, without the float32
+# ridge of the task-space inverses, leave plain float32 itself 311-626 Nm
+# from float64, so that limit bounds nothing there); "qp32": the same on
+# the plain float32 prestage; "chain": the two kernels chained vs the
+# plain float64 tick.
+GENERAL_TOL = {
+    "config 3": dict(
+        pre={"torque_grav": (0.036,), "P_C": (0.0049,), "Jbar_act": (0.00023,),
+             "Ntorques": (0.079,), "Atemp": (9.1e-05,), "bA0": (0.0026,), "health": (1.2e-06,)},
+        qp={"cold.torque_task": (0.022,), "cold.torque_contact": (0.0,),
+            "cold.torque_cmd": (0.022,), "cold.contact_force": (0.032,),
+            "warm.torque_task": (0.00016,), "warm.torque_contact": (0.0,),
+            "warm.torque_cmd": (0.00016,), "warm.contact_force": (0.00071,)},
+        qp32={"cold.torque_task": (0.022,), "cold.torque_contact": (0.0,),
+              "cold.torque_cmd": (0.022,), "cold.contact_force": (0.032,),
+              "warm.torque_task": (0.00016,), "warm.torque_contact": (0.0,),
+              "warm.torque_cmd": (0.00016,), "warm.contact_force": (0.00076,)},
+        chain={"torque_task": (0.043,), "torque_cmd": (0.028,), "contact_force": (0.041,)},
+    ),
+    "mixed": dict(
+        pre={"torque_grav": (0.005,), "P_C": (0.0021,), "Jbar_act": (0.0002,),
+             "NwJw": (1.5e-05,), "Ntorques": (0.092,), "Atemp": (9.1e-05,), "bA0": (0.0019,),
+             "health": (1.2e-06,)},
+        qp={"cold.torque_task": (3.7e-06,), "cold.torque_contact": (6.1e-09,),
+            "cold.torque_cmd": (8.9e-06,), "cold.contact_force": (0.00028,),
+            "warm.torque_task": (3.7e-06,), "warm.torque_contact": (7.9e-09,),
+            "warm.torque_cmd": (8.9e-06,), "warm.contact_force": (0.00028,)},
+        qp32={"cold.torque_task": (4.3e-06,), "cold.torque_contact": (5.2e-09,),
+              "cold.torque_cmd": (8.6e-06,), "cold.contact_force": (0.00031,),
+              "warm.torque_task": (4.3e-06,), "warm.torque_contact": (8.5e-09,),
+              "warm.torque_cmd": (8.6e-06,), "warm.contact_force": (0.00031,)},
+        chain={"torque_task": (0.021,), "torque_cmd": (0.021,), "contact_force": (0.065,)},
+    ),
+    "mixed masked": dict(
+        pre={"torque_grav": (0.0045, 0.034, 0.039), "P_C": (0.0016, 0.0053, 0.0047),
+             "Jbar_act": (0.00019, 0.00021, 0.00023), "NwJw": (1.3e-05, 0.0, 0.0),
+             "Ntorques": (0.096, 0.058, 0.059), "Atemp": (9.3e-05, 8.2e-05, 0.00011),
+             "bA0": (0.0016, 0.0026, 0.0025), "health": (1.2e-06, 1.3e-06, 1.1e-06)},
+        qp={"cold.torque_task": (2.6e-06, 1300.0, 1300.0),
+            "cold.torque_contact": (5.2e-09, 0.0, 0.0),
+            "cold.torque_cmd": (8.6e-06, 1300.0, 1300.0),
+            "cold.contact_force": (0.00028, 0.00086, 0.11),
+            "warm.torque_task": (2.6e-06, 2600.0, 2500.0),
+            "warm.torque_contact": (7.1e-09, 0.0, 0.0),
+            "warm.torque_cmd": (8.6e-06, 2600.0, 2500.0),
+            "warm.contact_force": (0.00028, 0.0011, 0.0011)},
+        qp32={"cold.torque_task": (3e-06, 0.022, 0.091),
+              "cold.torque_contact": (4.6e-09, 0.0, 0.0),
+              "cold.torque_cmd": (9.1e-06, 0.022, 0.091),
+              "cold.contact_force": (0.00033, 0.0008, 0.11),
+              "warm.torque_task": (3e-06, 3.5, 3.8), "warm.torque_contact": (7.7e-09, 0.0, 0.0),
+              "warm.torque_cmd": (9.1e-06, 3.5, 3.8),
+              "warm.contact_force": (0.00033, 0.021, 0.025)},
+        chain={"torque_task": (0.017, 0.9, 1.1), "torque_cmd": (0.017, 0.9, 1.1),
+               "contact_force": (0.058, 0.024, 0.12)},
+    ),
+}
+
 # the ServoParams fields in the order of the servo buffer (csrc/servo.cuh::ServoIn)
 SERVO_FIELDS = tuple(sorted(SERVO_ELEM_SHAPES))
 SERVO_ELEMS = sum(math.prod(SERVO_ELEM_SHAPES[f]) for f in SERVO_FIELDS)
 TASK_STATE = (("task_pos", (3,)), ("task_vel", (3,)), ("task_rot", (3, 3)), ("task_w", (3,)))
 
 
+def tasks(plan):
+    """(level, spec index, point slot or TASK_TOT, first jacobian row, rows)
+    of every task, levels in order: the kernel's task list."""
+    out = []
+    for h, lv in enumerate(plan.task_slots):
+        for j, (kind, slot, mode) in enumerate(lv):
+            r0, nr = (0, 6) if mode in _SIX else (0, 3) if mode in _POS else (3, 3)
+            out.append((h, j, TASK_TOT if kind == "tot" else slot, r0, nr))
+    return out
+
+
+def prestage_x_fit(plan):
+    """(floats, room) of the prestage's X buffer (csrc/tick_prestage.cu::
+    PreWS): after A⁻¹ is formed it holds the small inverses' L and X and
+    J_C, then J_C·A⁻¹ (contact space) or a level's Jt, JtA and JAN (the JKT
+    loop), in ndof² floats."""
+    nd, cd = plan.ndof, plan.cdof
+    tmax = max(plan.level_tdofs, default=0)
+    return 2 * cd * cd + cd * nd + max(cd * nd, 3 * tmax * nd), nd * nd
+
+
 def kernel_unsupported(plan) -> str | None:
     """Why the CUDA kernels cannot run this plan, or None if they can: they
-    take the flagship's shape (two 6D contacts, static or as the masked
-    candidate set, a torque limit, at most NLEV_MAX levels of one 6D or
-    rotation link task each).  The library also refuses a model whose
-    prestage would not fit its shared part (``TickKernels``)."""
+    take one or two 6D contacts (masked mode: 6D candidates), a torque
+    limit, at most NLEV_MAX levels of 6D, position or rotation tasks on a
+    point or on the whole-body COM, NTASK_MAX tasks in all, and a largest
+    level whose rows fit the prestage's shared X buffer.  The library also
+    refuses a model whose prestage would not fit its shared part
+    (``TickKernels``)."""
     cfg = plan.cfg
-    if len(cfg.contacts) != 2 or any(c.contact_type != T.CONTACT_6D
-                                     for c in cfg.contacts):
-        return "the CUDA tick takes two 6D contacts (masked mode: two 6D candidates)"
+    if any(c.contact_type != T.CONTACT_6D for c in cfg.contacts):
+        return ("the CUDA tick takes 6D contacts only (masked mode: 6D candidates; POINT and "
+                "LINE contacts are not ported)")
+    if len(cfg.contacts) not in (1, 2):
+        return f"the CUDA tick takes one or two contacts, the plan has {len(cfg.contacts)}"
     if plan.tlim is None:
         return "the CUDA tick needs a torque limit"
     if len(plan.task_slots) > NLEV_MAX:
         return f"the CUDA tick takes at most {NLEV_MAX} task levels"
-    if any(len(lv) != 1 or kind != "pt" or mode in _POS
-           for lv in plan.task_slots for kind, _, mode in lv):
-        return "the CUDA tick takes one 6D or rotation link task per level"
+    if len(tasks(plan)) > NTASK_MAX:
+        return f"the CUDA tick takes at most {NTASK_MAX} tasks"
+    need, room = prestage_x_fit(plan)
+    if need > room:
+        return (f"the CUDA tick's largest level ({max(plan.level_tdofs)} task rows) does not "
+                f"fit tick_prestage's shared X buffer: {need} floats for {room}")
     return None
 
 
@@ -112,18 +212,17 @@ def kernel_table(plan) -> np.ndarray:
     if why is not None:
         raise NotImplementedError(why)
     m = plan.model
+    task_list = tasks(plan)
     hdr = np.zeros(HDR)
     hdr[[H_NBODY, H_NDOF, H_MDOF, H_NPTS, H_NC, H_CDOF, H_CFREE, H_KROWS,
          H_NLEV, H_NQ]] = [plan.nbody, plan.ndof, plan.mdof, len(plan.points),
                            len(plan.cfg.contacts), plan.cdof, plan.cfree,
                            plan.k_rows, len(plan.task_slots), plan.nq]
     hdr[H_MASKED] = float(plan.masked)
-    spec_slot = np.zeros(NLEV_MAX)
-    spec_mode = np.zeros(NLEV_MAX)
-    for h, [(_, slot, mode)] in enumerate(plan.task_slots):
-        hdr[H_LEV_T + h] = plan.level_tdofs[h]
-        spec_slot[h] = slot
-        spec_mode[h] = SPEC_6D if mode in _SIX else SPEC_ROT
+    hdr[H_NTASK] = len(task_list)
+    hdr[H_TOT] = float(plan.uses_tot)
+    hdr[H_MASS] = float(m.total_mass)
+    hdr[H_LEV_T:H_LEV_T + len(plan.level_tdofs)] = plan.level_tdofs
     sections = [
         hdr,
         plan.parent, plan.q_index, plan.owner,
@@ -132,7 +231,7 @@ def kernel_table(plan) -> np.ndarray:
         [link for link, _ in plan.points], [pt for _, pt in plan.points],
         plan.contact_slots, [c.link for c in plan.cfg.contacts],
         plan.const_blocks,
-        spec_slot, spec_mode,
+        [(h, slot, r0, nr) for h, _, slot, r0, nr in task_list],
         plan.tlim,
     ]
     return np.concatenate([np.asarray(s, np.float64).ravel() for s in sections])
@@ -141,7 +240,8 @@ def kernel_table(plan) -> np.ndarray:
 def pre_layout(plan, servo=False):
     """(name, elem shape) of the prestage buffer, in kernel order
     (csrc/tick_common.cuh::Pre); servo: with the servo section (the f* of
-    every level, then every level's task-link state)."""
+    every level, then every task's point state, "task_pos.h.j" for spec j
+    of level h)."""
     lay = [("torque_grav", (plan.mdof,)), ("P_C", (plan.cdof,)),
            ("Jbar_act", (plan.cdof, plan.mdof)), ("NwJw", (plan.mdof, plan.cfree))]
     lay += [(f"Ntorques.{h}", (plan.mdof, t)) for h, t in enumerate(plan.level_tdofs)]
@@ -150,7 +250,7 @@ def pre_layout(plan, servo=False):
         lay += [("crow_mask", (plan.k_rows,)), ("active_cdof", ())]
     if servo:
         lay += [(f"fstars.{h}", (t,)) for h, t in enumerate(plan.level_tdofs)]
-        lay += [(f"{name}.{h}", shape) for h in range(len(plan.level_tdofs))
+        lay += [(f"{name}.{h}.{j}", shape) for h, j, *_ in tasks(plan)
                 for name, shape in TASK_STATE]
     return lay
 
@@ -196,39 +296,38 @@ class PackedPre(NamedTuple):
 
 
 def servo_mask(servos, plan):
-    """The kernel's level mask of a servo request (bit h: level h servo'd),
-    or raise where the kernel cannot take it."""
+    """The kernel's task mask of a servo request (bit k: task k of
+    ``tasks(plan)`` servo'd), or raise where the kernel cannot take it."""
     if servos is None:
         return 0
     if len(servos) > len(plan.task_slots):
         raise ValueError(f"servos for {len(servos)} levels, the tick has "
                          f"{len(plan.task_slots)}")
-    mask = 0
     for h, lvl in enumerate(servos):
-        if lvl is None:
-            continue
-        if len(lvl) != len(plan.task_slots[h]):
+        if lvl is not None and len(lvl) != len(plan.task_slots[h]):
             raise ValueError(f"level {h}: {len(lvl)} servo entries for "
                              f"{len(plan.task_slots[h])} task specs")
-        if lvl[0] is not None:
-            mask |= 1 << h
+    mask = 0
+    for k, (h, j, *_) in enumerate(tasks(plan)):
+        if h < len(servos) and servos[h] is not None and servos[h][j] is not None:
+            mask |= 1 << k
     return mask
 
 
 def pack_servos(servos, plan, B):
-    """The servo buffer (SERVO_ELEMS per servo'd level, B): each servo'd
-    level's fields (element-leading dicts, (elem...)+(B,)) in SERVO_FIELDS
-    order, levels in order.  Values pass as they are: a +inf clamp stays
+    """The servo buffer (SERVO_ELEMS per servo'd task, B): each servo'd
+    task's fields (element-leading dicts, (elem...)+(B,)) in SERVO_FIELDS
+    order, tasks in order.  Values pass as they are: a +inf clamp stays
     +inf."""
     parts, mask = [], servo_mask(servos, plan)
-    for h in range(len(plan.task_slots)):
-        if (mask >> h) & 1:
-            d = servos[h][0]
+    for k, (h, j, *_) in enumerate(tasks(plan)):
+        if (mask >> k) & 1:
+            d = servos[h][j]
             for f in SERVO_FIELDS:
                 t = d[f]
                 want = SERVO_ELEM_SHAPES[f] + (B,)
                 if tuple(t.shape) != want:
-                    raise ValueError(f"servo level {h} {f}: shape {tuple(t.shape)}, "
+                    raise ValueError(f"servo level {h} spec {j} {f}: shape {tuple(t.shape)}, "
                                      f"expected {want}")
                 parts.append(t.reshape(-1, B))
     return torch.cat(parts, 0).contiguous()
@@ -306,9 +405,9 @@ class TickKernels(nn.Module):
     def prestage_packed(self, q, cmask=None, qdot=None, fstars=None, servos=None):
         """q (nq, B) float32 on the device, and in masked mode the 0/1
         contact mask cmask (nc, B) → ``PackedPre``.  With servos (per level
-        None or a per-spec tuple of element-leading dicts; the kernel takes
-        a servo on a level's one task): also qdot (ndof, B) and f* per level
-        (t, B), and the buffer carries the servo section."""
+        None or a per-spec tuple of element-leading dicts or None): also
+        qdot (ndof, B) and f* per level (t, B), and the buffer carries the
+        servo section."""
         B = q.shape[-1]
         plan = self.plan
         self._check("q", q, (plan.nq, B))
@@ -384,22 +483,24 @@ class TickKernels(nn.Module):
 
     # ---------------------------------- the plain version's interface
     # A servo'd prestage dict also holds "fstars" (the f* of every level)
-    # and "task_states" {(level, 0): (pos, vel, rot, w)}.
+    # and "task_states" {(level, spec): (pos, vel, rot, w)}.
     def unpack_pre(self, pre):
         """``PackedPre`` → prestage dict."""
         nlev = len(self.plan.level_tdofs)
         d = _unpack(pre.buf, pre_layout(self.plan, pre.servo))
         d["Ntorques"] = [d.pop(f"Ntorques.{h}") for h in range(nlev)]
+        if self.plan.cfree == 0:        # one contact: no kernel basis, as the plain prestage
+            d["NwJw"] = None
         if pre.servo:
             d["fstars"] = [d.pop(f"fstars.{h}") for h in range(nlev)]
-            d["task_states"] = {(h, 0): tuple(d.pop(f"{n}.{h}") for n, _ in TASK_STATE)
-                                for h in range(nlev)}
+            d["task_states"] = {(h, j): tuple(d.pop(f"{n}.{h}.{j}") for n, _ in TASK_STATE)
+                                for h, j, *_ in tasks(self.plan)}
         return d
 
     def pack_pre(self, pre):
         """``PackedPre`` of a prestage dict; a servo'd dict (one that holds
-        its "fstars") gets the servo section (a level without a task state
-        gets zeros there, which the QP chain does not read)."""
+        its "fstars") gets the servo section (a task without a state gets
+        zeros there, which the QP chain does not read)."""
         B = pre["torque_grav"].shape[-1]
         servo = "fstars" in pre
         parts = []
@@ -408,10 +509,12 @@ class TickKernels(nn.Module):
             if key in ("Ntorques", "fstars"):
                 t = pre[key][int(h)]
             elif key.startswith("task_"):
-                st = pre["task_states"].get((int(h), 0))
+                st = pre["task_states"].get(tuple(int(i) for i in h.split(".")))
                 t = (torch.zeros(shape + (B,), dtype=pre["torque_grav"].dtype,
                                  device=pre["torque_grav"].device) if st is None
                      else st[[n for n, _ in TASK_STATE].index(key)])
+            elif pre[name] is None:         # NwJw with cfree = 0: no elements
+                continue
             else:
                 t = pre[name]
             parts.append(t.reshape(-1, B))

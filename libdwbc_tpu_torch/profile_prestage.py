@@ -2,7 +2,8 @@
 ``-DDWBC_PRE_STOP=k`` returns at its phase marker k (csrc/tick_prestage.cu),
 so timing the builds that stop at each marker, and the whole kernel, gives
 the time of every phase.  Timed with CUDA events on the serving inputs of
-chip_smoke.py: static at B = 1 and B = 1024, masked at B = 4096.
+chip_smoke.py: static at B = 1 and B = 1024, masked at B = 4096, and
+config 3 (single support, a swing-foot third level) at B = 1024.
 
     python -m libdwbc_tpu_torch.profile_prestage
 
@@ -32,7 +33,7 @@ from .wbc.pipeline import standard_tocabi_config
 
 # the phase that ends at each marker of csrc/tick_prestage.cu; None: the
 # whole kernel
-PHASES = ((1, "FK"), (2, "dof frames, point jacobians"), (3, "CRBA: IC, S, A, G"),
+PHASES = ((1, "FK"), (2, "dof frames, point jacobians"), (3, "CRBA: IC, S, A, G, Jcom"),
           (4, "A⁻¹ (n = ndof)"), (5, "contact space: JC, Λc, J̄, P_C, NCG, W fill"),
           (6, "kernel basis, Cholesky of W, NwJw"), (7, "τ_grav (W-apply)"),
           (8, "JKT and Ntorque per level"), (None, "constraint rows, outputs, servo"))
@@ -74,10 +75,13 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"profile_prestage  [{card}]")
-    for label, masked, q, cm in (("static B 1", False, qs[:1], None),
-                                 ("static B 1024", False, qs, None),
-                                 ("masked B 4096", True, mq, masks)):
-        th = kernel_table(TickProgram(model, cfg, "cpu", torch.float64, masked=masked).plan)
+    cfg3 = standard_tocabi_config(model, both_feet=False, swing_task=True, qp_iters=12)
+    q3, _, _ = entry._swing_inputs(model, 1024, seed=0)
+    for label, c, masked, q, cm in (("static B 1", cfg, False, qs[:1], None),
+                                    ("static B 1024", cfg, False, qs, None),
+                                    ("masked B 4096", cfg, True, mq, masks),
+                                    ("config 3 B 1024", cfg3, False, q3, None)):
+        th = kernel_table(TickProgram(model, c, "cpu", torch.float64, masked=masked).plan)
         th = np.ascontiguousarray(th.astype(np.float32))
         td = torch.as_tensor(th, device=dev)
         cd = None if cm is None else el(cm)

@@ -80,27 +80,61 @@ def test_kernel_table_layout(models):
     tab = tc.kernel_table(plan)
     hdr = tab[:tc.HDR]
     assert list(hdr[:10]) == [34, 39, 33, 4, 2, 12, 6, 20, 2, 40]
-    assert list(hdr[tc.H_LEV_T:tc.H_LEV_T + 2]) == [6, 3]
-    nb, nd, npts, nc = 34, 39, 4, 2
+    assert list(hdr[tc.H_LEV_T:tc.H_LEV_T + tc.NLEV_MAX]) == [6, 3, 0, 0]
+    assert (hdr[tc.H_MASKED], hdr[tc.H_NTASK], hdr[tc.H_TOT]) == (0, 2, 0)
+    assert hdr[tc.H_MASS] == pm.total_mass
+    nb, nd, npts, nc, ntask = 34, 39, 4, 2, 2
     want = (tc.HDR + 2 * nb + nd + 3 * nb + 9 * nb + 3 * nb + 3 * nb + 9 * nb + nb
             + nb * nd + 3 + npts + 3 * npts + 2 * nc + 60 * nc
-            + 2 * tc.NLEV_MAX + 33)
+            + 4 * ntask + 33)
     assert tab.shape == (want,)
-    assert np.array_equal(tab.astype(np.float32).astype(np.float64)[:tc.HDR], hdr)
-    # spec slots and modes: the pelvis 6D task, then the link-15 rotation task
-    assert tab[-33 - 4:-33].tolist() == [plan.task_slots[0][0][1], plan.task_slots[1][0][1],
-                                         tc.SPEC_6D, tc.SPEC_ROT]
+    # the header's integers exact in float32 (the mass is the one real number)
+    ints = np.delete(hdr, tc.H_MASS)
+    assert np.array_equal(ints.astype(np.float32).astype(np.float64), ints)
+    # the task section (level, point slot, first row, rows): the pelvis 6D
+    # task, then the link-15 rotation task (rows 3-5 of its point's jacobian)
+    assert tab[-33 - 8:-33].tolist() == [0, plan.task_slots[0][0][1], 0, 6,
+                                         1, plan.task_slots[1][0][1], 3, 3]
     assert tab[-33:].tolist() == [300.0] * 33
 
 
-@pytest.mark.parametrize("variant", ["single_foot", "point_contact", "four_contacts",
-                                     "three_levels", "position_task"])
+@pytest.mark.parametrize("variant", ["single_foot", "three_levels", "position_task",
+                                     "swing", "com_task"])
+def test_kernel_table_takes_general_configs(models, variant):
+    """One or two 6D contacts with up to four levels of 6D, position and
+    rotation tasks (a whole-body COM task too) build a table and the
+    kernels' module; the task section lists every task in level order."""
+    from libdwbc_tpu_torch.ops import tick_cuda as tc
+    from libdwbc_tpu_torch.ops.tick_kernel import TickPlan, TickProgram
+
+    _, pm, _ = models
+    cfg = standard_tocabi_config(pm, both_feet=variant not in ("single_foot", "swing"),
+                                 swing_task=variant in ("three_levels", "swing"))
+    if variant == "position_task":
+        cfg = dataclasses.replace(cfg, task_specs=(
+            cfg.task_specs[0], ((T.TASK_LINK_POSITION, 15),)))
+    elif variant == "com_task":
+        cfg = dataclasses.replace(cfg, task_specs=(
+            ((T.TASK_LINK_6D, pm.nbody),),
+            ((T.TASK_LINK_POSITION, 15), (T.TASK_LINK_ROTATION, 31))))
+    plan = TickPlan(pm, cfg)
+    assert tc.kernel_unsupported(plan) is None
+    tab = tc.kernel_table(plan)
+    tasks = tc.tasks(plan)
+    assert tab[tc.H_NTASK] == len(tasks) and tab[tc.H_TOT] == float(variant == "com_task")
+    assert tab[-33 - 4 * len(tasks):-33].reshape(-1, 4).tolist() == [
+        [h, slot, r0, nr] for h, _, slot, r0, nr in tasks]
+    tc.TickKernels(TickProgram(pm, cfg, "cpu", torch.float64))
+
+
+@pytest.mark.parametrize("variant", ["point_contact", "four_contacts", "no_torque_limit",
+                                     "five_levels", "beyond_shared_fit"])
 def test_kernel_table_refuses_other_configs(models, variant):
     from libdwbc_tpu_torch.ops import tick_cuda as tc
     from libdwbc_tpu_torch.ops.tick_kernel import TickPlan, TickProgram
 
     _, pm, _ = models
-    cfg = standard_tocabi_config(pm, both_feet=variant != "single_foot")
+    cfg = standard_tocabi_config(pm)
     if variant == "point_contact":
         cfg = dataclasses.replace(cfg, contacts=(
             dataclasses.replace(cfg.contacts[0], contact_type=T.CONTACT_POINT),)
@@ -108,11 +142,15 @@ def test_kernel_table_refuses_other_configs(models, variant):
     elif variant == "four_contacts":
         cfg = dataclasses.replace(cfg, contacts=cfg.contacts + tuple(
             dataclasses.replace(cfg.contacts[0], link=link) for link in (23, 31)))
-    elif variant == "three_levels":
-        cfg = standard_tocabi_config(pm, swing_task=True)
-    elif variant == "position_task":
+    elif variant == "no_torque_limit":
+        cfg = dataclasses.replace(cfg, torque_limit=None)
+    elif variant == "five_levels":
+        cfg = dataclasses.replace(cfg, task_specs=cfg.task_specs + (
+            ((T.TASK_LINK_ROTATION, 31),), ((T.TASK_LINK_ROTATION, 23),),
+            ((T.TASK_LINK_POSITION, 27),)))
+    elif variant == "beyond_shared_fit":
         cfg = dataclasses.replace(cfg, task_specs=(
-            cfg.task_specs[0], ((T.TASK_LINK_POSITION, 15),)))
+            ((T.TASK_LINK_6D, 0), (T.TASK_LINK_ROTATION, 15)),))
     plan = TickPlan(pm, cfg)
     assert tc.kernel_unsupported(plan)
     with pytest.raises(NotImplementedError):

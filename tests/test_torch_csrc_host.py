@@ -716,6 +716,320 @@ def test_float32_servo_qpchain_lanes_within_servo_bars(lanes, s32, mode):
         assert over <= allowed, (mode, name, over, allowed)
 
 
+# ------------------------------------------ general plans (not the flagship)
+def _general_cfg(model, name):
+    """BASELINE's config 3 (single support, a swing-foot third level), or
+    the mixed task set (entry._mixed_tasks_config: a whole-body COM 6D
+    level, a custom-frame position and a rotation task in one level, a
+    COM-frame position level) on the flagship's two 6D feet."""
+    from libdwbc_tpu_torch.entry import _mixed_tasks_config
+    from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
+
+    if name == "config3":
+        return standard_tocabi_config(model, both_feet=False, swing_task=True)
+    return _mixed_tasks_config(model, standard_tocabi_config(model))
+
+
+@pytest.fixture(scope="module", params=["config3", "mixed", "mixed_masked"])
+def gsetup(request):
+    """Three lanes of a general plan: the standing q with 0.02·N(0,1) on the
+    joints, the last lane's base turned and moved, f* 0.1·N(0,1); masked:
+    the mixed task set over the two feet as candidates, one support
+    hypothesis per lane (both, left, right)."""
+    from libdwbc_tpu_torch.model.compile import RobotModel
+    from libdwbc_tpu_torch.ops.tick_cuda import kernel_table
+    from libdwbc_tpu_torch.ops.tick_kernel import TickProgram
+
+    m = RobotModel.load(MODEL)
+    masked = request.param == "mixed_masked"
+    prog = TickProgram(m, _general_cfg(m, request.param.removesuffix("_masked")), "cpu",
+                       torch.float64, masked=masked)
+    rng = np.random.default_rng(13)
+    q = np.stack([full_q(CASE_Q[1] + 0.02 * rng.standard_normal(33)) for _ in range(B)])
+    q[-1] = _rot_q(q[-1], [1, 1, 1], -0.3)
+    fs = [0.1 * rng.standard_normal((B, t)) for t in prog.plan.level_tdofs]
+    cm = np.array([[1.0, 1.0, 0.0], [1.0, 0.0, 1.0]]) if masked else None
+    return (prog, np.ascontiguousarray(kernel_table(prog.plan)), np.ascontiguousarray(q.T),
+            [np.ascontiguousarray(f.T) for f in fs], cm)
+
+
+@pytest.fixture(scope="module")
+def grun(lanes, gsetup):
+    return _lane_run(lanes, *gsetup)
+
+
+def test_general_qpchain_warp_lanes_match_one_lane(grun):
+    _warp_lanes_match_one_lane(grun)
+
+
+def test_general_prestage_warp_lanes_match_one_lane(lanes, gsetup):
+    """As test_prestage_warp_lanes_match_one_lane: the whole-body COM
+    jacobian, the gathered task rows and the third level's null space
+    too."""
+    _prestage_warp_lanes_match_one_lane(lanes, gsetup[1], gsetup[2], gsetup[4])
+
+
+def test_general_buffer_sizes_match_wrapper_layouts(grun, gsetup):
+    """The kernels' buffers against the wrapper's layouts; config 3's warm
+    state has no redistribution QP (cfree = 0)."""
+    from libdwbc_tpu_torch.ops import tick_cuda as tc
+
+    plan = gsetup[0].plan
+    assert grun["sizes"] == dict(pre=tc._elems(tc.pre_layout(plan)),
+                                 out=tc._elems(tc.out_layout(plan)),
+                                 warm=tc._elems(tc.warm_layout(plan)))
+    if plan.cfree == 0:
+        assert [shape for _, shape in tc.warm_layout(plan)] == [
+            (6,), (76,), (3,), (76,), (6,), (76,)]
+    else:
+        assert len(tc.warm_layout(plan)) == 2 * (len(plan.level_tdofs) + 1)
+
+
+@pytest.mark.parametrize("field", ["torque_grav", "P_C", "Jbar_act", "NwJw", "Ntorques",
+                                   "Atemp", "bA0", "health"])
+def test_general_prestage_lanes_match_plain(grun, gsetup, field):
+    """Every prestage field within 1e-9 of the plain float64 prestage; with
+    one contact NwJw is absent, as in the plain version."""
+    got, want = grun["pre"][field], grun["ref_pre"][field]
+    if field == "NwJw" and gsetup[0].plan.cfree == 0:
+        assert got is None and want is None
+        return
+    if field == "Ntorques":
+        assert len(got) == len(want) == len(gsetup[0].plan.level_tdofs)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    else:
+        err = float((got - want).abs().max())
+    assert err <= 1e-9, f"{field}: {err:.3e}"
+
+
+@pytest.mark.parametrize("mode", ["cold", "warm"])
+def test_general_qpchain_lanes_match_plain(grun, gsetup, mode):
+    """As test_qpchain_lanes_match_plain: every output within 1e-8, cold at
+    25 iterations and warm at 7 from each side's own warm state; with one
+    contact τ_contact exactly zero.  The warm state out is held at 6 cold
+    iterations, while μ ≳ 1e-12 on every lane: past that summation-order
+    roundoff moves duals that the solution leaves ill-determined (the
+    mixed set's turned-base lane: eight cone and ZMP rows active against
+    a zero-Hessian contact block, λ moved by O(1) by iteration 15 while x
+    stays within 1e-12; its masked left-foot lane: a ZMP row's dual moved
+    by 6e-4 in the two steps before μ reaches 1e-13), as
+    test_qp_solve_lanes_match_plain stops early for the same reason; the
+    warm tick from each side's own duals is held above."""
+    from libdwbc_tpu_torch.ops import tick_cuda as tc
+
+    prog = gsetup[0]
+    cold = prog.qpchain(grun["ref_pre"], grun["fs"], None, 25)
+    ref = cold if mode == "cold" else prog.qpchain(grun["ref_pre"], grun["fs"],
+                                                   cold["warm_out"], 7)
+    got = grun[mode]
+    for name in ("torque_grav", "torque_task", "torque_contact", "torque_cmd",
+                 "contact_force", "qp_gap", "qp_primal_res", "health"):
+        err = float((got[name] - ref[name]).abs().max())
+        assert err <= 1e-8, f"{mode}.{name}: {err:.3e}"
+    if prog.plan.cfree == 0:
+        assert not got["torque_contact"].any()
+    if mode == "cold":
+        assert len(got["warm_out"]) == len(prog.plan.qp_dims)
+        for (x, _), (rx, _) in zip(got["warm_out"], ref["warm_out"]):
+            assert float((x - rx).abs().max()) <= 1e-8
+        ref6 = prog.qpchain(grun["ref_pre"], grun["fs"], None, 6)
+        got6 = tc.TickKernels(prog).unpack_result(
+            *(torch.as_tensor(a) for a in grun["qp"](6, None)))
+        for (x, lam), (rx, rlam) in zip(got6["warm_out"], ref6["warm_out"]):
+            assert float((x - rx).abs().max()) <= 1e-8
+            assert float((lam - rlam).abs().max()) <= 1e-6 * (1 + float(rlam.abs().max()))
+
+
+def _general_servos(model, name, B, rng):
+    """Per-lane servos of a general plan, element-leading (elem..., B),
+    float64, on clocks in U[−0.05, 0.25] over [0, 0.2]: config 3's every
+    level (entry._swing_servo_inputs); on the mixed task set the whole-body
+    COM (position and rotation halves), level 1's rotation task but not its
+    position task, and level 2's COM-frame point."""
+    from libdwbc_tpu_torch.entry import _swing_servo_inputs
+    from libdwbc_tpu_torch.wbc.pipeline import make_servo
+
+    t = torch.as_tensor(rng.uniform(-0.05, 0.25, B))
+    if name == "config3":
+        _, _, _, servos, _, _ = _swing_servo_inputs(model, B, seed=5, noise=0.02,
+                                                    dtype=np.float64)
+        return tuple(tuple(sp._replace(t=t, tf=torch.tensor(0.2)) for sp in lvl)
+                     for lvl in servos)
+
+    def rot(ang):
+        c, s_ = np.cos(ang), np.sin(ang)
+        return torch.as_tensor(np.stack([np.stack([c, -s_, 0 * c], -1),
+                                         np.stack([s_, c, 0 * c], -1),
+                                         np.stack([0 * c, 0 * c, 1 + 0 * c], -1)], -2))
+
+    def pts(base):
+        return torch.as_tensor(np.asarray(base) + 0.02 * rng.standard_normal((B, 3)))
+
+    kw = dict(t=t, t0=0.0, tf=0.2, dtype=torch.float64)
+    def turn(a):
+        return rot(rng.uniform(-a, a, B))
+
+    com = make_servo(pos_init=pts([0.0, 0.0, 0.8]), pos_des=pts([0.02, 0.0, 0.8]),
+                     rot_init=turn(0.1), rot_des=turn(0.1), max_p_err=0.05, **kw)
+    wrist = make_servo(rot_init=turn(0.2), rot_des=turn(0.2), rot_p=200.0, rot_d=20.0, **kw)
+    arm = make_servo(pos_init=pts([0.1, 0.3, 1.1]), pos_des=pts([0.1, 0.3, 1.2]), **kw)
+    return ((com,), (None, wrist), (arm,))
+
+
+@pytest.fixture(scope="module", params=["config3", "mixed"])
+def gsrun(lanes, request):
+    """The servo'd prestage lanes on a general plan (moving states, per-lane
+    servos on some of its tasks, _general_servos) and the QP chain's lanes
+    reading their f* from the servo section, against the plain versions at
+    float64."""
+    from libdwbc_tpu_torch.model.compile import RobotModel
+    from libdwbc_tpu_torch.ops import tick_cuda as tc
+    from libdwbc_tpu_torch.wbc.fused import FusedTick
+
+    m = RobotModel.load(MODEL)
+    tick = FusedTick(m, _general_cfg(m, request.param), "cpu", torch.float64, backend="torch")
+    prog = tick.prog
+    rng = np.random.default_rng(17)
+    q = np.stack([full_q(CASE_Q[1] + 0.02 * rng.standard_normal(33)) for _ in range(B)])
+    q_el = torch.as_tensor(np.ascontiguousarray(q.T))
+    qd_el = 0.05 * torch.as_tensor(rng.standard_normal((m.ndof, B)))
+    fs_el = [0.1 * torch.as_tensor(rng.standard_normal((t, B))) for t in prog.plan.level_tdofs]
+    servos = _general_servos(m, request.param, B, rng)
+    sv_el = tuple(None if lvl is None else tuple(
+        None if sp is None else {f: getattr(sp, f).movedim(0, -1).contiguous()
+                                 if getattr(sp, f).ndim > len(tc.SERVO_ELEM_SHAPES[f])
+                                 else getattr(sp, f)[..., None].expand(
+                                     tc.SERVO_ELEM_SHAPES[f] + (B,)).contiguous()
+                                 for f in sp._fields}
+        for sp in lvl) for lvl in servos)
+    k = tc.TickKernels(prog)
+    tab = np.ascontiguousarray(tc.kernel_table(prog.plan))
+    smask = tc.servo_mask(sv_el, prog.plan)
+    servo = (np.ascontiguousarray(qd_el.numpy()), np.ascontiguousarray(torch.cat(fs_el).numpy()),
+             np.ascontiguousarray(tc.pack_servos(sv_el, prog.plan, B).numpy()), smask)
+    pre, _ = _prestage_buffers(lanes, tab, np.ascontiguousarray(q_el.numpy()), 1, None, servo)
+    ref_pre = k.prestage(q_el, None, qd_el, fs_el, sv_el)
+    buf = np.ascontiguousarray(k.pack_pre(ref_pre).buf.numpy())
+    ws_pre, _, _, n_out, n_warm, n_pre, _, _ = _sizes(lanes, tab)
+
+    def qp(nl):
+        out, wout = np.zeros((n_out, B)), np.zeros((n_warm, B))
+        lanes.qp64(_ptr(tab), _ptr(buf), None, None, _ptr(out), _ptr(wout), B, 25, nl)
+        return out, wout
+
+    out, wout = qp(1)
+    return dict(name=request.param, smask=smask, n_pre=n_pre, plan=prog.plan, qp=qp,
+                raw=(out, wout), tab=tab, q_el=np.ascontiguousarray(q_el.numpy()), servo=servo,
+                pre=k.unpack_pre(tc.PackedPre(torch.as_tensor(pre), True)), ref_pre=ref_pre,
+                out=tc._unpack(torch.as_tensor(out), tc.out_layout(prog.plan)),
+                ref_out=prog.qpchain(ref_pre, ref_pre["fstars"], None, 25))
+
+
+def test_general_servo_warp_lanes_match_one_lane(lanes, gsrun):
+    """The servo'd prestage and the QP chain on its buffer, 32 (and 5)
+    lanes as threads against one lane, bit for bit."""
+    _prestage_warp_lanes_match_one_lane(lanes, gsrun["tab"], gsrun["q_el"], None,
+                                        gsrun["servo"])
+    out, wout = gsrun["qp"](32)
+    assert np.array_equal(out, gsrun["raw"][0]) and np.array_equal(wout, gsrun["raw"][1])
+
+
+def test_general_servo_lanes_match_plain(gsrun):
+    """The servo'd prestage's fields within 1e-9 and each level's blended f*
+    and every servo'd task's state (the whole-body COM's included) within
+    1e-10 of the plain servo'd prestage; the task mask has a bit per task,
+    levels in order; the QP chain reading that f* within 1e-8."""
+    from libdwbc_tpu_torch.ops import tick_cuda as tc
+
+    assert gsrun["smask"] == (0b111 if gsrun["name"] == "config3" else 0b1101)
+    assert gsrun["n_pre"] == tc._elems(tc.pre_layout(gsrun["plan"], servo=True))
+    got, want = gsrun["pre"], gsrun["ref_pre"]
+    for name in ("torque_grav", "P_C", "Jbar_act", "Atemp", "bA0", "health"):
+        err = float((got[name] - want[name]).abs().max())
+        assert err <= 1e-9, f"{name}: {err:.3e}"
+    for h in range(len(gsrun["plan"].level_tdofs)):
+        err = float((got["Ntorques"][h] - want["Ntorques"][h]).abs().max())
+        assert err <= 1e-9, f"Ntorques.{h}: {err:.3e}"
+        err = float((got["fstars"][h] - want["fstars"][h]).abs().max())
+        assert err <= 1e-10, f"fstars.{h}: {err:.3e}"
+    assert set(want["task_states"]) <= set(got["task_states"])
+    for key, st in want["task_states"].items():
+        for name, g, w in zip(("pos", "vel", "rot", "w"), got["task_states"][key], st):
+            err = float((g - w).abs().max())
+            assert err <= 1e-10, f"task state {key} {name}: {err:.3e}"
+    for name in ("torque_grav", "torque_task", "torque_contact", "torque_cmd",
+                 "contact_force", "qp_gap", "qp_primal_res"):
+        err = float((gsrun["out"][name] - gsrun["ref_out"][name]).abs().max())
+        assert err <= 1e-8, f"{name}: {err:.3e}"
+
+
+def test_prestage_x_fit_matches_kernel_layout(lanes, monkeypatch):
+    """The wrapper's shared-fit rule (tick_cuda.prestage_x_fit) against the
+    prestage's own layout (PreWS::smem, 2⁴⁰ where X's buffer overflows):
+    a largest level of 6 task rows fits with two contacts and 9 does not,
+    9 fits with one and 12 does not; whatever fits X fits the shared part."""
+    import dataclasses
+
+    from libdwbc_tpu_torch.model.compile import RobotModel
+    from libdwbc_tpu_torch.ops import tick_cuda as tc
+    from libdwbc_tpu_torch.ops.tick_kernel import TickPlan
+    from libdwbc_tpu_torch.wbc import types as T
+    from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
+
+    m = RobotModel.load(MODEL)
+    level = {6: ((T.TASK_LINK_6D, 0),),
+             9: ((T.TASK_LINK_6D, 0), (T.TASK_LINK_POSITION, 15)),
+             12: ((T.TASK_LINK_6D, 0), (T.TASK_LINK_6D, 31))}
+    why = {}
+    for both, rows in ((True, 6), (True, 9), (False, 9), (False, 12)):
+        cfg = dataclasses.replace(standard_tocabi_config(m, both_feet=both),
+                                  task_specs=(level[rows], ((T.TASK_LINK_ROTATION, 15),)))
+        plan = TickPlan(m, cfg)
+        why[(both, rows)] = tc.kernel_unsupported(plan)
+        with monkeypatch.context() as mp:
+            mp.setattr(tc, "kernel_unsupported", lambda p: None)
+            smem, cap = _sizes(lanes, np.ascontiguousarray(tc.kernel_table(plan)))[6:8]
+        fits = why[(both, rows)] is None
+        assert (smem <= cap) == fits, (both, rows, smem, cap)
+        assert (smem < 2**40) == fits, (both, rows, smem)
+    assert why[(True, 6)] is None and why[(False, 9)] is None
+    assert "shared X buffer" in why[(True, 9)] and "shared X buffer" in why[(False, 12)]
+
+
+def test_kernel_unsupported_reasons():
+    """Config 3 and the mixed task set (static and masked) are taken; POINT
+    and LINE contacts, three contacts, no torque limit, five levels and a
+    level beyond the prestage's shared fit are refused, each with its
+    reason."""
+    import dataclasses
+
+    from libdwbc_tpu_torch.model.compile import RobotModel
+    from libdwbc_tpu_torch.ops.tick_cuda import kernel_unsupported
+    from libdwbc_tpu_torch.ops.tick_kernel import TickPlan
+    from libdwbc_tpu_torch.wbc import types as T
+
+    m = RobotModel.load(MODEL)
+    mixed = _general_cfg(m, "mixed")
+    for cfg, masked in ((_general_cfg(m, "config3"), False), (mixed, False), (mixed, True)):
+        assert kernel_unsupported(TickPlan(m, cfg, masked=masked)) is None
+    foot = mixed.contacts[0]
+    refused = {
+        "6D contacts only": dataclasses.replace(mixed, contacts=(
+            foot, dataclasses.replace(foot, link=12, contact_type=T.CONTACT_LINE, plane_y=0.0),
+            dataclasses.replace(foot, link=23, contact_type=T.CONTACT_POINT))),
+        "one or two contacts, the plan has 3": dataclasses.replace(
+            mixed, contacts=mixed.contacts + (dataclasses.replace(foot, link=23),)),
+        "needs a torque limit": dataclasses.replace(mixed, torque_limit=None),
+        "at most 4 task levels": dataclasses.replace(
+            mixed, task_specs=mixed.task_specs + (((T.TASK_LINK_ROTATION, 31),),) * 2),
+        "shared X buffer": dataclasses.replace(mixed, task_specs=(
+            ((T.TASK_LINK_6D, 0), (T.TASK_LINK_POSITION, 15)),)),
+    }
+    for reason, cfg in refused.items():
+        why = kernel_unsupported(TickPlan(m, cfg))
+        assert why is not None and reason in why, (reason, why)
+
+
 # ------------------------------------------------ psd_inverse and qp_solve
 # the routines of elemlin.cuh in elem64's order, each with the region of C
 # it writes, for shapes (m, k, n)

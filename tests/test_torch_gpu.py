@@ -651,3 +651,185 @@ def test_servo_loop_cuda_launches(scase, dev):
     assert torch.isfinite(lr.torques).all() and torch.isfinite(lr.q_final).all()
     print(f"servo'd loop: qp_error ticks×lanes {int(lr.qp_error.sum())}, primal residual "
           f"max {float(lr.qp_primal_res.max()):.3e}")
+
+
+# ------------------------------------------- general plans (not the flagship)
+def _general(model, name):
+    """(plan config, masked) of a general plan: BASELINE's config 3 (single
+    support, a swing-foot third level), or the mixed task set (a whole-body
+    COM level, a custom-frame position and a rotation task in one level, a
+    COM-frame position level) on the two 6D feet, static or masked."""
+    from libdwbc_tpu_torch.entry import _mixed_tasks_config
+    from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
+
+    if name == "config 3":
+        return standard_tocabi_config(model, both_feet=False, swing_task=True, qp_iters=12), False
+    cfg = _mixed_tasks_config(model, standard_tocabi_config(model, qp_iters=12))
+    return cfg, name == "mixed masked"
+
+
+def _general_inputs(model, name, nb, seed):
+    """q, f* (numpy, float32) and the contact mask of nb lanes: config 3's
+    serving inputs (entry._swing_inputs), the flagship's standing q with
+    joint noise and f* 0.05·N(0,1), or the masked sweep's lanes."""
+    from libdwbc_tpu_torch.entry import _example_inputs, _masked_inputs, _swing_inputs
+
+    rng = np.random.default_rng(seed)
+    if name == "config 3":
+        q, _, fs = _swing_inputs(model, nb, seed=seed)
+        return q, fs, None
+    fs = [0.05 * rng.standard_normal((nb, t)).astype(np.float32) for t in (6, 6, 3)]
+    if name == "mixed masked":
+        q, _, _, masks = _masked_inputs(model, nb, seed=seed)
+        return q, fs, masks
+    q0, _, _ = _example_inputs(model)
+    q = np.tile(q0, (nb, 1))
+    q[:, 6:39] += 0.02 * rng.standard_normal((nb, 33)).astype(np.float32)
+    return q, fs, None
+
+
+@pytest.mark.parametrize("name", ["config 3", "mixed", "mixed masked"])
+@pytest.mark.parametrize("nb", [1, 5, 4097])
+def test_general_kernels_partial_blocks(case, dev, name, nb):
+    """The general-plan kernels at batches that fill one block partly (1, 5)
+    and one warp of a last block (4097): tick_prestage against the plain
+    float64 prestage, and tick_qpchain (cold at 12 iterations, warm at 7)
+    against the plain float32 qpchain, both on the plain float32 prestage,
+    each within tick_cuda.GENERAL_TOL[name] ("pre", "qp32"; masked: per
+    hypothesis, lane % 3)."""
+    from libdwbc_tpu_torch.ops.tick_cuda import GENERAL_TOL, TickKernels
+    from libdwbc_tpu_torch.ops.tick_kernel import TickProgram
+
+    m = case["model"]
+    cfg, masked = _general(m, name)
+    q, fs, masks = _general_inputs(m, name, nb, seed=nb)
+    tol = GENERAL_TOL[name]
+
+    def el(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a.T)).to(dtype)
+
+    def errs(got, want):
+        d = (got.detach().cpu().double() - want.detach().cpu().double()).abs().reshape(-1, nb)
+        if not masked:
+            return [float(d.max())]
+        lane = torch.arange(nb) % 3
+        return [float(d[:, lane == h].max()) if (lane == h).any() else 0.0 for h in range(3)]
+
+    p64 = TickProgram(m, cfg, "cpu", torch.float64, masked=masked)
+    p32 = TickProgram(m, cfg, "cpu", torch.float32, masked=masked)
+    kern = TickKernels(TickProgram(m, cfg, dev, torch.float32, masked=masked))
+    cm = None if masks is None else el(masks)
+    got = kern.prestage(el(q).to(dev), None if cm is None else cm.to(dev))
+    ref = p64.prestage(el(q, torch.float64), None if cm is None else cm.double())
+    torch.cuda.synchronize()
+    for k, t in tol["pre"].items():
+        pairs = zip(got[k], ref[k]) if k == "Ntorques" else [(got[k], ref[k])]
+        for g, r in pairs:
+            assert torch.isfinite(g).all(), k
+            e = errs(g, r)
+            print(f"prestage {name} B {nb} {k}: {e}")
+            assert all(a <= b for a, b in zip(e, t)), (k, e, t)
+    if p64.plan.cfree == 0:
+        assert got["NwJw"] is None
+    pre32 = p32.prestage(el(q), cm)
+    pre_d = {k: (None if v is None else [x.to(dev) for x in v] if isinstance(v, list)
+                 else v.to(dev)) for k, v in pre32.items()}
+    fs_el = [el(f) for f in fs]
+    fs_d = [f.to(dev) for f in fs_el]
+    ref_c = p32.qpchain(pre32, fs_el, None, 12)
+    got_c = kern.qpchain(pre_d, fs_d, None, 12)
+    ref_w = p32.qpchain(pre32, fs_el, ref_c["warm_out"], 7)
+    got_w = kern.qpchain(pre_d, fs_d, [(x.to(dev), l.to(dev)) for x, l in ref_c["warm_out"]], 7)
+    torch.cuda.synchronize()
+    assert kern.launches == {"tick_prestage": 1, "tick_qpchain": 2}
+    for mode, g_, r_ in (("cold", got_c, ref_c), ("warm", got_w, ref_w)):
+        for k in ("torque_task", "torque_contact", "torque_cmd", "contact_force"):
+            assert torch.isfinite(g_[k]).all(), (mode, k)
+            e, t = errs(g_[k], r_[k]), tol["qp32"][f"{mode}.{k}"]
+            print(f"qpchain {name} B {nb} {mode} {k}: {e}")
+            assert all(a <= b for a, b in zip(e, t)), (mode, k, e, t)
+
+
+def test_general_fused_tick_cuda_serving(case, dev):
+    """FusedTick(backend="cuda") on config 3: a cold tick, a warm tick and
+    an unbatched tick, one launch of each kernel per tick, no qp_error, the
+    warm state without a redistribution QP; and a servo'd tick (every level
+    servo'd, entry._swing_servo_inputs) with its f* and task states
+    within SERVO_TOL of the plain float64 servo'd prestage."""
+    from libdwbc_tpu_torch.entry import _swing_inputs, _swing_servo_inputs
+    from libdwbc_tpu_torch.ops.tick_cuda import SERVO_TOL
+    from libdwbc_tpu_torch.wbc.fused import FusedTick
+
+    m = case["model"]
+    cfg, _ = _general(m, "config 3")
+    tick = FusedTick(m, cfg, dev, backend="cuda")
+    q, qd, fs = (torch.as_tensor(a, device=dev) if not isinstance(a, tuple) else
+                 tuple(torch.as_tensor(f, device=dev) for f in a) for a in _swing_inputs(m, B))
+    r0, w = tick._tick_impl(q, qd, fs, warm=tick.init_warm((B,)), qp_iters=12)
+    r1, w = tick._tick_impl(q, qd, fs, warm=w, qp_iters=7)
+    r2 = tick._tick_impl(q[0], qd[0], tuple(f[0] for f in fs))
+    torch.cuda.synchronize()
+    assert tick.kernels.launches == {"tick_prestage": 3, "tick_qpchain": 3}
+    assert r1.torque_cmd.shape == (B, 33) and r2.torque_cmd.shape == (33,)
+    assert not bool(r0.qp_error.any()) and not bool(r1.qp_error.any())
+    assert not bool(r2.qp_error) and not r1.torque_contact.any()
+    assert [tuple(x.shape) + tuple(lam.shape) for x, lam in w] == [
+        (B, 6, B, 76), (B, 3, B, 76), (B, 6, B, 76)]
+
+    sq, sqd, sfs, servos, _, _ = _swing_servo_inputs(m, B, seed=3, noise=0.02)
+    plain = {dt: FusedTick(m, cfg, "cpu", dt, backend="torch")
+             for dt in (torch.float64, torch.float32)}
+
+    def el(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a.T)).to(dtype)
+
+    sv = tuple(tuple({k: v.to(dev) for k, v in d.items()} for d in lvl)
+               for lvl in tick._servos_el(servos, B))
+    got = tick.kernels.prestage(el(sq).to(dev), None, el(sqd).to(dev),
+                                [el(f).to(dev) for f in sfs], sv)
+    ref, own = (t.prog.prestage_servo(el(sq, dt), None, el(sqd, dt), [el(f, dt) for f in sfs],
+                                      t._servos_el(servos, B)) for dt, t in plain.items())
+    torch.cuda.synchronize()
+
+    def err(a, b):
+        return float((a.cpu().double() - b.double()).abs().max())
+
+    # each within the flagship's SERVO_TOL or four times the plain float32
+    # prestage's own error, the larger (the swing foot's point ends a longer
+    # chain than the pelvis's)
+    for h in range(3):
+        e, o = err(got["fstars"][h], ref["fstars"][h]), err(own["fstars"][h], ref["fstars"][h])
+        print(f"config 3 servo'd f* level {h}: {e:.3e} [plain float32's own {o:.3e}]")
+        assert e <= max(SERVO_TOL["fstars"], 4 * o), (h, e, o)
+        for name, g, r, o_ in zip(("task_pos", "task_vel", "task_rot", "task_w"),
+                                  got["task_states"][(h, 0)], ref["task_states"][(h, 0)],
+                                  own["task_states"][(h, 0)]):
+            e, o = err(g, r), err(o_, r)
+            print(f"config 3 servo'd {name} level {h}: {e:.3e} [plain float32's own {o:.3e}]")
+            assert e <= max(SERVO_TOL[name], 4 * o), (h, name, e, o)
+
+
+def test_general_refusals_raise(case, dev):
+    """FusedTick(backend="cuda") refuses what the kernels do not take, with
+    its reason: POINT and LINE contacts, three contacts, no torque limit,
+    five levels, a level beyond tick_prestage's shared fit."""
+    import dataclasses
+
+    from libdwbc_tpu_torch.wbc import types as T
+    from libdwbc_tpu_torch.wbc.fused import FusedTick
+
+    m = case["model"]
+    cfg, _ = _general(m, "mixed")
+    foot = cfg.contacts[0]
+    for reason, bad in (
+            ("6D contacts only", dataclasses.replace(cfg, contacts=(
+                foot, dataclasses.replace(foot, link=12, contact_type=T.CONTACT_LINE)))),
+            ("one or two contacts", dataclasses.replace(
+                cfg, contacts=cfg.contacts + (dataclasses.replace(foot, link=23),))),
+            ("torque limit", dataclasses.replace(cfg, torque_limit=None)),
+            ("at most 4 task levels", dataclasses.replace(
+                cfg, task_specs=cfg.task_specs + (((T.TASK_LINK_ROTATION, 31),),) * 2)),
+            ("shared X buffer", dataclasses.replace(cfg, task_specs=(
+                ((T.TASK_LINK_6D, 0), (T.TASK_LINK_POSITION, 15)),)))):
+        with pytest.raises(NotImplementedError, match=reason):
+            FusedTick(m, bad, dev, backend="cuda")

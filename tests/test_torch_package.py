@@ -45,6 +45,11 @@ def test_port_imports_no_jax():
             "model, tick = entry._model_and_tick('cpu', backend='torch')\n"
             "q, qd, fs, sv = entry._servo_inputs(model, 2)\n"
             "tick._tick_impl(q, qd, fs, servos=sv)\n"
+            "from libdwbc_tpu_torch.wbc.fused import FusedTick\n"
+            "from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config\n"
+            "cfg3 = standard_tocabi_config(model, both_feet=False, swing_task=True)\n"
+            "q, qd, fs = entry._swing_inputs(model, 2)\n"
+            "FusedTick(model, cfg3, 'cpu', backend='torch')._tick_impl(q, qd, fs)\n"
             "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
             "assert not any(k.startswith('libdwbc_tpu.') or k == 'libdwbc_tpu' for k in sys.modules)\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -81,12 +86,12 @@ def test_masked_kernels_refuse_point_candidates(flagship):
     backend="cuda") builds it), never sent to the plain version."""
     import dataclasses
 
-    from libdwbc_tpu_torch.ops.tick_cuda import kernel_table
+    from libdwbc_tpu_torch.ops.tick_cuda import H_MASKED, kernel_table
     from libdwbc_tpu_torch.ops.tick_kernel import TickPlan
     from libdwbc_tpu_torch.wbc import types as T
 
     m, cfg = flagship
-    assert kernel_table(TickPlan(m, cfg, masked=True))[12] == 1.0
+    assert kernel_table(TickPlan(m, cfg, masked=True))[H_MASKED] == 1.0
     point = dataclasses.replace(cfg.contacts[1], contact_type=T.CONTACT_POINT)
     with pytest.raises(NotImplementedError, match="6D candidate"):
         kernel_table(TickPlan(m, dataclasses.replace(cfg, contacts=(cfg.contacts[0], point)),

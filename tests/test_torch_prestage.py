@@ -93,9 +93,12 @@ def test_prestage_float32_close_to_float64(q_el, torch_pre):
 def _variant_cfg(T, cfg_mod, model, variant):
     """Static-mode branches the flagship does not take: mixed 6D/line/point
     contacts with a whole-body COM task and custom/COM-frame task points,
-    or a single foot (no redistribution space, cfree = 0)."""
+    a single foot (no redistribution space, cfree = 0), or BASELINE's
+    config 3, a single foot with a swing-foot third level."""
     import dataclasses
 
+    if variant == "swing":
+        return cfg_mod.standard_tocabi_config(model, both_feet=False, swing_task=True)
     base = cfg_mod.standard_tocabi_config(model, both_feet=variant == "mixed")
     if variant == "single_foot":
         return base
@@ -113,7 +116,7 @@ def _variant_cfg(T, cfg_mod, model, variant):
     return dataclasses.replace(base, contacts=contacts, task_specs=tasks)
 
 
-@pytest.fixture(scope="module", params=["mixed", "single_foot"])
+@pytest.fixture(scope="module", params=["mixed", "single_foot", "swing"])
 def variant(request, q_el):
     from libdwbc_tpu.model.compile import RobotModel as JM
     from libdwbc_tpu.ops.tick_kernel import TickProgram as JP
@@ -134,11 +137,13 @@ def variant(request, q_el):
 
 def test_prestage_variant_matches_jax(variant):
     name, jpre, ppre = variant
-    assert (ppre["NwJw"] is None) == (name == "single_foot")
+    assert (ppre["NwJw"] is None) == (name in ("single_foot", "swing"))
     keys = [k for k in jpre if k not in ("Ntorques", "health") and jpre[k] is not None]
     assert set(keys) >= {"torque_grav", "P_C", "Jbar_act", "Atemp", "bA0"}
+    if name in ("mixed", "swing"):
+        assert len(jpre["Ntorques"]) == 3
     if name == "mixed":
-        assert "Jcom_total" in keys and len(jpre["Ntorques"]) == 3
+        assert "Jcom_total" in keys
     for k in keys:
         err = float(np.abs(ppre[k].numpy() - np.asarray(jpre[k])).max())
         assert err <= 1e-9, f"{name}.{k}: {err:.3e}"

@@ -2,14 +2,16 @@
 CPU: the rotation and trajectory primitives, the servo law (batch-major
 ``servo_fstar`` and element-leading ``_servo_fstar_el``), the servo'd task
 links' states of the plain prestage and the f* blend, one cold servo'd
-fused tick (static and masked), and the port's three servo'd tick
+fused tick (static, masked, and BASELINE's config 3: single support with a
+swing-foot third level, every level servo'd), and the port's three servo'd tick
 formulations against each other.  Also, at float32, the servo'd closed
 loop's qp_error count against the JAX package's IPM recurrence.
 
 The JAX references run eagerly in one module fixture (about 40 s): the
 prestage with a servo request, its ``_apply_servos_el``, and a cold
 25-iteration servo'd tick of the static and of the masked
-``FusedTick(backend="xla")`` on B = 2 moving states.  Tolerances: the
+``FusedTick(backend="xla")`` on B = 2 moving states, and one of config 3.
+Tolerances: the
 primitives and the servo law 1e-12, task states and blended f* 1e-10 (the
 JAX package's own bar, tests/test_fused_servo.py), the cold tick 1e-8 (the
 same recurrence), and across formulations the repository's policy (τ_grav
@@ -108,6 +110,21 @@ def _jax_servos(q):
     return ((pelvis,), (torso,))
 
 
+def _jax_swing_servos(q):
+    """Config 3's servos (B = 2): ``_jax_servos``'s pelvis and torso, and a
+    swing-foot (link 12) servo lifting the foot 2 mm with its rotation held,
+    at the same gentle gains and clocks."""
+    from libdwbc_tpu.wbc.pipeline import make_servo
+    from libdwbc_tpu_torch.kin.engine import Kinematics
+
+    fk = Kinematics(_model()).fk(torch.as_tensor(q))
+    pf, Rf = fk.p[:, 12].numpy(), fk.R[:, 12].numpy()
+    swing = make_servo(pos_init=pf, pos_des=pf + [0.0, 0.0, 0.002], rot_init=Rf, rot_des=Rf,
+                       t=np.array([0.05, 0.3]), t0=0.0, tf=0.2, pos_p=100.0, pos_d=10.0,
+                       rot_p=100.0, rot_d=10.0, dtype=jnp.float64)
+    return _jax_servos(q) + ((swing,),)
+
+
 def _to_numpy(servos):
     return tuple(None if lvl is None else tuple(
         None if sp is None else sp._replace(**{f: np.asarray(getattr(sp, f))
@@ -115,13 +132,13 @@ def _to_numpy(servos):
         for sp in lvl) for lvl in servos)
 
 
-def _port_fused(masked=False, qp_iters=25):
+def _port_fused(masked=False, qp_iters=25, swing=False):
     from libdwbc_tpu_torch.wbc.fused import FusedTick
     from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
 
     m = _model()
-    return FusedTick(m, standard_tocabi_config(m, qp_iters=qp_iters), "cpu", torch.float64,
-                     backend="torch", masked=masked)
+    cfg = standard_tocabi_config(m, qp_iters=qp_iters, both_feet=not swing, swing_task=swing)
+    return FusedTick(m, cfg, "cpu", torch.float64, backend="torch", masked=masked)
 
 
 @pytest.fixture(scope="module")
@@ -150,6 +167,12 @@ def ref():
     ftm = FusedTick(m, cfg, dtype=jnp.float64, backend="xla", masked=True)
     r = ftm._tick_impl(*args, jnp.asarray(MASKS), servos=servos)
     out["masked"] = {k: np.asarray(getattr(r, k)) for k in TAUS}
+    swing = _jax_swing_servos(q)
+    out["swing_servos"] = _to_numpy(swing)
+    fts = FusedTick(m, standard_tocabi_config(m, both_feet=False, swing_task=True, qp_iters=25),
+                    dtype=jnp.float64, backend="xla")
+    r = fts._tick_impl(*args[:2], args[2] + (jnp.zeros((B, 6)),), servos=swing)
+    out["swing"] = {k: np.asarray(getattr(r, k)) for k in TAUS}
     return out
 
 
@@ -330,16 +353,22 @@ def test_apply_servos_matches_jax_pipeline(ref):
 
 
 # ------------------------------------------------------- servo'd ticks
-@pytest.mark.parametrize("mode", ["static", "masked"])
+@pytest.mark.parametrize("mode", ["static", "masked", "swing"])
 def test_servo_fused_tick_matches_jax(ref, mode):
     """One cold 25-iteration servo'd tick of the plain FusedTick against
-    FusedTick(backend="xla"), B = 2 moving states: τ ≤ 1e-8."""
+    FusedTick(backend="xla"), B = 2 moving states: τ ≤ 1e-8.  swing: config
+    3 (single support, every level servo'd, the swing foot lifted)."""
     from libdwbc_tpu_torch.convert import servos_from_numpy
 
     q, qd, fs = _states()
-    tick = _port_fused(masked=mode == "masked")
+    tick = _port_fused(masked=mode == "masked", swing=mode == "swing")
+    if mode == "swing":
+        fs = fs + (np.zeros((B, 6)),)
     args = (q, qd, fs) + ((MASKS,) if mode == "masked" else ())
-    r = tick._tick_impl(*args, servos=servos_from_numpy(ref["servos"]))
+    servos = ref["swing_servos" if mode == "swing" else "servos"]
+    r = tick._tick_impl(*args, servos=servos_from_numpy(servos))
+    if mode == "swing":
+        assert not bool(r.qp_error.any())
     for k in TAUS:
         assert _err(getattr(r, k), ref[mode][k]) <= 1e-8, (k, _err(getattr(r, k), ref[mode][k]))
 

@@ -157,10 +157,11 @@ def test_float32_tick_close_to_float64(serving, serving32, tick):
 
 
 # ------------------------------ other static-mode configurations, cold
-@pytest.mark.parametrize("variant", ["mixed", "single_foot"])
+@pytest.mark.parametrize("variant", ["mixed", "single_foot", "swing"])
 def test_variant_cold_tick_matches_jax(variant):
     """Mixed 6D/line/point contacts with a whole-body COM task (three
-    levels), and a single foot (no redistribution QP)."""
+    levels), a single foot (no redistribution QP), and BASELINE's config 3
+    (a single foot, a swing-foot third level)."""
     import dataclasses
 
     from libdwbc_tpu.model.compile import RobotModel as JM
