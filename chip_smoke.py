@@ -133,16 +133,41 @@ Phases, each fatal on failure (nothing is caught):
    refined ticks) of the tick kernels and K of psd_inverse; flagged
    lane-ticks no more than through the plain float32 tick on the card, the
    float64 loop beside it; the time per tick split into ticks and
-   transition.
+   transition;
+20. the kernels of the plans taken last against their plain versions at
+   batch 1024 (new_plan_kernels, general_kernels' checks): the
+   hands-and-feet fixture (6D feet, POINT hands on links 23 and 31;
+   entry._hands_feet_config) static and masked (its four contacts as
+   candidates, per hypothesis of entry.HANDS_HYPOTHESES), LINE feet, and
+   the flagship without a torque limit; each within tick_cuda.GENERAL_TOL,
+   NwJw through tick_cuda.nwjw_determined where its basis follows roundoff,
+   the hands' τ_cmd and contact force against float64 printed, not held
+   (the contact block's flat face);
+21. the hands-and-feet serving path (hands_serving): make_control_loop(
+   FusedTick(cuda), warm, gap_fallback 1e-3) at batch 1024, tick 0 cold at
+   the configuration's 25 iterations, 15 warm ticks at 7, then one
+   unbatched tick, its launch counts set to 0 just before and read just
+   after (two per tick and re-solve); on every lane and tick no qp_error,
+   gap and primal residual ≤ 1e-3, |τ_cmd| ≤ 300 Nm + 1e-3, the normal
+   forces summing below −400 N; the truth guard on 4 lanes against the
+   plain float64 tick on the CPU (τ_grav); times, the warm chain's
+   solves/s and the unbatched warm tick;
+22. the masked four-candidate sweep (hands_masked_loop): make_control_loop(
+   FusedTick(masked, cuda), gap_fallback 1e-3) over B = 4096 scenarios of
+   entry._hands_masked_inputs and K = 32 ticks, its launch counts set to 0
+   just before and read just after: no qp_error, primal residual ≤ 1e-3,
+   the normal forces below −400 N; times and solves/s.
 
 Then each kernel's resources (registers and local bytes per thread, shared
 bytes and threads per block, resident blocks per SM, ptxas's spill bytes).
 The last lines are the kernels' JSON record (with each kernel's bound: the
 larger of its bytes over the card's memory rate and its operations over the
-float32 rate; its graph-replay time and its resources), the card's name and
+float32 rate, a tick kernel's operations counted by tick_flops on the plan
+as run; its graph-replay time and its resources), the card's name and
 power limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -171,9 +196,11 @@ QP_FAIL = 1e-3             # PipelineConfig.qp_fail_gap / qp_fail_pres
 # (H100 SXM, NVIDIA's data sheet, at the full 700 W).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
-# operations per solve of the fused tick's two stages at a warm tick of 7
-# IPM iterations (benchmarks/sol_tick_r05.json)
-PRESTAGE_FLOPS, QPCHAIN_FLOPS = 337112.0, 107561.8
+# operations per solve of the flagship's two stages at a warm tick of 7 IPM
+# iterations by XLA's cost analysis of the JAX program
+# (benchmarks/sol_tick_r05.json): printed beside tick_flops, which every
+# bound takes
+SOL_TICK_R05 = (337112.0, 107561.8)
 QP_NAMES = ("level 0", "level 1", "redistribution")
 B_M, K_M, N_M = 4096, 32, 1024  # masked sweep: scenarios, ticks, lanes held vs plain
 GAP_FALLBACK = 1e-3
@@ -195,9 +222,15 @@ def maxerr(a, b):
 KERNELS = ("tick_prestage", "tick_qpchain", "psd_inverse", "qp_solve")
 
 
+def kernel_source(name):
+    """The csrc/ kernel of a record's name (tick_prestage_hands_masked →
+    tick_prestage)."""
+    return next(k for k in KERNELS if name.startswith(k))
+
+
 def ptxas_spills(log):
     """{kernel: (spill store bytes, spill load bytes)} from nvcc's
-    -Xptxas=-v log."""
+    -Xptxas=-v log (a templated kernel: its instance that spills most)."""
     out, cur = {}, ""
     for line in log.splitlines():
         if "Function properties for" in line:
@@ -205,9 +238,9 @@ def ptxas_spills(log):
         elif "spill stores" in line:
             words = line.replace(",", " ").split()
             st, ld = (int(words[i - 2]) for i, w in enumerate(words) if w == "spill")
-            for name in KERNELS:
+            for name in KERNELS:     # the larger over a kernel's instances
                 if f"{name}_kernel" in cur:
-                    out[name] = (st, ld)
+                    out[name] = max(out.get(name, (0, 0)), (st, ld))
     return out
 
 
@@ -331,11 +364,12 @@ def servo_extra_flops(plan):
 
 
 def tick_flops(plan, iters):
-    """Operations per solve of the two tick kernels on a static plan (a
+    """Operations per solve of the two tick kernels on a plan (a
     multiply-add is 2), read off csrc/tick_prestage.cu and
-    csrc/tick_qpchain.cu routine by routine: (prestage, qpchain).  For the
-    general plans, which benchmarks/sol_tick_r05.json does not count; its
-    count of the flagship is printed beside this one's."""
+    csrc/tick_qpchain.cu routine by routine: (prestage, qpchain); a masked
+    plan's with masked_extra_flops.  Every tick kernel's bound takes it
+    (benchmarks/sol_tick_r05.json's count of the flagship is printed
+    beside it)."""
     from libdwbc_tpu_torch.ops.linalg_cuda import psd_inverse_flops as inv
     from libdwbc_tpu_torch.ops.qp_cuda import qp_solve_flops
 
@@ -369,17 +403,24 @@ def tick_flops(plan, iters):
         if h + 1 < nlev:
             pre += 2 * md * md * t * (2 if h else 1)              # the null space
     pre += kr * (36 + 12 * md)                                    # constraint rows
+    pre += sum(5 * (c.contact_dof - 3 if not plan.masked else 3) * nd     # LINE's local rows
+               for c in plan.cfg.contacts if c.contact_type == 2)
     qp = 2 * cd * md
+    mirror = md if plan.tlim is not None else 0
     for nv, m in plan.qp_dims:                                    # QPs, rows, torque sums
-        qp += qp_solve_flops(nv, m, md, iters) + 2 * kr * md * nv + 2 * kr * md + 4 * md * nv
+        qp += (qp_solve_flops(nv, m, mirror, iters) + 2 * kr * md * nv + 2 * kr * md
+               + 4 * md * nv)
+    if plan.masked:
+        x_pre, x_qp = masked_extra_flops(plan)
+        pre, qp = pre + x_pre, qp + x_qp
     return pre, qp
 
 
-def per_hyp(got, want, n):
-    """Max abs error of (elem..., n) tensors per hypothesis (lane % 3)."""
+def per_hyp(got, want, n, nh=3):
+    """Max abs error of (elem..., n) tensors per hypothesis (lane % nh)."""
     d = (got.detach().cpu().double() - want.detach().cpu().double()).abs().reshape(-1, n)
-    lane = torch.arange(n) % 3
-    return [float(d[:, lane == h].max()) for h in range(3)]
+    lane = torch.arange(n) % nh
+    return [float(d[:, lane == h].max()) for h in range(nh)]
 
 
 def cast(x, fn):
@@ -392,21 +433,28 @@ def cast(x, fn):
 
 
 def general_kernels(dev, model, tag, cfg, masked, q_el, fs_el, cm_el, limits, split):
-    """Phase 17 on one plan, every lane: "pre", tick_prestage vs the plain
-    float64 prestage; "qp", tick_qpchain vs the plain float32 qpchain on
-    that prestage cast to float32, cold at COLD_ITERS and warm at
+    """Phases 17 and 20 on one plan, every lane: "pre", tick_prestage vs
+    the plain float64 prestage; "qp", tick_qpchain vs the plain float32
+    qpchain on that prestage cast to float32, cold at COLD_ITERS and warm at
     WARM_ITERS from the plain cold warm state; "qp32", the same on the plain
     float32 prestage, the QPs that float32 serving solves (its task-space
     inverses carry the float32 ridge, the float64 prestage's do not); and
     "chain", the two kernels chained vs the plain float64 tick.  Each max
     abs error (split: a list, per hypothesis in masked mode) beside the
     plain float32 tick's own error against float64 on the same inputs and
-    its limit (limits: tick_cuda.GENERAL_TOL[tag]).
+    its limit (limits: tick_cuda.GENERAL_TOL[tag]).  With more than two
+    contacts or a POINT or LINE one, the field held for NwJw is
+    tick_cuda.nwjw_determined's product (NwJw's basis follows roundoff there, in
+    float32 and float64 alike); with more than two contacts the chain holds
+    τ_task only: τ_cmd and the contact force sit on the flat face of the
+    contact block, where float32 and float64 pick different points, the
+    plain version and the kernels alike; their errors are printed as max
+    and median beside plain float32's own.
     The QP chain may leave no more lanes with a primal residual above
     QP_FAIL than the plain float32 QP chain, within phase 13's spread of two
-    rollouts.  Returns (τ_grav error, QP chain τ_cmd error), max over the
-    split."""
-    from libdwbc_tpu_torch.ops.tick_cuda import TickKernels
+    rollouts.  Returns (τ_grav error, QP chain τ_cmd error, max over the
+    split; the errors and plain float32's own, by part and field)."""
+    from libdwbc_tpu_torch.ops.tick_cuda import TickKernels, nwjw_determined
     from libdwbc_tpu_torch.ops.tick_kernel import TickProgram
 
     p64 = TickProgram(model, cfg, "cpu", torch.float64, masked=masked)
@@ -420,6 +468,8 @@ def general_kernels(dev, model, tag, cfg, masked, q_el, fs_el, cm_el, limits, sp
     torch.cuda.synchronize()
     own = p32.prestage(q_el, cm_el)
     fields = ["torque_grav", "P_C", "Jbar_act", "NwJw", "Ntorques", "Atemp", "bA0", "health"]
+    flat = len(cfg.contacts) > 2
+    basis_free = flat or any(c.contact_type != 0 for c in cfg.contacts)
     if p64.plan.cfree == 0:                 # one contact: no NwJw, as the plain prestage
         assert pre_k["NwJw"] is None and pre64["NwJw"] is None
         fields.remove("NwJw")
@@ -427,6 +477,9 @@ def general_kernels(dev, model, tag, cfg, masked, q_el, fs_el, cm_el, limits, sp
     own_err = {k: {} for k in err}
     for name in fields:
         got, o, want = pre_k[name], own[name], pre64[name]
+        if name == "NwJw" and basis_free:
+            got, o, want = (nwjw_determined(x, p64.plan, None if cm_el is None else cm_el.to(
+                x["NwJw"].device)) for x in (pre_k, own, pre64))
         if name == "Ntorques":
             got, o, want = (torch.cat([t.reshape(-1, nb) for t in x], 0) for x in (got, o, want))
         assert torch.isfinite(got).all(), f"tick_prestage ({tag}): non-finite {name}"
@@ -461,9 +514,16 @@ def general_kernels(dev, model, tag, cfg, masked, q_el, fs_el, cm_el, limits, sp
     ch_k = kern.qpchain(pre_k, fs_d, None, COLD_ITERS)
     ch64 = p64.qpchain(pre64, fs64, None, COLD_ITERS)
     ch32 = p32.qpchain(own, fs_el, None, COLD_ITERS)
-    for name in ("torque_task", "torque_cmd", "contact_force"):
+    for name in ("torque_task",) if flat else ("torque_task", "torque_cmd", "contact_force"):
         err["chain"][name] = split(ch_k[name], ch64[name])
         own_err["chain"][name] = split(ch32[name], ch64[name])
+    if flat:
+        from libdwbc_tpu_torch.ops.tick_cuda import lane_err
+        print(f"tick_prestage → tick_qpchain vs plain float64 tick ({tag}, on the flat face, "
+              f"not held; max / median over the lanes [plain float32's own]): " + "  ".join(
+                  f"{n} {float(e.max()):.3e} / {float(e.median()):.3e} [{float(o.max()):.3e} / "
+                  f"{float(o.median()):.3e}]" for n in ("torque_cmd", "contact_force")
+                  for e, o in [(lane_err(ch_k[n], ch64[n]), lane_err(ch32[n], ch64[n]))]))
 
     def fmt(v):
         return "/".join(f"{e:.3e}" for e in v)
@@ -484,8 +544,8 @@ def general_kernels(dev, model, tag, cfg, masked, q_el, fs_el, cm_el, limits, sp
     for part in err:
         for k, v in err[part].items():
             assert all(e <= t for e, t in zip(v, limits[part][k])), (tag, part, k, v)
-    return max(err["pre"]["torque_grav"]), max(err["qp"]["cold.torque_cmd"]
-                                               + err["qp"]["warm.torque_cmd"])
+    return (max(err["pre"]["torque_grav"]),
+            max(err["qp"]["cold.torque_cmd"] + err["qp"]["warm.torque_cmd"]), (err, own_err))
 
 
 def swing_serving(dev, model, cfg3, card, times):
@@ -695,6 +755,253 @@ def swing_loop(dev, model, cfg3, card):
           f"{t_tick:.3f} ms and transition {t_tr:.3f} ms (CUDA events), the rest "
           f"{t_wall - t_tick - t_tr:.3f} ms  [{card}]")
     return kern["launches"]
+
+def normal_force(res, plan):
+    """Σ over the contacts of the normal (world z) force, per lane."""
+    from libdwbc_tpu_torch.ops.tick_cuda import contact_rows
+
+    return sum(res.contact_force[..., j0 + 2] for j0, *_ in contact_rows(plan))
+
+
+def new_plan_kernels(dev, model, q_el, fs_el):
+    """Phase 20: general_kernels on the plans this port took last — the
+    hands-and-feet fixture (POINT hands; entry._hands_feet_config) static
+    on entry._hands_feet_inputs and masked on the first N_M lanes of
+    entry._hands_masked_inputs (per hypothesis of entry.HANDS_HYPOTHESES),
+    LINE feet on the same states, and the flagship without a torque limit
+    on phase 3's states — each within tick_cuda.GENERAL_TOL.  Returns
+    {tag: (τ_grav error, QP chain τ_cmd error)}."""
+    from libdwbc_tpu_torch import entry
+    from libdwbc_tpu_torch.ops.tick_cuda import GENERAL_TOL
+    from libdwbc_tpu_torch.wbc import types as T
+    from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
+
+    el = (lambda a: torch.as_tensor(np.ascontiguousarray(np.asarray(a).T)))
+    base = standard_tocabi_config(model, qp_iters=COLD_ITERS)
+    hcfg = entry._hands_feet_config(model)
+    lcfg = dataclasses.replace(base, contacts=tuple(
+        dataclasses.replace(c, contact_type=T.CONTACT_LINE, plane_y=0.0) for c in base.contacts))
+    hq, _, hfs = entry._hands_feet_inputs(model, B, seed=0)
+    mq, _, mfs, mm = entry._hands_masked_inputs(model, N_M, seed=0)
+    nh = len(entry.HANDS_HYPOTHESES)
+    one = (lambda g, w: [maxerr(g, w)])
+    out = {}
+    for tag, cfg, masked, q, fs, cm, split in (
+            ("hands", hcfg, False, el(hq), [el(f) for f in hfs], None, one),
+            ("hands masked", hcfg, True, el(mq), [el(f) for f in mfs], el(mm),
+             lambda g, w: per_hyp(g, w, N_M, nh)),
+            ("line feet", lcfg, False, el(hq), [el(f) for f in hfs], None, one),
+            ("no limit", dataclasses.replace(base, torque_limit=None), False, q_el, fs_el, None,
+             one)):
+        out[tag] = general_kernels(dev, model, tag, cfg, masked, q, fs, cm, GENERAL_TOL[tag],
+                                   split)
+    return out
+
+
+def hands_serving(dev, model, card, times):
+    """Phase 21: the hands-and-feet serving path at batch B through
+    make_control_loop(FusedTick(cuda), warm, gap_fallback) — tick 0 cold
+    at the configuration's qp_iters (25, the reference fixture's), then
+    K − 1 warm ticks at WARM_ITERS, q[:, 6:39] += 1e-6·tanh(τ_cmd) between
+    ticks — and one unbatched tick, the launch counts set to 0 just before
+    and read just after; on every lane and tick: every output finite, no
+    qp_error, gap and primal residual ≤ QP_FAIL, |τ_cmd| ≤ 300 Nm + 1e-3,
+    the contacts' normal forces summing below −400 N; the truth guard on 4
+    lanes against the plain float64 tick on the CPU (τ_grav held, τ_task
+    and τ_cmd printed beside plain float32's own); the kernels' times at B
+    and 1 against their plain versions on the card (into times), the warm
+    chain's solves/s and the unbatched warm tick.  Returns (launches, the
+    tick's TickKernels)."""
+    from libdwbc_tpu_torch import entry
+    from libdwbc_tpu_torch.ops.tick_kernel import TickProgram
+    from libdwbc_tpu_torch.wbc.fused import FusedTick
+    from libdwbc_tpu_torch.wbc.loop import make_control_loop
+
+    md = model.model_dof
+    hcfg = entry._hands_feet_config(model)
+    q, qd, fs = entry._hands_feet_inputs(model, B, seed=0)
+    q_d, qd_d = torch.as_tensor(q, device=dev), torch.as_tensor(qd, device=dev)
+    fs_d = tuple(torch.as_tensor(f, device=dev) for f in fs)
+    tick = FusedTick(model, hcfg, dev, backend="cuda")
+    plan = tick.prog.plan
+    assert plan.qp_dims == [(18, 98), (15, 98), (12, 98)], plan.qp_dims
+    seen = []
+
+    def advance(qq, qd_, res, dt):
+        seen.append(res)
+        qq = qq.clone()
+        qq[:, 6:6 + md] += 1e-6 * torch.tanh(res.torque_cmd)
+        return qq, qd_
+
+    loop = make_control_loop(tick, transition=advance, K=K, warm_start=True,
+                             warm_iters=WARM_ITERS, gap_fallback=GAP_FALLBACK)
+    torch.cuda.synchronize()
+    for k in tick.kernels.launches:
+        tick.kernels.launches[k] = 0
+    lr = loop(q_d, qd_d, fs_d)
+    res1 = tick._tick_impl(q_d[0], qd_d[0], tuple(f[0] for f in fs_d))
+    torch.cuda.synchronize()
+    launches = dict(tick.kernels.launches)
+    n_solve = K + lr.refined_ticks + 1
+    print(f"hands-and-feet serving path (make_control_loop, gap_fallback {GAP_FALLBACK:g}): "
+          f"{K} ticks at batch {B} (tick 0 at {hcfg.qp_iters} iterations) + 1 unbatched tick, "
+          f"refined ticks {lr.refined_ticks}, launches {launches}")
+    assert launches == {"tick_prestage": n_solve, "tick_qpchain": n_solve}, launches
+    for r in seen + [res1]:
+        for name, v in r._asdict().items():
+            if v.dtype != torch.bool:
+                assert torch.isfinite(v).all(), f"hands-and-feet: non-finite {name}"
+    assert res1.torque_cmd.shape == (md,) and not bool(res1.qp_error)
+    n_err = sum(int(r.qp_error.sum()) for r in seen)
+    gap_max = max(float(r.qp_gap.max()) for r in seen)
+    pres_max = max(float(r.qp_primal_res.max()) for r in seen)
+    tau_max = max(float(r.torque_cmd.abs().max()) for r in seen + [res1])
+    fz_max = max(float(normal_force(r, plan).max()) for r in seen + [res1])
+    print(f"hands-and-feet serving path: qp_error ticks×lanes {n_err}  gap max {gap_max:.3e}  "
+          f"pres max {pres_max:.3e}  |τ_cmd| max {tau_max:.3f} Nm  Σ normal force max "
+          f"{fz_max:.1f} N")
+    assert n_err == 0 and gap_max <= QP_FAIL and pres_max <= QP_FAIL
+    assert tau_max <= 300.0 + 1e-3 and fz_max < -400.0
+
+    # the truth guard: tick 0 on four lanes against the plain float64 tick
+    lanes = (q[:4].astype(np.float64), qd[:4].astype(np.float64),
+             tuple(f[:4].astype(np.float64) for f in fs))
+    f64 = FusedTick(model, hcfg, "cpu", torch.float64, backend="torch")
+    r64, _ = f64._tick_impl(*lanes, warm=f64.init_warm((4,)), qp_iters=hcfg.qp_iters)
+    f32 = FusedTick(model, hcfg, "cpu", torch.float32, backend="torch")
+    r32, _ = f32._tick_impl(q[:4], qd[:4], tuple(f[:4] for f in fs), warm=f32.init_warm((4,)),
+                            qp_iters=hcfg.qp_iters)
+    d = {n: (maxerr(getattr(seen[0], n)[:4], getattr(r64, n)),
+             maxerr(getattr(r32, n), getattr(r64, n)))
+         for n in ("torque_grav", "torque_task", "torque_cmd")}
+    print("hands-and-feet truth guard, FusedTick(cuda) vs plain fused float64 (4 lanes, "
+          "[plain float32's own]): " + "  ".join(f"{n} {a:.3e} [{b:.3e}]" for n, (a, b) in d.items())
+          + f"; τ_grav held at {TAU_GRAV_TOL:g}, τ_cmd on the flat face not held")
+    assert d["torque_grav"][0] <= TAU_GRAV_TOL, d
+
+    # times: each kernel against its plain version on the card
+    kern = tick.kernels
+    plain_dev = TickProgram(model, hcfg, dev, torch.float32)
+    q_el = q_d.T.contiguous()
+    fs_el = [f.T.contiguous() for f in fs_d]
+    for nb in (B, 1):
+        qe = q_el[:, :nb].contiguous()
+        fe = [f[:, :nb].contiguous() for f in fs_el]
+        pre_buf = kern.prestage_packed(qe)
+        pre_d = kern.unpack_pre(pre_buf)
+        w_d = kern.unpack_result(*kern.qpchain_packed(pre_buf, fe, None, COLD_ITERS))["warm_out"]
+        times[("tick_prestage_hands", nb)] = interleaved(
+            lambda: plain_dev.prestage(qe), lambda: kern.prestage_packed(qe), 2, 5)
+        times[("tick_qpchain_hands", nb)] = interleaved(
+            lambda: plain_dev.qpchain(pre_d, fe, w_d, WARM_ITERS),
+            lambda: kern.qpchain_packed(pre_buf, fe, w_d, WARM_ITERS), 2, 5)
+        for name in ("tick_prestage_hands", "tick_qpchain_hands"):
+            p, kt, gk = times[(name, nb)]
+            print(f"time {name} batch {nb}: kernel {kt:.3f} ms (graph replay {gk:.3f} ms)  "
+                  f"plain (torch on the card) {p:.3f} ms  [{card}]")
+
+    _, warm = tick._tick_impl(q_d, qd_d, fs_d, warm=tick.init_warm((B,)),
+                              qp_iters=hcfg.qp_iters)
+
+    def chain():
+        qq_, w_ = q_d, warm
+        for _ in range(K - 1):
+            res, w_ = tick._tick_impl(qq_, qd_d, fs_d, warm=w_, qp_iters=WARM_ITERS)
+            qq_ = qq_.clone()
+            qq_[:, 6:6 + md] += 1e-6 * torch.tanh(res.torque_cmd)
+
+    chain_ms = cuda_time(chain, 2)
+    q1, qd1, fs1 = q_d[0], qd_d[0], tuple(f[0] for f in fs_d)
+    _, warm1 = tick._tick_impl(q1, qd1, fs1, warm=tick.init_warm(()), qp_iters=hcfg.qp_iters)
+    single_warm_ms = cuda_time(lambda: tick._tick_impl(q1, qd1, fs1, warm=warm1,
+                                                       qp_iters=WARM_ITERS), 10)
+    print(f"hands-and-feet warm chain: {K - 1} ticks at batch {B} in {chain_ms:.3f} ms -> "
+          f"{B * (K - 1) / (chain_ms / 1e3):.1f} solves/s; unbatched warm tick ({WARM_ITERS} "
+          f"iterations) {single_warm_ms:.3f} ms, against the single-lane bar of 1 ms  [{card}]")
+    return launches, kern
+
+
+def hands_masked_loop(dev, model, card, times):
+    """Phase 22: the masked four-candidate sweep — FusedTick(masked=True,
+    cuda) on the hands-and-feet candidates through make_control_loop over
+    B_M scenarios (entry._hands_masked_inputs: the hypotheses of entry.
+    HANDS_HYPOTHESES cycled over the lanes) and K_M ticks, tick 0 at the
+    configuration's qp_iters, then warm at WARM_ITERS, gap_fallback
+    GAP_FALLBACK, its launch counts set to 0 just before and read just
+    after: every output finite, no qp_error, primal residual ≤ QP_FAIL, the
+    normal forces summing below −400 N on every lane and tick; the kernels'
+    times at B_M and 1 against their plain versions on the card (into
+    times) and the loop's solves/s.  Returns (launches, TickKernels)."""
+    from libdwbc_tpu_torch import entry
+    from libdwbc_tpu_torch.ops.tick_kernel import TickProgram
+    from libdwbc_tpu_torch.wbc.fused import FusedTick
+    from libdwbc_tpu_torch.wbc.loop import make_control_loop
+
+    md = model.model_dof
+    hcfg = entry._hands_feet_config(model)
+    q, qd, fs, masks = entry._hands_masked_inputs(model, B_M, seed=0)
+    q_d, qd_d, m_d = (torch.as_tensor(a, device=dev) for a in (q, qd, masks))
+    fs_d = tuple(torch.as_tensor(f, device=dev) for f in fs)
+    tick = FusedTick(model, hcfg, dev, backend="cuda", masked=True)
+    plan = tick.prog.plan
+    fz = []
+
+    def advance(qq, qd_, res, dt):
+        fz.append(float(normal_force(res, plan).max()))
+        qq = qq.clone()
+        qq[:, 6:6 + md] += 1e-6 * torch.tanh(res.torque_cmd)
+        return qq, qd_
+
+    loop = make_control_loop(tick, transition=advance, K=K_M, warm_start=True,
+                             warm_iters=WARM_ITERS, gap_fallback=GAP_FALLBACK)
+    torch.cuda.synchronize()
+    for k in tick.kernels.launches:
+        tick.kernels.launches[k] = 0
+    t0 = time.perf_counter()
+    lr = loop(q_d, qd_d, fs_d, m_d)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = dict(tick.kernels.launches)
+    n_solve = K_M + lr.refined_ticks
+    m_err, m_pres = int(lr.qp_error.sum()), float(lr.qp_primal_res.max())
+    print(f"hands-and-feet masked sweep (make_control_loop, gap_fallback {GAP_FALLBACK:g}): "
+          f"{K_M} ticks at batch {B_M}, tick 0 at {hcfg.qp_iters} iterations, refined ticks "
+          f"{lr.refined_ticks}, launches {launches}, {loop_s * 1e3:.3f} ms; qp_error "
+          f"ticks×lanes {m_err}  qp_primal_res max {m_pres:.3e}  Σ normal force max "
+          f"{max(fz):.1f} N")
+    assert launches == {"tick_prestage": n_solve, "tick_qpchain": n_solve}, launches
+    for name, v in lr._asdict().items():
+        if isinstance(v, torch.Tensor) and v.dtype != torch.bool:
+            assert torch.isfinite(v).all(), f"hands masked loop: non-finite {name}"
+    assert m_err == 0 and m_pres <= QP_FAIL and max(fz) < -400.0
+
+    kern = tick.kernels
+    plain_dev = TickProgram(model, hcfg, dev, torch.float32, masked=True)
+    q_el, cm_el = q_d.T.contiguous(), m_d.T.contiguous()
+    fs_el = [f.T.contiguous() for f in fs_d]
+    for nb in (B_M, 1):
+        qe, ce = q_el[:, :nb].contiguous(), cm_el[:, :nb].contiguous()
+        fe = [f[:, :nb].contiguous() for f in fs_el]
+        pre_buf = kern.prestage_packed(qe, ce)
+        pre_d = kern.unpack_pre(pre_buf)
+        w_d = kern.unpack_result(*kern.qpchain_packed(pre_buf, fe, None, COLD_ITERS))["warm_out"]
+        times[("tick_prestage_hands_masked", nb)] = interleaved(
+            lambda: plain_dev.prestage(qe, ce), lambda: kern.prestage_packed(qe, ce), 1, 3)
+        times[("tick_qpchain_hands_masked", nb)] = interleaved(
+            lambda: plain_dev.qpchain(pre_d, fe, w_d, WARM_ITERS),
+            lambda: kern.qpchain_packed(pre_buf, fe, w_d, WARM_ITERS), 1, 3)
+        for name in ("tick_prestage_hands_masked", "tick_qpchain_hands_masked"):
+            p, kt, gk = times[(name, nb)]
+            print(f"time {name} batch {nb}: kernel {kt:.3f} ms (graph replay {gk:.3f} ms)  "
+                  f"plain (torch on the card) {p:.3f} ms  [{card}]")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop(q_d, qd_d, fs_d, m_d)
+    torch.cuda.synchronize()
+    loop_s2 = time.perf_counter() - t0
+    print(f"hands-and-feet masked sweep at batch {B_M}, {K_M} ticks: fallback loop "
+          f"{loop_s2 * 1e3:.3f} ms -> {B_M * K_M / loop_s2:.1f} solves/s  [{card}]")
+    return launches, kern
 
 
 def main():
@@ -1608,60 +1915,57 @@ def main():
     # -------------------------------- 19. config 3's servo'd closed loop
     swing_loop(dev, model, cfg3, card)
 
-    # bounds at batch B: bytes of each kernel's inputs and outputs, and its
-    # operations on this run's shapes
+    # ---------- 20. the hands-and-feet, LINE-feet and no-limit kernels vs plain
+    g_err.update(new_plan_kernels(dev, model, q_el, fs_el))
+
+    # ------------------------------- 21. the hands-and-feet serving path
+    launches_h, kern_h = hands_serving(dev, model, card, times)
+
+    # ----------------------- 22. the masked four-candidate sweep (hands and feet)
+    launches_hm, kern_hm = hands_masked_loop(dev, model, card, times)
+
+    # bounds at batch B (B_M masked): bytes of each kernel's inputs and
+    # outputs, and its operations on this run's shapes, every tick kernel's
+    # counted by tick_flops on the plan as run
+    def tick_bounds(k, nb, n_in, servo=False):
+        """(prestage, qpchain) bounds of TickKernels k at batch nb: n_in the
+        prestage's inputs per scenario beyond its buffer (q, the mask; with
+        the servo q̇, f*, the servo buffer), the f* the QP chain reads."""
+        plan_ = k.plan
+        n_pre_ = tc._elems(tc.pre_layout(plan_, servo=servo))
+        n_out_, n_warm_ = tc._elems(tc.out_layout(plan_)), tc._elems(tc.warm_layout(plan_))
+        pre_ops, qp_ops = tick_flops(plan_, WARM_ITERS)
+        if servo:
+            pre_ops += servo_extra_flops(plan_)
+        n_fs_ = 0 if servo else sum(plan_.level_tdofs)
+        return (bound(4 * (nb * (n_in + n_pre_) + k.table.numel()), pre_ops * nb),
+                bound(4 * (nb * (n_pre_ + n_fs_ + 2 * n_warm_ + n_out_) + k.table.numel()),
+                      qp_ops * nb))
+
     plan = kern.plan
-    n_pre, n_out, n_warm = (tc._elems(lay(plan)) for lay in
-                            (tc.pre_layout, tc.out_layout, tc.warm_layout))
     n_q, n_fs = q_el.shape[0], sum(f.shape[0] for f in fs_el)
-    bounds = {
-        "tick_prestage": bound(4 * (B * (n_q + n_pre) + kern.table.numel()),
-                               PRESTAGE_FLOPS * B),
-        "tick_qpchain": bound(4 * (B * (n_pre + n_fs + 2 * n_warm + n_out)
-                                   + kern.table.numel()), QPCHAIN_FLOPS * B),
-        "psd_inverse": bound(4 * B * (39 * 40 // 2 + 39 * 39),
-                             linalg_cuda.psd_inverse_flops(39) * B),
-    }
-    mplan = mkern.plan
-    m_pre, m_out, m_warm = (tc._elems(lay(mplan)) for lay in
-                            (tc.pre_layout, tc.out_layout, tc.warm_layout))
-    x_pre, x_qp = masked_extra_flops(mplan)
-    print(f"masked operations per solve: prestage {PRESTAGE_FLOPS + x_pre:.1f} "
-          f"({x_pre:+d} on the static count), qpchain {QPCHAIN_FLOPS + x_qp:.1f} ({x_qp:+d})")
-    bounds["tick_prestage_masked"] = bound(
-        4 * (B_M * (n_q + len(cfg.contacts) + m_pre) + mkern.table.numel()),
-        (PRESTAGE_FLOPS + x_pre) * B_M)
-    bounds["tick_qpchain_masked"] = bound(
-        4 * (B_M * (m_pre + n_fs + 2 * m_warm + m_out) + mkern.table.numel()),
-        (QPCHAIN_FLOPS + x_qp) * B_M)
+    n_sv = SERVO_ELEMS * len(plan.level_tdofs)
+    bounds = {"psd_inverse": bound(4 * B * (39 * 40 // 2 + 39 * 39),
+                                   linalg_cuda.psd_inverse_flops(39) * B)}
+    for tag, k_, nb, n_in, servo in (
+            ("", kern, B, n_q, False), ("_masked", mkern, B_M, n_q + len(cfg.contacts), False),
+            ("_servo", kern, B, n_q + model.ndof + n_fs + n_sv, True), ("_swing", kern3, B, n_q, False),
+            ("_hands", kern_h, B, n_q, False),
+            ("_hands_masked", kern_hm, B_M, n_q + len(kern_hm.plan.cfg.contacts), False)):
+        bounds["tick_prestage" + tag], bounds["tick_qpchain" + tag] = tick_bounds(
+            k_, nb, n_in, servo)
+        ops = tick_flops(k_.plan, WARM_ITERS)
+        print(f"operations per solve ({'flagship' if not tag else tag[1:]}, tick_flops): "
+              f"prestage {ops[0] + (servo_extra_flops(k_.plan) if servo else 0)}, qpchain "
+              f"{ops[1]}")
+    print(f"the flagship by XLA's cost analysis of the JAX program "
+          f"(benchmarks/sol_tick_r05.json, not used for the bounds): prestage "
+          f"{SOL_TICK_R05[0]:.1f}, qpchain {SOL_TICK_R05[1]:.1f}")
     p0 = seen["qp_solve"][0]
     _, m0, n0 = p0["C"].shape
     me0 = m0 - p0["mirror"]
     bounds["qp_solve"] = bound(4 * B * (n0 * n0 + n0 + me0 * n0 + m0 + (n0 + m0) + (n0 + 2 * m0)),
                                qp_cuda.qp_solve_flops(n0, m0, p0["mirror"], WARM_ITERS) * B)
-    s_pre = tc._elems(tc.pre_layout(plan, servo=True))
-    n_sv = SERVO_ELEMS * len(plan.level_tdofs)
-    x_servo = servo_extra_flops(plan)
-    print(f"servo'd operations per solve: prestage {PRESTAGE_FLOPS + x_servo:.1f} "
-          f"({x_servo:+d} on the static count), qpchain {QPCHAIN_FLOPS:.1f} (+0)")
-    bounds["tick_prestage_servo"] = bound(
-        4 * (B * (n_q + model.ndof + n_fs + n_sv + s_pre) + kern.table.numel()),
-        (PRESTAGE_FLOPS + x_servo) * B)
-    bounds["tick_qpchain_servo"] = bound(
-        4 * (B * (s_pre + 2 * n_warm + n_out) + kern.table.numel()), QPCHAIN_FLOPS * B)
-    plan3 = kern3.plan
-    n_pre3, n_out3, n_warm3 = (tc._elems(lay(plan3)) for lay in
-                               (tc.pre_layout, tc.out_layout, tc.warm_layout))
-    pre3_ops, qp3_ops = tick_flops(plan3, WARM_ITERS)
-    pre_ops, qp_ops = tick_flops(plan, WARM_ITERS)
-    print(f"config 3 operations per solve (tick_flops): prestage {pre3_ops}, qpchain "
-          f"{qp3_ops}; the flagship by the same count: prestage {pre_ops}, qpchain {qp_ops} "
-          f"(benchmarks/sol_tick_r05.json: {PRESTAGE_FLOPS:.1f}, {QPCHAIN_FLOPS:.1f})")
-    bounds["tick_prestage_swing"] = bound(4 * (B * (n_q + n_pre3) + kern3.table.numel()),
-                                          pre3_ops * B)
-    bounds["tick_qpchain_swing"] = bound(
-        4 * (B * (n_pre3 + sum(plan3.level_tdofs) + 2 * n_warm3 + n_out3) + kern3.table.numel()),
-        qp3_ops * B)
     for name, (ms, by) in bounds.items():
         print(f"bound {name} at batch {B_M if name.endswith('masked') else B}: "
               f"{ms:.6f} ms ({by})")
@@ -1669,24 +1973,26 @@ def main():
     # each kernel's resources at the launch shape of its record: registers
     # and local bytes per thread, shared bytes per block, blocks per SM, and
     # ptxas's spill bytes
-    smem_qp = {tag: k._lib_and_sizes()[1]["smem_qp"]
-               for tag, k in (("", kern), ("_masked", mkern), ("_swing", kern3))}
-    resources = {"tick_prestage": _build.kernel_info("tick_prestage"),
-                 "psd_inverse": _build.kernel_info("psd_inverse", 39),
+    resources = {"psd_inverse": _build.kernel_info("psd_inverse", 39),
                  "qp_solve": _build.kernel_info("qp_solve")}
-    for tag, S in smem_qp.items():
-        resources["tick_qpchain" + tag] = _build.kernel_info("tick_qpchain", S)
+    for tag, k_ in (("", kern), ("_masked", mkern), ("_swing", kern3), ("_hands", kern_h),
+                    ("_hands_masked", kern_hm)):
+        sz = k_._lib_and_sizes()[1]
+        resources["tick_prestage" + tag] = _build.kernel_info("tick_prestage", sz["stride_pre"])
+        resources["tick_qpchain" + tag] = _build.kernel_info("tick_qpchain", sz["smem_qp"])
+    resources["tick_qpchain_nolim"] = _build.kernel_info(
+        "tick_qpchain_nolim", TickKernels(TickProgram(model, dataclasses.replace(
+            cfg, torque_limit=None), dev, torch.float32))._lib_and_sizes()[1]["smem_qp"])
     for name, res in resources.items():
         print(f"resources {name}: " + "  ".join(f"{k} {v}" for k, v in res.items())
               + "  ptxas spill stores/loads {}/{} bytes".format(
-                  *spills.get(name.removesuffix("_masked").removesuffix("_swing"),
-                              ("not reported",) * 2)))
+                  *spills.get(kernel_source(name), ("not reported",) * 2)))
 
     def entry_(name, launches_, err, key, library_ms, replaces):
         """The record of one kernel; key: its times at the recorded batch."""
         plain_ms, ms, graph_ms = times[key]
-        src = name.removesuffix("_masked").removesuffix("_servo").removesuffix("_swing")
-        res = resources.get(name.removesuffix("_servo"), resources[src])
+        src = kernel_source(name)
+        res = resources.get(name.removesuffix("_servo"), resources.get(src))
         st, ld = spills.get(src, (None, None))
         return {"name": name, "route": "cuda",
                 "source": f"libdwbc_tpu_torch/csrc/{src}.cu", "replaces": replaces,
@@ -1723,6 +2029,14 @@ def main():
                ("tick_prestage_swing", B), None, fused_site),
         entry_("tick_qpchain_swing", launches3["tick_qpchain"], g_err["config 3"][1],
                ("tick_qpchain_swing", B), None, fused_site),
+        entry_("tick_prestage_hands", launches_h["tick_prestage"], g_err["hands"][0],
+               ("tick_prestage_hands", B), None, fused_site),
+        entry_("tick_qpchain_hands", launches_h["tick_qpchain"], g_err["hands"][1],
+               ("tick_qpchain_hands", B), None, fused_site),
+        entry_("tick_prestage_hands_masked", launches_hm["tick_prestage"],
+               g_err["hands masked"][0], ("tick_prestage_hands_masked", B_M), None, fused_site),
+        entry_("tick_qpchain_hands_masked", launches_hm["tick_qpchain"],
+               g_err["hands masked"][1], ("tick_qpchain_hands_masked", B_M), None, fused_site),
     ]}
     print(json.dumps(record))
     print(gpu_line())

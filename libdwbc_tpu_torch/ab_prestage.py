@@ -1,16 +1,19 @@
 """tick_prestage of this tree against another tree's, on one card in one
 process: each tree's csrc/ is built into its own library, and the kernel
 is timed with CUDA events on the serving inputs of chip_smoke.py (static at
-B = 1024 and B = 1, masked at B = 4096, servo'd at B = 1024), in the order
-this, other, other, this; then config 3 (single support, a swing-foot
-third level) at B = 1024 on this tree alone.
+B = 1024 and B = 1, masked at B = 4096, servo'd at B = 1024, config 3 —
+single support, a swing-foot third level — at B = 1024), in the order
+this, other, other, this; then the hands-and-feet plans (entry.
+_hands_feet_config: static at B = 1024, the four candidates masked at
+B = 4096) on this tree alone.
 
     python -m libdwbc_tpu_torch.ab_prestage OTHER_REPO_ROOT
 
-The other tree's tick_prestage must take the same C arguments as this
-one's (``dwbc_tick_prestage``, ``dwbc_pre_elems``,
-``dwbc_prestage_ws_elems``); each tree's kernels read the table that its
-own ``kernel_table`` packs (computed by a python run in that tree).  Prints
+The other tree's tick_prestage must take this one's C arguments
+(``dwbc_tick_prestage``, ``dwbc_pre_elems``, ``dwbc_prestage_ws_elems``),
+or those of a tree without ``dwbc_prestage_stride``, whose kernel takes no
+shared stride; each tree's kernels read the table that its own
+``kernel_table`` packs (computed by a python run in that tree).  Prints
 each time, the mean of each tree's two runs, whether the two prestage
 buffers agree bit for bit, and the card's name and power limit.  Needs a
 CUDA device.
@@ -55,16 +58,19 @@ def build_tree(csrc: Path, out: Path) -> ctypes.CDLL:
                     *objs], check=True)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    for name, args in (("dwbc_pre_elems", [p, i]), ("dwbc_prestage_ws_elems", [p])):
-        getattr(lib, name).argtypes = args
-        getattr(lib, name).restype = ctypes.c_longlong
-    lib.dwbc_tick_prestage.argtypes = [p, p, p, p, p, p, i, p, p, i, p]
+    stride = getattr(lib, "dwbc_prestage_stride", None) is not None
+    for name, args in (("dwbc_pre_elems", [p, i]), ("dwbc_prestage_ws_elems", [p]),
+                       ("dwbc_prestage_stride", [p])):
+        if name != "dwbc_prestage_stride" or stride:
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = ctypes.c_longlong
+    lib.dwbc_tick_prestage.argtypes = [p, p, p, p, p, p, i, p, p] + [i] * (1 + stride) + [p]
     lib.dwbc_tick_prestage.restype = i
     return lib
 
 
-# run in a tree: the flagship's kernel tables, static and masked, as that
-# tree packs them (JSON lists of float64)
+# run in a tree: the kernel tables of the flagship, static and masked, and
+# of config 3, as that tree packs them (JSON lists of float64)
 _TABLES = """
 import json, sys
 sys.path.insert(0, sys.argv[1])
@@ -76,17 +82,20 @@ from libdwbc_tpu_torch.ops.tick_kernel import TickProgram
 from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
 m = RobotModel.load(str(entry.MODEL_PATH))
 cfg = standard_tocabi_config(m, qp_iters=12)
-print(json.dumps({str(int(k)): kernel_table(TickProgram(m, cfg, "cpu", torch.float64,
-                                                        masked=k).plan).tolist()
-                  for k in (False, True)}))
+cfg3 = standard_tocabi_config(m, both_feet=False, swing_task=True, qp_iters=12)
+print(json.dumps({name: kernel_table(TickProgram(m, c, "cpu", torch.float64,
+                                                 masked=k).plan).tolist()
+                  for name, c, k in (("static", cfg, False), ("masked", cfg, True),
+                                     ("config 3", cfg3, False))}))
 """
 
 
 def tree_tables(root: Path):
-    """{masked: float32 table} of the flagship as the tree at root packs it."""
+    """{"static", "masked", "config 3": float32 table} as the tree at root
+    packs them."""
     out = subprocess.run([sys.executable, "-c", _TABLES, str(root)], capture_output=True,
                          text=True, check=True, cwd=str(root)).stdout
-    return {k == "1": np.asarray(v, np.float32) for k, v in json.loads(out).items()}
+    return {k: np.asarray(v, np.float32) for k, v in json.loads(out).items()}
 
 
 def prestage_call(lib, table_host, table, q, cmask, servo=None):
@@ -95,6 +104,8 @@ def prestage_call(lib, table_host, table, q, cmask, servo=None):
     returns the prestage buffer."""
     host = table_host.ctypes.data_as(ctypes.c_void_p)
     B = q.shape[1]
+    stride = ([lib.dwbc_prestage_stride(host)]
+              if getattr(lib, "dwbc_prestage_stride", None) is not None else [])
     qd, fs, sv, smask = servo if servo else (None, None, None, 0)
     pre = torch.empty((lib.dwbc_pre_elems(host, int(smask != 0)), B), dtype=torch.float32,
                       device=q.device)
@@ -106,7 +117,7 @@ def prestage_call(lib, table_host, table, q, cmask, servo=None):
         rc = lib.dwbc_tick_prestage(table.data_ptr(), q.data_ptr(),
                                     None if cmask is None else cmask.data_ptr(),
                                     *(None if t is None else t.data_ptr() for t in (qd, fs, sv)),
-                                    smask, pre.data_ptr(), ws.data_ptr(), B,
+                                    smask, pre.data_ptr(), ws.data_ptr(), *stride, B,
                                     torch.cuda.current_stream(q.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"tick_prestage launch failed: CUDA error {rc}")
@@ -152,24 +163,30 @@ def main():
     sv_el = FusedTick(model, cfg, dev, backend="cuda")._servos_el(servos, 1024)
     servo = (el(sqd), torch.cat([el(f) for f in sfs], 0).contiguous(),
              pack_servos(sv_el, sprog.plan, 1024), servo_mask(sv_el, sprog.plan))
+    q3, _, _ = entry._swing_inputs(model, 1024, seed=0)
     cases = []
-    for label, masked, q, cm, sv in (("static B 1024", False, qs, None, None),
-                                     ("static B 1", False, qs[:1], None, None),
-                                     ("masked B 4096", True, mq, masks, None),
-                                     ("servo'd B 1024", False, sq, None, servo)):
+    for label, tab, q, cm, sv in (("static B 1024", "static", qs, None, None),
+                                  ("static B 1", "static", qs[:1], None, None),
+                                  ("masked B 4096", "masked", mq, masks, None),
+                                  ("servo'd B 1024", "static", sq, None, servo),
+                                  ("config 3 B 1024", "config 3", q3, None, None)):
         cd = None if cm is None else el(cm)
         runs = {}
         for tag, lib in libs.items():
-            th = np.ascontiguousarray(tables[tag][masked])
+            th = np.ascontiguousarray(tables[tag][tab])
             runs[tag] = prestage_call(lib, th, torch.as_tensor(th, device=dev), el(q), cd, sv)
         cases.append((label, runs))
-    # config 3: this tree only (a tree before the general plans refuses it)
-    cfg3 = standard_tocabi_config(model, both_feet=False, swing_task=True, qp_iters=12)
-    q3, _, _ = entry._swing_inputs(model, 1024, seed=0)
-    th3 = np.ascontiguousarray(kernel_table(TickProgram(model, cfg3, "cpu", torch.float64).plan)
-                               .astype(np.float32))
-    cases.append(("config 3 B 1024", {"this": prestage_call(
-        libs["this"], th3, torch.as_tensor(th3, device=dev), el(q3), None)}))
+    # the hands-and-feet plans: this tree only (a tree before them refuses them)
+    hcfg = entry._hands_feet_config(model)
+    hq, _, _ = entry._hands_feet_inputs(model, 1024, seed=0)
+    hmq, _, _, hmasks = entry._hands_masked_inputs(model, 4096, seed=0)
+    for label, masked, q, cm in (("hands B 1024", False, hq, None),
+                                 ("hands masked B 4096", True, hmq, hmasks)):
+        th = np.ascontiguousarray(kernel_table(TickProgram(
+            model, hcfg, "cpu", torch.float64, masked=masked).plan).astype(np.float32))
+        cases.append((label, {"this": prestage_call(
+            libs["this"], th, torch.as_tensor(th, device=dev), el(q),
+            None if cm is None else el(cm))}))
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
@@ -182,12 +199,15 @@ def main():
             continue
         for tag in ("this", "other", "other", "this"):
             t[tag].append(event_ms(runs[tag]))
-        same = torch.equal(runs["this"]().clone(), runs["other"]().clone())
+        a, b = runs["this"]().clone(), runs["other"]().clone()
+        same = torch.equal(a, b)
+        diff = "" if same else (f" ({int((a != b).sum())} entries differ, max abs "
+                                f"{float((a - b).abs().max()):.3e})")
         print(f"tick_prestage {label}: this " + " ".join(f"{v:.3f}" for v in t["this"])
               + f" (mean {np.mean(t['this']):.3f}) ms, other "
               + " ".join(f"{v:.3f}" for v in t["other"])
-              + f" (mean {np.mean(t['other']):.3f}) ms; buffers bit for bit equal: {same}  "
-              f"[{card}]")
+              + f" (mean {np.mean(t['other']):.3f}) ms; buffers bit for bit equal: {same}"
+              f"{diff}  [{card}]")
 
 
 if __name__ == "__main__":

@@ -2,14 +2,16 @@
 process: each tree's csrc/ is built into its own library, and the kernel
 is timed with CUDA events on warm QP chains (7 iterations, from a cold
 12-iteration warm state) over this tree's prestage of chip_smoke.py's
-serving inputs (static at B = 1024 and B = 1, masked at B = 4096), in the
-order this, other, other, this; then config 3 (single support, a
-swing-foot third level) at B = 1024 on this tree alone.
+serving inputs (static at B = 1024 and B = 1, masked at B = 4096, config 3
+— single support, a swing-foot third level — at B = 1024), in the order
+this, other, other, this; then the hands-and-feet plans (entry.
+_hands_feet_config: static at B = 1024, the four candidates masked at
+B = 4096) on this tree alone.
 
     python -m libdwbc_tpu_torch.ab_qpchain OTHER_REPO_ROOT
 
 The other tree's tick_qpchain must take the same C arguments and read the
-flagship's prestage buffer as this one's; each tree's kernel reads the
+flagship's and config 3's prestage buffers as this one's; each tree's kernel reads the
 table that its own ``kernel_table`` packs.  Prints each time, the mean of
 each tree's two runs, whether the two results agree bit for bit, and the
 card's name and power limit.  Needs a CUDA device.
@@ -82,14 +84,19 @@ def main():
           + 0.05 * rng.standard_normal((1024, f.shape[0])).astype(np.float32) for f in f0]
     mq, _, mfs, masks = entry._masked_inputs(model, 4096, seed=0)
     q3, _, fs3 = entry._swing_inputs(model, 1024, seed=0)
+    hcfg = entry._hands_feet_config(model)
+    hq, _, hfs = entry._hands_feet_inputs(model, 1024, seed=0)
+    hmq, _, hmfs, hmasks = entry._hands_masked_inputs(model, 4096, seed=0)
     el = (lambda a: torch.as_tensor(np.ascontiguousarray(a.T), device=dev))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
-    for label, c, masked, q, f, cm in (
-            ("static B 1024", cfg, False, qs, fs, None),
-            ("static B 1", cfg, False, qs[:1], [x[:1] for x in fs], None),
-            ("masked B 4096", cfg, True, mq, mfs, masks),
-            ("config 3 B 1024", cfg3, False, q3, fs3, None)):
+    for label, c, masked, q, f, cm, tab in (
+            ("static B 1024", cfg, False, qs, fs, None, "static"),
+            ("static B 1", cfg, False, qs[:1], [x[:1] for x in fs], None, "static"),
+            ("masked B 4096", cfg, True, mq, mfs, masks, "masked"),
+            ("config 3 B 1024", cfg3, False, q3, fs3, None, "config 3"),
+            ("hands B 1024", hcfg, False, hq, hfs, None, None),
+            ("hands masked B 4096", hcfg, True, hmq, hmfs, hmasks, None)):
         k = tc.TickKernels(TickProgram(model, c, dev, torch.float32, masked=masked))
         nb = q.shape[0]
         pre = k.prestage_packed(el(q), None if cm is None else el(cm))
@@ -99,8 +106,8 @@ def main():
         n_out, n_warm = tc._elems(tc.out_layout(k.plan)), tc._elems(tc.warm_layout(k.plan))
         runs = {"this": qpchain_call(libs["this"], k._table_host, pre.buf, fsb, warm, nb,
                                      n_out, n_warm)}
-        if c is cfg:      # a tree before the general plans refuses config 3
-            runs["other"] = qpchain_call(libs["other"], tables["other"][masked], pre.buf, fsb,
+        if tab is not None:   # a tree before the hands-and-feet plans refuses them
+            runs["other"] = qpchain_call(libs["other"], tables["other"][tab], pre.buf, fsb,
                                          warm, nb, n_out, n_warm)
         t = {tag: [] for tag in runs}
         for tag in ("this", "other", "other", "this"):

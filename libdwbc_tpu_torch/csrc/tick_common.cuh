@@ -89,30 +89,45 @@ DWBC_HDI double rsqrt_(double x) { return 1.0 / sqrt(x); }
 //   parent[nbody] q_index[nbody] owner[ndof] axis[nbody,3] X_rot[nbody,3,3]
 //   X_trans[nbody,3] com[nbody,3] inertia[nbody,3,3] mass[nbody]
 //   amask[nbody,ndof] gravity[3] pt_link[npts] pt_off[npts,3]
-//   c_slot[nc] c_link[nc] c_blk[nc,10,6] task[ntask,4] tlim[mdof]
-// The configurations taken: one or two 6D contacts (in masked mode a 6D
-// candidate set), a torque limit, at most NLEV_MAX task levels of tasks in
-// level order, NTASK_MAX in all.  Header slots 0-9 hold the dims, 10 the
-// masked flag, 11 the task count, 12 whether a task is the whole-body COM,
-// 13 the model's total mass, 16-19 the task dofs per level.  Task k's four
-// fields: its level, its point slot (TASK_TOT: the whole-body COM), and the
-// rows it takes of that point's 6-row jacobian, first row and count (0, 6:
-// 6D; 0, 3: position; 3, 3: rotation).
+//   contact[nc,CFIELDS] c_rmask[nc,6] c_cmask[nc,CROWS] c_blk[nc,CROWS,6]
+//   task[ntask,4] tlim[mdof, only with a torque limit]
+// The configurations taken: one to NC_MAX contacts of any type (6D, POINT,
+// LINE; in masked mode a candidate set, each padded to 6 jacobian rows and
+// CROWS constraint rows), with or without a torque limit, at most NLEV_MAX
+// task levels of tasks in level order, NTASK_MAX in all.  Header slots 0-9
+// hold the dims, 10 the masked flag, 11 the task count, 12 whether a task
+// is the whole-body COM, 13 the model's total mass, 14 whether the torques
+// are limited, 16-19 the task dofs per level.  Contact c's fields: its
+// point slot, its link, its type, its first row in J_C and its rows there
+// (6D 6, POINT 3, LINE 5; masked 6), its first constraint row and its
+// constraint rows (6D 10, POINT 6, LINE 8; masked 10); then its live
+// jacobian rows and live constraint rows (0/1, read in masked mode: POINT
+// keeps the translation rows and the cone, LINE drops the local-x moment
+// and the y-edge ZMP rows), and its constraint block, its rows × its J_C
+// rows in the top-left corner of a CROWS × 6 slot.  Task k's four fields:
+// its level, its point slot (TASK_TOT: the whole-body COM), and the rows it
+// takes of that point's 6-row jacobian, first row and count (0, 6: 6D; 0,
+// 3: position; 3, 3: rotation).
 constexpr int HDR = 32;
 constexpr int NLEV_MAX = 4;
 constexpr int NTASK_MAX = 16;    // the servo's task mask is an int
-constexpr int H_MASKED = 10, H_NTASK = 11, H_TOT = 12, H_MASS = 13, H_LEV_T = 16;
+constexpr int NC_MAX = 4;
+constexpr int H_MASKED = 10, H_NTASK = 11, H_TOT = 12, H_MASS = 13, H_LIM = 14, H_LEV_T = 16;
 constexpr int TASK_FIELDS = 4, TASK_TOT = -1;
+constexpr int CFIELDS = 7;       // slot, link, type, J_C row, rows, constraint row, rows
 constexpr int CROWS = 10;        // constraint rows of a 6D contact
+constexpr int CONTACT_LINE = 2;  // wbc/types.py's contact types: 0 6D, 1 POINT, 2 LINE
 
 template <typename T>
 struct Tab {
   int nbody, ndof, mdof, npts, nc, cdof, cfree, krows, nlev, nq, ntask;
   bool masked;                   // a per-scenario contact mask picks the candidates
   bool tot;                      // a task on the whole-body COM
+  bool lim;                      // a torque limit: the QPs' mirrored ±τ rows
   T mtot;                        // the model's total mass
   const T *hdr, *parent, *qidx, *owner, *axis, *xrot, *xtrans, *com, *inertia,
-      *mass, *amask, *gravity, *pt_link, *pt_off, *c_slot, *c_link, *c_blk, *task, *tlim;
+      *mass, *amask, *gravity, *pt_link, *pt_off, *contact, *c_rmask, *c_cmask, *c_blk,
+      *task, *tlim;
 
   DWBC_HD explicit Tab(const T* t) {
     nbody = (int)t[0]; ndof = (int)t[1]; mdof = (int)t[2]; npts = (int)t[3];
@@ -121,6 +136,7 @@ struct Tab {
     masked = t[H_MASKED] != (T)0;
     ntask = (int)t[H_NTASK];
     tot = t[H_TOT] != (T)0;
+    lim = t[H_LIM] != (T)0;
     mtot = t[H_MASS];
     hdr = t;
     const T* o = t + HDR;
@@ -137,8 +153,9 @@ struct Tab {
     gravity = o; o += 3;
     pt_link = o; o += npts;
     pt_off = o;  o += npts * 3;
-    c_slot = o;  o += nc;
-    c_link = o;  o += nc;
+    contact = o; o += nc * CFIELDS;
+    c_rmask = o; o += nc * 6;
+    c_cmask = o; o += nc * CROWS;
     c_blk = o;   o += nc * CROWS * 6;
     task = o;    o += ntask * TASK_FIELDS;
     tlim = o;
@@ -150,6 +167,13 @@ struct Tab {
   DWBC_HDI int task_slot(int k) const { return (int)task[TASK_FIELDS * k + 1]; }
   DWBC_HDI int task_r0(int k) const { return (int)task[TASK_FIELDS * k + 2]; }
   DWBC_HDI int task_nr(int k) const { return (int)task[TASK_FIELDS * k + 3]; }
+  DWBC_HDI int c_slot(int c) const { return (int)contact[CFIELDS * c]; }
+  DWBC_HDI int c_link(int c) const { return (int)contact[CFIELDS * c + 1]; }
+  DWBC_HDI bool c_line(int c) const { return (int)contact[CFIELDS * c + 2] == CONTACT_LINE; }
+  DWBC_HDI int c_j0(int c) const { return (int)contact[CFIELDS * c + 3]; }
+  DWBC_HDI int c_dof(int c) const { return (int)contact[CFIELDS * c + 4]; }
+  DWBC_HDI int c_k0(int c) const { return (int)contact[CFIELDS * c + 5]; }
+  DWBC_HDI int c_nk(int c) const { return (int)contact[CFIELDS * c + 6]; }
   DWBC_HDI int tmax() const {
     int t = 0;
     for (int h = 0; h < nlev; ++h) t = lev_t(h) > t ? lev_t(h) : t;
@@ -160,8 +184,9 @@ struct Tab {
     for (int h = 0; h < nlev; ++h) t += lev_t(h);
     return t;
   }
-  DWBC_HDI int mrows() const { return 2 * mdof + krows; }   // QP rows m
-  DWBC_HDI int srows() const { return mdof + krows; }       // stored rows
+  DWBC_HDI int mirror() const { return lim ? mdof : 0; }    // mirrored ±τ row pairs
+  DWBC_HDI int mrows() const { return 2 * mirror() + krows; }   // QP rows m
+  DWBC_HDI int srows() const { return mdof + krows; }       // rows of C's storage
   DWBC_HDI int nqp() const { return nlev + (cfree > 0 ? 1 : 0); }   // + redistribution
 };
 
@@ -223,7 +248,7 @@ struct Out {
 // ------------------------------------------- warm state: (x, λ) per QP
 // x (n) then λ (m) of each QP in turn: QP h < nlev has n = lev_t(h) +
 // cfree, the redistribution QP (only where cfree > 0) n = cfree; every QP
-// has m = 2·mdof + krows rows.  Same order as ops/tick_cuda.py::warm_layout
+// has m = krows rows, and 2·mdof more with a torque limit.  Same order as ops/tick_cuda.py::warm_layout
 // (TickPlan.qp_dims).
 template <typename T>
 DWBC_HDI long long warm_elems(const Tab<T>& tb) {

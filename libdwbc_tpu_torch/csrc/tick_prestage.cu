@@ -9,16 +9,20 @@
 // (complete_basis + qr_thin), the factored W-apply (Cholesky of Wfree+V2V2ᵀ
 // with a rank-cfree correction: W⁻¹ is never formed), NwJw (qr_pinv), τ_grav,
 // per-level JKT and Ntorque with the f32 relative ridge, and Atemp, bA0.
-// General plans (kernel_unsupported in ops/tick_cuda.py): one or two 6D
-// contacts (one: cfree = 0, no kernel basis, W = Wfree factored alone),
-// up to NLEV_MAX levels, each a list of 6D, position or rotation tasks on a
+// General plans (kernel_unsupported in ops/tick_cuda.py): one to NC_MAX
+// contacts of any type (POINT: the translation rows and blk·Rᵀ; LINE: the
+// translation rows, the moment rows in the contact's frame (Rᵀ·J_rot)[1:3]
+// and blk·(Rᵀ ⊕ I); one contact of 6 dof or fewer: cfree = 0, no kernel
+// basis, W = Wfree factored alone), up to NLEV_MAX levels, each a list of 6D, position or rotation tasks on a
 // point (link origin, COM-frame or custom-frame) or on the whole-body COM,
 // whose jacobian Jcom_total (linear rows A[0:3]/M, angular rows the
 // centroidal inertia's solve against the COM momentum map) is formed from
 // A before A⁻¹ overwrites it; each level after the first in the null space
 // of those above, Pn ← Pn·(I − Jkt·Q).
-// Masked mode (a per-scenario 0/1 mask over two 6D candidates): J_C rows ×
-// the mask, +1 on the inactive diagonal of Mc and Λc re-masked, the kernel
+// Masked mode (a per-scenario 0/1 mask over up to NC_MAX candidates, each
+// padded to 6 jacobian and 10 constraint rows, its type's dead rows masked
+// by the table's live-row masks): J_C rows × the masks, +1 on the inactive
+// diagonal of Mc and Λc re-masked, the kernel
 // basis by orthonormalize_drop + compact_columns (exact zero columns for a
 // single-support lane), NwJw through the first (c_act − 6) active rows, and
 // the per-lane constraint-row mask and active contact dof as outputs.
@@ -58,7 +62,7 @@
 //     per level, Pn (1,089) from level 0 to level 1.
 // The peak is ~10k floats (40 KB), past the 28 KB that a warp can have at
 // two blocks of four per SM.  Held
-// whole in shared memory, a scenario would leave five warps per SM and
+// whole in shared memory (flagship), a scenario would leave five warps per SM and
 // B = 1024 would run the whole chain in two waves.  So the split: 6,996
 // floats (27,984 bytes, PreWS::smem) in shared memory with the dead
 // buffers overlaid (PreWS), everything that a chain of dependent phases
@@ -69,8 +73,12 @@
 // few passes) in a device-memory workspace laid out scenario-major
 // ([B][elem], stride 1), where a warp's row-split loads are neighbouring
 // words and its broadcast reads one word.  B = 1024 runs in one wave of
-// eight warps per SM.  The prestage output stays element-leading
-// ([elem][B]), as tick_qpchain and the wrappers read it.
+// eight warps per SM.  A plan whose shared part exceeds 7,232 floats (three
+// or four contacts: the hands-and-feet plan 9,105, its four candidates
+// masked 12,303; or a wide level, whose rows X's buffer then holds past
+// nd²) runs one block per SM with the shared part it needs
+// (dwbc_prestage_stride), up to kPreSmemMax.  The prestage output stays
+// element-leading ([elem][B]), as tick_qpchain and the wrappers read it.
 //
 // What bounds it on the H100: about 337k FLOP per scenario of small dense
 // factorisations, which the warp runs as a chain of some hundreds of
@@ -96,8 +104,21 @@ namespace dwbc {
 
 constexpr int kPreWarps = 4;    // scenarios per block
 // Shared floats of one scenario: two blocks of kPreWarps warps per SM,
-// (228 KB − 2 × 1 KB reserved) / 2 / kPreWarps / 4 bytes.
+// (228 KB − 2 × 1 KB reserved) / 2 / kPreWarps / 4 bytes.  A scenario that
+// needs more (three or four contacts, a wide level) gets what it needs, up
+// to kPreSmemMax, one block per SM.
 constexpr long long kPreSmemElems = 7232;
+constexpr long long kPreSmemMax = 2 * kPreSmemElems;
+
+// The floats of X's buffer: nd², or what it is given once A⁻¹ is formed if
+// that is more — the small inverses' L and X (order max(cd, 6, tmax)), J_C,
+// then J_C·A⁻¹ (contact space) or a level's Jt, JtA, JAN (JKT loop).
+template <typename T>
+DWBC_HD long long prestage_x_elems(const Tab<T>& tb) {
+  const long long nd = tb.ndof, cd = tb.cdof, tm = tb.tmax();
+  const long long ls = vmax(vmax(cd, 6LL), tm);
+  return vmax(nd * nd, 2 * ls * ls + cd * nd + vmax(cd * nd, 3 * tm * nd));
+}
 
 // One scenario's working set: views into its shared part (sh) and into its
 // slice of the scenario-major workspace in device memory (a), stride 1
@@ -118,19 +139,23 @@ struct PreWS {
       H6, Wf, Qb, Rres, Ny, V2T, M6, Qp, Rp, Pinv, v1, Jt, JtA, JtAJc, JAN, Mt, Lam, Q, QT,
       WQt, VtB, QWQ, Jkt, JktLam, Pn, JbV, wb, vb, Jcom;
   V<T> idg, G, NCG, idgW, rm, live, cfb;
-  long long smem;                // shared elements, the overlays' largest extent (2⁴⁰
-                                 // if X's buffer cannot hold what it is given)
+  long long smem;                // shared elements, the overlays' largest extent
 
   DWBC_HD PreWS(Arena<T>& a, Arena<T>& sh, const Tab<T>& tb) {
     const int nb = tb.nbody, nd = tb.ndof, md = tb.mdof, cd = tb.cdof,
               cf = tb.cfree, tm = tb.tmax();
+    // the small inverses' order: Mc (cd), the health's 6×6 and the levels' t
+    const int ls = vmax(vmax(cd, 6), tm);
     A = sh.mat(nd, nd);
     Ainv = A;
     X = sh.mat(nd, nd);
+    // X's buffer grows past nd² where what it is given needs more (many
+    // contacts, a wide level): prestage_x_elems
+    sh.vec((int)(prestage_x_elems(tb) - (long long)nd * nd));
     idg = sh.vec(nd);
     Arena<T> xa{X.p, 1, 0};
-    Ls = xa.mat(cd, cd);
-    Xs = xa.mat(cd, cd);
+    Ls = xa.mat(ls, ls);
+    Xs = xa.mat(ls, ls);
     JC = xa.mat(cd, nd);
     Arena<T> jkt = xa;
     JAinv = xa.mat(cd, nd);
@@ -175,8 +200,7 @@ struct PreWS {
     Jkt = sh.mat(md, tm);
     JktLam = sh.mat(md, tm);
     JtAJc = sh.mat(tm, cd);
-    smem = vmax(xa.off, jkt.off) <= (long long)nd * nd
-               ? vmax(sh.off, vmax(crba.off, servo.off)) : 1LL << 40;
+    smem = vmax(sh.off, vmax(crba.off, servo.off));
     J = a.mat(6 * tb.npts, nd);
     G = a.vec(nd);
     NCG = a.vec(nd);
@@ -302,6 +326,15 @@ DWBC_HD void servo_lane(const Tab<T>& tb, const PreWS<T>& w, const Pre<T>& pre, 
     }
     foff += nr;
   }
+}
+
+// The contact whose rows hold row i: of J_C (k0 false) or of the
+// constraint rows (k0 true).
+template <typename T>
+DWBC_HDI int contact_of(const Tab<T>& tb, int i, bool k0) {
+  int c = 0;
+  while (c + 1 < tb.nc && i >= (k0 ? tb.c_k0(c + 1) : tb.c_j0(c + 1))) ++c;
+  return c;
 }
 
 // One scenario, run by the lanes of wp.  cmp is the scenario's contact mask
@@ -589,14 +622,30 @@ DWBC_HD void prestage_lane(const T* table, const T* qp, const T* cmp, const T* q
   psd_inverse(w.Ainv, w.A, w.A, w.X, w.idg, nd, wp);      // A⁻¹ in A's place
   DWBC_PRE_PHASE(4);
 
-  // ---------------- contact jacobian rows (6D contacts: all six rows;
-  // masked: times the candidate's 0/1 mask, so dead rows are exact zeros)
+  // ---------------- contact jacobian rows per contact: 6D all six rows,
+  // POINT the translation rows, LINE the translation rows and the moment
+  // rows in the contact's frame, (Rᵀ·J_rot)[1:3] (masked: all three, the
+  // local-x one statically dead); masked: each candidate's six rows times
+  // its live-row mask and the candidate's 0/1 mask, so dead rows are exact
+  // zeros
   for (int e = wp.lane; e < cd * nd; e += wp.nl) {
-    const int row = e / nd, j = e - row * nd, c = row / 6, r = row - 6 * c;
-    const int slot = (int)tb.c_slot[c];
-    const T mk = tb.masked ? cmp[(long long)c * B] : (T)1;
-    if (tb.masked && j == 0) w.rm[row] = mk;
-    w.JC(row, j) = tb.masked ? w.J(6 * slot + r, j) * mk : w.J(6 * slot + r, j);
+    const int row = e / nd, j = e - row * nd, c = contact_of(tb, row, false),
+              r = row - tb.c_j0(c);
+    const int slot = tb.c_slot(c);
+    T v;
+    if (tb.c_line(c) && r >= 3) {         // local moment row rl: Σ_k R(k, rl)·J_rot(k)
+      const int link = tb.c_link(c), rl = r - (tb.c_dof(c) - 3);
+      v = w.Rb(link, rl) * w.J(6 * slot + 3, j);
+      for (int k = 1; k < 3; ++k) v += w.Rb(link, 3 * k + rl) * w.J(6 * slot + 3 + k, j);
+    } else {
+      v = w.J(6 * slot + r, j);
+    }
+    if (tb.masked) {
+      const T live = cmp[(long long)c * B] * tb.c_rmask[6 * c + r];
+      if (j == 0) w.rm[row] = live;
+      v = v * live;
+    }
+    w.JC(row, j) = v;
   }
   wp.sync();
   if (tb.masked && wp.lane == 0) {         // the lane's active contact dof
@@ -793,35 +842,52 @@ DWBC_HD void prestage_lane(const T* table, const T* qp, const T* cmp, const T* q
 
   DWBC_PRE_PHASE(8);
 
-  // ---------------- constraint rows: CM_c = blk_c·(Rᵀ ⊕ Rᵀ), Atemp, bA0;
-  // a lane per row
-  for (int o = wp.lane; o < tb.nc * CROWS; o += wp.nl) {
-    const int c = o / CROWS, r = o - c * CROWS;
-    const int link = (int)tb.c_link[c];
+  // ---------------- constraint rows: CM_c = blk_c·(Rᵀ ⊕ Rᵀ) (6D; masked:
+  // POINT too), blk_c·Rᵀ (POINT), blk_c·(Rᵀ ⊕ I) (LINE: its moment rows of
+  // J_C are contact-local already), Atemp, bA0; a lane per row
+  for (int o = wp.lane; o < tb.krows; o += wp.nl) {
+    const int c = contact_of(tb, o, true), r = o - tb.c_k0(c), link = tb.c_link(c), j0 = tb.c_j0(c), dof = tb.c_dof(c);
+    const bool line = tb.c_line(c);
     const T* blk = tb.c_blk + c * CROWS * 6;
+    // all six formed (a fixed index keeps cm in registers); a 6D contact's
+    // sums run as one chain of fused multiply-adds, a shorter contact's
+    // stop at its rows
     T cm[6];
     for (int cc = 0; cc < 6; ++cc) {
       const int h0 = cc < 3 ? 0 : 3, col = cc < 3 ? cc : cc - 3;
       T acc = blk[6 * r + h0] * w.Rb(link, 3 * col);
       for (int k = 1; k < 3; ++k) acc += blk[6 * r + h0 + k] * w.Rb(link, 3 * col + k);
-      cm[cc] = acc;
+      cm[cc] = line && cc >= 3 ? blk[6 * r + cc] : acc;
     }
-    for (int j = 0; j < md; ++j) {
-      T acc = cm[0] * w.Jbar(6 * c, 6 + j);
-      for (int cc = 1; cc < 6; ++cc) acc += cm[cc] * w.Jbar(6 * c + cc, 6 + j);
-      pre.Atemp(o, j) = acc;
+    if (dof == 6) {
+      for (int j = 0; j < md; ++j) {
+        T acc = cm[0] * w.Jbar(j0, 6 + j);
+        for (int cc = 1; cc < 6; ++cc) acc += cm[cc] * w.Jbar(j0 + cc, 6 + j);
+        pre.Atemp(o, j) = acc;
+      }
+      T acc = cm[0] * pre.PC[j0];
+      for (int cc = 1; cc < 6; ++cc) acc += cm[cc] * pre.PC[j0 + cc];
+      pre.bA0[o] = acc;
+    } else {
+      for (int j = 0; j < md; ++j) {
+        T acc = cm[0] * w.Jbar(j0, 6 + j);
+        for (int cc = 1; cc < 6; ++cc)
+          if (cc < dof) acc += cm[cc] * w.Jbar(j0 + cc, 6 + j);
+        pre.Atemp(o, j) = acc;
+      }
+      T acc = cm[0] * pre.PC[j0];
+      for (int cc = 1; cc < 6; ++cc)
+        if (cc < dof) acc += cm[cc] * pre.PC[j0 + cc];
+      pre.bA0[o] = acc;
     }
-    T acc = cm[0] * pre.PC[6 * c];
-    for (int cc = 1; cc < 6; ++cc) acc += cm[cc] * pre.PC[6 * c + cc];
-    pre.bA0[o] = acc;
   }
   for (int e = wp.lane; e < cd * md; e += wp.nl) {
     const int r = e / md, j = e - r * md;
     pre.Jbar_act(r, j) = w.Jbar(r, 6 + j);
   }
-  if (tb.masked)            // 6D candidates: every constraint row follows its contact
+  if (tb.masked)            // a candidate's live constraint rows follow its mask
     for (int o = wp.lane; o < tb.nc * CROWS; o += wp.nl)
-      pre.crow[o] = cmp[(long long)(o / CROWS) * B];
+      pre.crow[o] = cmp[(long long)(o / CROWS) * B] * tb.c_cmask[o];
   if (smask != 0 && wp.lane == 0)
     servo_lane(tb, w, pre, q, V<T>{const_cast<T*>(qdp), B}, V<T>{const_cast<T*>(fsp), B},
                svp, smask, B);
@@ -869,35 +935,49 @@ extern "C" long long dwbc_prestage_smem_elems(const float* table_host) {
   return dwbc::prestage_smem_elems(table_host);
 }
 
-extern "C" long long dwbc_prestage_smem_cap() { return dwbc::kPreSmemElems; }
+extern "C" long long dwbc_prestage_smem_cap() { return dwbc::kPreSmemMax; }
+
+// The shared floats the kernel gives each scenario of this table (its
+// launch shape): kPreSmemElems, two blocks per SM, where the table's need
+// fits; else the need itself, one block per SM.
+extern "C" long long dwbc_prestage_stride(const float* table_host) {
+  const long long need = dwbc::prestage_smem_elems(table_host);
+  return need <= dwbc::kPreSmemElems ? dwbc::kPreSmemElems : need;
+}
 
 #ifdef __CUDACC__
-// Two blocks per SM, as the shared part allows; the bound also lets ptxas
-// use 220 registers without spills, where without it it chose 128 and
-// spilled.
+// Two blocks per SM, as the shared part allows (S = kPreSmemElems); the
+// bound also lets ptxas use 220 registers without spills, where without it
+// it chose 128 and spilled.  S is the shared floats per scenario.
 __global__ void __launch_bounds__(32 * dwbc::kPreWarps, 2)
     tick_prestage_kernel(const float* table, const float* q, const float* cmask,
                          const float* qdot, const float* fs, const float* servo,
-                         int smask, float* pre, float* ws, int B) {
+                         int smask, float* pre, float* ws, int B, int S) {
   extern __shared__ float sm[];
   const int w = threadIdx.x / 32;
   const long long b = (long long)blockIdx.x * dwbc::kPreWarps + w;
   if (b >= B) return;          // whole warps only: a zero q would give NaNs
   // beyond the shared part: refused by the wrapper
-  if (dwbc::prestage_smem_elems(table) > dwbc::kPreSmemElems) return;
+  if (dwbc::prestage_smem_elems(table) > S) return;
   const long long wse = dwbc::prestage_ws_elems(table);
   dwbc::prestage_lane<float>(table, q + b, cmask ? cmask + b : nullptr,
                              smask ? qdot + b : nullptr, smask ? fs + b : nullptr,
                              smask ? servo + b : nullptr, smask, pre + b, ws + b * wse,
-                             sm + w * dwbc::kPreSmemElems, (long long)B,
+                             sm + (long long)w * S, (long long)B,
                              dwbc::Lanes{(int)threadIdx.x % 32, 32, nullptr});
 }
 
-static constexpr size_t kPreSmemBytes = sizeof(float) * dwbc::kPreWarps * dwbc::kPreSmemElems;
+static size_t prestage_smem_bytes(int S) { return sizeof(float) * dwbc::kPreWarps * (size_t)S; }
 
-static cudaError_t prestage_allow_smem() {
-  static cudaError_t rc = cudaFuncSetAttribute(
-      tick_prestage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kPreSmemBytes);
+// Allow the dynamic shared memory of S elements per scenario (once per
+// size the process has seen grow).
+static cudaError_t prestage_allow_smem(int S) {
+  static size_t allowed = 48 * 1024;
+  const size_t bytes = prestage_smem_bytes(S);
+  if (bytes <= allowed) return cudaSuccess;
+  cudaError_t rc = cudaFuncSetAttribute(tick_prestage_kernel,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (rc == cudaSuccess) allowed = bytes;
   return rc;
 }
 
@@ -905,22 +985,24 @@ static cudaError_t prestage_allow_smem() {
 // smask != 0), B), ws (B × prestage_ws_elems, scenario-major); with a
 // nonzero level mask smask also qdot (ndof, B), fs (Σ task dofs, B) and
 // servo (SERVO_ELEMS × servo'd levels, B): float32, contiguous, on the
-// device; dwbc_prestage_smem_elems ≤ dwbc_prestage_smem_cap; launched on
-// `stream`, no synchronisation.
+// device; S = dwbc_prestage_stride of the table, at most
+// dwbc_prestage_smem_cap; launched on `stream`, no synchronisation.
 extern "C" int dwbc_tick_prestage(const float* table, const float* q,
                                   const float* cmask, const float* qdot,
                                   const float* fs, const float* servo, int smask,
-                                  float* pre, float* ws, int B, void* stream) {
-  if (cudaError_t rc = prestage_allow_smem()) return (int)rc;
+                                  float* pre, float* ws, int S, int B, void* stream) {
+  if (cudaError_t rc = prestage_allow_smem(S)) return (int)rc;
   const int blocks = (B + dwbc::kPreWarps - 1) / dwbc::kPreWarps;
-  tick_prestage_kernel<<<blocks, 32 * dwbc::kPreWarps, kPreSmemBytes, (cudaStream_t)stream>>>(
-      table, q, cmask, qdot, fs, servo, smask, pre, ws, B);
+  tick_prestage_kernel<<<blocks, 32 * dwbc::kPreWarps, prestage_smem_bytes(S),
+                         (cudaStream_t)stream>>>(table, q, cmask, qdot, fs, servo, smask, pre,
+                                                 ws, B, S);
   return (int)cudaGetLastError();
 }
 
-// The kernel's resources (dwbc::kernel_info).
-extern "C" int dwbc_tick_prestage_info(int* out) {
-  if (cudaError_t rc = prestage_allow_smem()) return (int)rc;
-  return dwbc::kernel_info(tick_prestage_kernel, 32 * dwbc::kPreWarps, kPreSmemBytes, out);
+// The kernel's resources at S shared floats per scenario (dwbc::kernel_info).
+extern "C" int dwbc_tick_prestage_info(int S, int* out) {
+  if (cudaError_t rc = prestage_allow_smem(S)) return (int)rc;
+  return dwbc::kernel_info(tick_prestage_kernel, 32 * dwbc::kPreWarps, prestage_smem_bytes(S),
+                           out);
 }
 #endif

@@ -5,9 +5,10 @@
 // _run_pallas, i.e. libdwbc_tpu/ops/tick_kernel.py::TickProgram.qpchain and
 // TickProgram._ipm in static, masked and servo'd mode: per task level a
 // one-sided Mehrotra predictor-corrector IPM for min ½xᵀdiag(H)x s.t. Cx ≤ d
-// (H = 1 on the task block, 0 on the contact block; float32 ridge 1e-6),
-// then the contact redistribution QP (none with one contact: cfree = 0,
-// τ_contact stays zero).  The IPM itself is csrc/ipm.cuh,
+// (H = 1 on the task block, 0 on the contact block; float32 ridge 1e-6;
+// with a torque limit the mirrored ±τ rows, without one the constraint
+// rows alone), then the contact redistribution QP (none with one contact
+// of 6 dof or fewer: cfree = 0, τ_contact stays zero).  The IPM itself is csrc/ipm.cuh,
 // shared with the standalone solver csrc/qp_solve.cu.  Masked mode: the
 // cone/ZMP rows of an inactive candidate become 0·x ≤ 1, and a lane with at
 // most 6 active contact dof keeps the redistribution QP out of its gap and
@@ -28,8 +29,8 @@
 // stays small enough for the instruction cache.
 //
 // What bounds it on the H100: per IPM iteration one Gram matrix (n²/2·m
-// FMAs, n ≤ 12, m = 86) and one n×n Cholesky, plus passes over the 53×n
-// stored rows: about 108k FLOP per scenario at 7 iterations, on shared
+// FMAs; flagship n ≤ 12, m = 86; hands and feet n ≤ 18, m = 98) and one
+// n×n Cholesky, plus passes over the 53×n (hands 65×n) stored rows: about 108k FLOP per scenario at 7 iterations, on shared
 // memory, in a chain of warp phases (about 40 barriers per iteration, the
 // two triangular solves on one lane, μ and the gap as sequential sums):
 // the latency of that chain at small batches, the SM's instruction throughput
@@ -176,26 +177,32 @@ DWBC_HD void ipm(const QPWS<T>& w, V<T> x, V<T> lam, int n, int nt, int me,
 }
 
 // Constraint rows of one QP: C = [blk; −Atemp·blk], d = [τlim − τ;
-// τlim + τ; Atemp·τ − bA0] with τ = w.tau_base; masked: a row whose
-// crow_mask is 0 becomes 0·x ≤ 1.  The lanes split the entries.
-template <typename T>
+// τlim + τ; Atemp·τ − bA0] with τ = w.tau_base; without a torque limit
+// (Lim false) C = −Atemp·blk, d = Atemp·τ − bA0, with blk stored below
+// those rows (the IPM reads C's first krows rows); masked: a row whose
+// crow_mask is 0 becomes 0·x ≤ 1.  The lanes split the entries.  blk sits
+// at row blk_row<Lim>.
+template <bool Lim, typename T>
+DWBC_HDI int blk_row(const Tab<T>& tb) { return Lim ? 0 : tb.krows; }
+
+template <bool Lim, typename T>
 DWBC_HD void build_rows(const Tab<T>& tb, const QPWS<T>& w, const QPIn<T>& in, int nv,
                         Lanes wp) {
-  const int md = tb.mdof;
+  const int md = tb.mdof, mr = Lim ? md : 0, b0 = blk_row<Lim>(tb), d0 = Lim ? md : 0;
   for (int e = wp.lane; e < tb.krows * nv; e += wp.nl) {
     const int r = e / nv, c = e % nv;
     const T cr = tb.masked ? in.crow[r] : (T)1;
-    T acc = in.Atemp(r, 0) * w.C(0, c);
-    for (int i = 1; i < md; ++i) acc += in.Atemp(r, i) * w.C(i, c);
-    w.C(md + r, c) = tb.masked ? -acc * cr : -acc;
+    T acc = in.Atemp(r, 0) * w.C(b0, c);
+    for (int i = 1; i < md; ++i) acc += in.Atemp(r, i) * w.C(b0 + i, c);
+    w.C(d0 + r, c) = tb.masked ? -acc * cr : -acc;
   }
   for (int r = wp.lane; r < tb.krows; r += wp.nl) {
     const T cr = tb.masked ? in.crow[r] : (T)1;
     T acc = in.Atemp(r, 0) * w.tau_base[0];
     for (int i = 1; i < md; ++i) acc += in.Atemp(r, i) * w.tau_base[i];
-    w.d[2 * md + r] = cr > (T)0.5 ? acc - in.bA0[r] : (T)1;
+    w.d[2 * mr + r] = cr > (T)0.5 ? acc - in.bA0[r] : (T)1;
   }
-  for (int i = wp.lane; i < md; i += wp.nl) {
+  for (int i = wp.lane; i < mr; i += wp.nl) {
     w.d[i] = tb.tlim[i] - w.tau_base[i];
     w.d[md + i] = tb.tlim[i] + w.tau_base[i];
   }
@@ -206,11 +213,15 @@ DWBC_HD void build_rows(const Tab<T>& tb, const QPWS<T>& w, const QPIn<T>& in, i
 // scenario's view of the prestage buffer in device memory (J̄ᵀ, P_C, the
 // health), read once.  QP h < nlev is task level h (n = lev_t(h) + cfree,
 // H = 1 on the task block), QP nlev the contact redistribution (n = cfree,
-// H = 1; only where cfree > 0): one loop, so the IPM is compiled once.
-template <typename T>
-DWBC_HD void qpchain_warp(const Tab<T>& tb, const QPShared<T>& sh, const Pre<T>& pg, int iters,
-                          bool warm, Lanes wp) {
-  const int md = tb.mdof, cf = tb.cfree, me = tb.srows(), m = tb.mrows();
+// H = 1; only where cfree > 0): one loop, so the IPM is compiled once for
+// each of Lim (a torque limit: mirrored ±τ rows) true and false, and the
+// row offsets of a plan with a limit are what they were before plans
+// without one were taken.
+template <bool Lim, typename T>
+DWBC_HD void qpchain_warp_lim(const Tab<T>& tb, const QPShared<T>& sh, const Pre<T>& pg,
+                              int iters, bool warm, Lanes wp) {
+  const int md = tb.mdof, cf = tb.cfree, mr = Lim ? md : 0, me = mr + tb.krows,
+            m = 2 * mr + tb.krows, b0 = blk_row<Lim>(tb);
   const QPIn<T>& in = sh.in;
   const QPWS<T>& w = sh.w;
   const Out<T>& out = sh.out;
@@ -234,13 +245,13 @@ DWBC_HD void qpchain_warp(const Tab<T>& tb, const QPShared<T>& sh, const Pre<T>&
         for (int c = 1; c < t; ++c) acc += Nt(i, c) * f[c];
         w.tau_base[i] = (in.tg[i] + w.tau_task[i]) + acc;
       }
-      for (int c = 0; c < nv; ++c) w.C(i, c) = c < t ? Nt(i, c) : in.NwJw(i, c - t);
+      for (int c = 0; c < nv; ++c) w.C(b0 + i, c) = c < t ? Nt(i, c) : in.NwJw(i, c - t);
     }
     wp.sync();
-    build_rows(tb, w, in, nv, wp);
+    build_rows<Lim>(tb, w, in, nv, wp);
     const V<T> x = sh.warm.at(woff), lam = sh.warm.at(woff + nv);
     T g, p;
-    ipm(w, x, lam, nv, redis ? cf : t, me, md, iters, warm, g, p, wp);
+    ipm(w, x, lam, nv, redis ? cf : t, me, mr, iters, warm, g, p, wp);
     for (int i = wp.lane; i < md; i += wp.nl) {
       if (!redis) {
         T acc = Nt(i, 0) * (f[0] + x[0]);
@@ -285,6 +296,15 @@ DWBC_HD void qpchain_warp(const Tab<T>& tb, const QPShared<T>& sh, const Pre<T>&
   wp.sync();
 }
 
+template <typename T>
+DWBC_HD void qpchain_warp(const Tab<T>& tb, const QPShared<T>& sh, const Pre<T>& pg, int iters,
+                          bool warm, Lanes wp) {
+  if (tb.lim)
+    qpchain_warp_lim<true>(tb, sh, pg, iters, warm, wp);
+  else
+    qpchain_warp_lim<false>(tb, sh, pg, iters, warm, wp);
+}
+
 }  // namespace dwbc
 
 extern "C" long long dwbc_qpchain_smem_elems(const float* table_host) {
@@ -304,7 +324,11 @@ extern "C" long long dwbc_warm_elems(const float* table_host) {
 // without spills.  Left free it took 168 and three blocks, 2-5% faster on
 // the flagship at B = 1024 and B = 1 but 27% slower on the masked sweep at
 // B = 4096 (bit for bit the same results either way; NVIDIA H100 80GB
-// HBM3, 700 W).
+// HBM3, 700 W).  One kernel per Lim (a torque limit or none): one kernel
+// holding both chains spilled at that bound and ran the flagship 21%
+// slower.  A table whose limit flag is not Lim is left alone (the wrapper
+// picks the kernel by the plan).
+template <bool Lim>
 __global__ void __launch_bounds__(32 * dwbc::kQPWarps, 4)
     tick_qpchain_kernel(const float* table, const float* pre, const float* fs,
                         const float* warm_in, float* out, float* warm_out, int B, int iters,
@@ -312,6 +336,7 @@ __global__ void __launch_bounds__(32 * dwbc::kQPWarps, 4)
   extern __shared__ float sm[];
   constexpr int W = dwbc::kQPWarps;
   const dwbc::Tab<float> tb(table);
+  if (tb.lim != Lim) return;
   const long long b0 = (long long)blockIdx.x * W;
   const int nw = B - b0 < W ? (int)(B - b0) : W;
   dwbc::qpchain_stage_in(tb, pre, fs, warm_in, sm, S, B, b0, nw, W, threadIdx.x, blockDim.x);
@@ -322,8 +347,8 @@ __global__ void __launch_bounds__(32 * dwbc::kQPWarps, 4)
     const dwbc::Pre<float> pg(pa, tb, fs == nullptr);
     dwbc::Arena<float> sa{sm + (long long)w * S, 1, 0};
     const dwbc::QPShared<float> sh(sa, tb);
-    dwbc::qpchain_warp(tb, sh, pg, iters, warm_in != nullptr,
-                       dwbc::Lanes{(int)threadIdx.x % 32, 32, nullptr});
+    dwbc::qpchain_warp_lim<Lim>(tb, sh, pg, iters, warm_in != nullptr,
+                                dwbc::Lanes{(int)threadIdx.x % 32, 32, nullptr});
   }
   __syncthreads();
   dwbc::qpchain_stage_out(tb, out, warm_out, sm, S, B, b0, nw, W, threadIdx.x, blockDim.x);
@@ -332,37 +357,62 @@ __global__ void __launch_bounds__(32 * dwbc::kQPWarps, 4)
 static size_t qpchain_smem_bytes(int S) { return sizeof(float) * dwbc::kQPWarps * (size_t)S; }
 
 // Allow the dynamic shared memory of S elements per scenario (once per
-// size the process has seen grow).
+// size the process has seen grow, per kernel).
+template <bool Lim>
 static cudaError_t qpchain_allow_smem(int S) {
   static size_t allowed = 48 * 1024;
   const size_t bytes = qpchain_smem_bytes(S);
   if (bytes <= allowed) return cudaSuccess;
-  cudaError_t rc = cudaFuncSetAttribute(tick_qpchain_kernel,
+  cudaError_t rc = cudaFuncSetAttribute(tick_qpchain_kernel<Lim>,
                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (rc == cudaSuccess) allowed = bytes;
   return rc;
+}
+
+template <bool Lim>
+static int qpchain_launch(const float* table, const float* pre, const float* fs,
+                          const float* warm_in, float* out, float* warm_out, int S, int B,
+                          int iters, void* stream) {
+  if (cudaError_t rc = qpchain_allow_smem<Lim>(S)) return (int)rc;
+  const int blocks = (B + dwbc::kQPWarps - 1) / dwbc::kQPWarps;
+  tick_qpchain_kernel<Lim><<<blocks, 32 * dwbc::kQPWarps, qpchain_smem_bytes(S),
+                             (cudaStream_t)stream>>>(table, pre, fs, warm_in, out, warm_out, B,
+                                                     iters, S);
+  return (int)cudaGetLastError();
 }
 
 // pre (pre_elems, B), fs (Σ task dofs, B), or fs null and pre (pre_elems
 // with the servo section, B) for a servo'd tick, warm_in (warm_elems, B) or
 // null for a cold tick, out (out_elems, B), warm_out (warm_elems, B):
 // float32, contiguous, on the device; S = dwbc_qpchain_smem_elems of the
-// table; launched on `stream`, no synchronisation.
+// table; launched on `stream`, no synchronisation.  A plan with a torque
+// limit; dwbc_tick_qpchain_nolim takes the same arguments for a plan
+// without one.
 extern "C" int dwbc_tick_qpchain(const float* table, const float* pre,
                                  const float* fs, const float* warm_in,
                                  float* out, float* warm_out, int S, int B,
                                  int iters, void* stream) {
-  if (cudaError_t rc = qpchain_allow_smem(S)) return (int)rc;
-  const int blocks = (B + dwbc::kQPWarps - 1) / dwbc::kQPWarps;
-  tick_qpchain_kernel<<<blocks, 32 * dwbc::kQPWarps, qpchain_smem_bytes(S),
-                        (cudaStream_t)stream>>>(table, pre, fs, warm_in, out, warm_out, B,
-                                                iters, S);
-  return (int)cudaGetLastError();
+  return qpchain_launch<true>(table, pre, fs, warm_in, out, warm_out, S, B, iters, stream);
 }
 
-// The kernel's resources at S elements per scenario (dwbc::kernel_info).
+extern "C" int dwbc_tick_qpchain_nolim(const float* table, const float* pre,
+                                       const float* fs, const float* warm_in,
+                                       float* out, float* warm_out, int S, int B,
+                                       int iters, void* stream) {
+  return qpchain_launch<false>(table, pre, fs, warm_in, out, warm_out, S, B, iters, stream);
+}
+
+// The kernel's resources at S elements per scenario (dwbc::kernel_info),
+// with a torque limit and without.
 extern "C" int dwbc_tick_qpchain_info(int S, int* out) {
-  if (cudaError_t rc = qpchain_allow_smem(S)) return (int)rc;
-  return dwbc::kernel_info(tick_qpchain_kernel, 32 * dwbc::kQPWarps, qpchain_smem_bytes(S), out);
+  if (cudaError_t rc = qpchain_allow_smem<true>(S)) return (int)rc;
+  return dwbc::kernel_info(tick_qpchain_kernel<true>, 32 * dwbc::kQPWarps,
+                           qpchain_smem_bytes(S), out);
+}
+
+extern "C" int dwbc_tick_qpchain_nolim_info(int S, int* out) {
+  if (cudaError_t rc = qpchain_allow_smem<false>(S)) return (int)rc;
+  return dwbc::kernel_info(tick_qpchain_kernel<false>, 32 * dwbc::kQPWarps,
+                           qpchain_smem_bytes(S), out);
 }
 #endif

@@ -18,6 +18,13 @@ foot (link 6) down, a 6D pelvis task, a rotation task on link 15 and a 6D
 task on the right foot (link 12).  Its inputs: ``_swing_inputs`` (the
 standing state with joint noise) and ``_swing_servo_inputs`` (every level
 servo'd: pelvis and torso held, the swing foot lifted).
+
+The hands-and-feet configuration is the reference's own four-contact
+fixture (dwbc_test.cpp:66-71): the flagship's 6D feet and tasks, and POINT
+contacts on the hands, links 23 and 31 — a humanoid bracing on a table or
+a rail (``_hands_feet_config``).  Its inputs: ``_hands_feet_inputs`` (the
+standing state with joint noise) and ``_hands_masked_inputs`` (the four
+contacts as candidates, a support hypothesis per scenario).
 """
 
 from __future__ import annotations
@@ -116,6 +123,43 @@ def _mixed_tasks_config(model, cfg):
               (T.TASK_LINK_ROTATION, 31)),
              ((T.TASK_LINK_POSITION_COM_FRAME, 27),))
     return dataclasses.replace(cfg, task_specs=tasks)
+
+
+def _hands_feet_config(model, hand_type=T.CONTACT_POINT):
+    """The flagship with hand contacts of ``hand_type`` beside its 6D feet:
+    feet on links 6 and 12 (plane 0.15 × 0.075), hands on links 23 and 31
+    (plane 0.04 × 0.04), every contact at [0.03, 0, −0.1585] in its link's
+    frame with the normal +z, a cold budget of 25 IPM iterations
+    (tests/test_contacts_non6d.py:20-40); the flagship's two task levels and
+    ±300 Nm."""
+    cfg = standard_tocabi_config(model, qp_iters=25)
+    hands = tuple(dataclasses.replace(cfg.contacts[0], link=link, contact_type=hand_type,
+                                      plane_x=0.04, plane_y=0.04) for link in (23, 31))
+    return dataclasses.replace(cfg, contacts=cfg.contacts + hands)
+
+
+def _hands_feet_inputs(model, B=1024, seed=0, dtype=np.float32):
+    """The hands-and-feet configuration's serving inputs (numpy, ``dtype``):
+    ``_swing_inputs``' states — the standing q with 0.02·N(0,1) on the
+    joints, zero q̇ — and the flagship's pelvis and torso f* + 0.05·N(0,1)
+    per lane."""
+    q, qd, fs = _swing_inputs(model, B, seed, dtype)
+    return q, qd, fs[:2]
+
+
+# the masked hands-and-feet sweep's support hypotheses over (left foot,
+# right foot, left hand (link 23), right hand (link 31)), cycled over the lanes
+HANDS_HYPOTHESES = ("feet", "feet + left hand", "feet + right hand", "feet + both hands")
+HANDS_MASKS = np.array([[1, 1, 0, 0], [1, 1, 1, 0], [1, 1, 0, 1], [1, 1, 1, 1]], np.float32)
+
+
+def _hands_masked_inputs(model, B=4096, seed=0):
+    """The masked hands-and-feet sweep's inputs (numpy float32): the four
+    contacts of ``_hands_feet_config`` as candidates, ``_hands_feet_inputs``'
+    states and f*, and the hypotheses HANDS_HYPOTHESES cycled over the
+    lanes."""
+    q, qd, fs = _hands_feet_inputs(model, B, seed)
+    return q, qd, fs, HANDS_MASKS[np.arange(B) % len(HANDS_MASKS)]
 
 
 def _swing_inputs(model, B=1024, seed=0, dtype=np.float32):

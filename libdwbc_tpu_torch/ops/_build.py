@@ -86,7 +86,7 @@ def library() -> ctypes.CDLL:
     so, _ = build()
     lib = ctypes.CDLL(str(so))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name in ("dwbc_prestage_ws_elems", "dwbc_prestage_smem_elems",
+    for name in ("dwbc_prestage_ws_elems", "dwbc_prestage_smem_elems", "dwbc_prestage_stride",
                  "dwbc_qpchain_smem_elems", "dwbc_out_elems", "dwbc_warm_elems"):
         fn = getattr(lib, name)
         fn.argtypes = [p]
@@ -95,10 +95,11 @@ def library() -> ctypes.CDLL:
     lib.dwbc_pre_elems.restype = ll
     lib.dwbc_prestage_smem_cap.argtypes = []
     lib.dwbc_prestage_smem_cap.restype = ll
-    lib.dwbc_tick_prestage.argtypes = [p, p, p, p, p, p, i, p, p, i, p]
+    lib.dwbc_tick_prestage.argtypes = [p, p, p, p, p, p, i, p, p, i, i, p]
     lib.dwbc_tick_prestage.restype = i
-    lib.dwbc_tick_qpchain.argtypes = [p, p, p, p, p, p, i, i, i, p]
-    lib.dwbc_tick_qpchain.restype = i
+    for name in ("dwbc_tick_qpchain", "dwbc_tick_qpchain_nolim"):
+        getattr(lib, name).argtypes = [p, p, p, p, p, p, i, i, i, p]
+        getattr(lib, name).restype = i
     lib.dwbc_psd_inverse.argtypes = [p, p, i, i, p]
     lib.dwbc_psd_inverse.restype = i
     lib.dwbc_qp_solve_ws_elems.argtypes = [i, i, i]
@@ -106,7 +107,8 @@ def library() -> ctypes.CDLL:
     lib.dwbc_qp_solve.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
                                   ctypes.c_float, p]
     lib.dwbc_qp_solve.restype = i
-    for name, args in (("dwbc_tick_prestage_info", [p]), ("dwbc_tick_qpchain_info", [i, p]),
+    for name, args in (("dwbc_tick_prestage_info", [i, p]), ("dwbc_tick_qpchain_info", [i, p]),
+                       ("dwbc_tick_qpchain_nolim_info", [i, p]),
                        ("dwbc_psd_inverse_info", [i, p]), ("dwbc_qp_solve_info", [p])):
         fn = getattr(lib, name)
         fn.argtypes = args

@@ -29,9 +29,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..wbc import types as T
 from . import _build
-from .tick_kernel import _POS, _SIX, SERVO_ELEM_SHAPES
+from .tick_kernel import _CROW_MASK, _POS, _ROW_MASK, _SIX, SERVO_ELEM_SHAPES
 
 # ---- packed kernel table: header slots and caps (csrc/tick_common.cuh)
 HDR = 32
@@ -40,10 +39,19 @@ H_MASKED = 10           # 1: the padded candidate layout with a contact mask
 H_NTASK = 11            # tasks in all levels
 H_TOT = 12              # 1: a task on the whole-body COM
 H_MASS = 13             # the model's total mass
+H_LIM = 14              # 1: a torque limit (the QPs' mirrored ±τ rows)
 H_LEV_T = 16            # NLEV_MAX slots: task dofs per level
 NLEV_MAX = 4
 NTASK_MAX = 16          # the servo's task mask is an int
+NC_MAX = 4              # contacts (masked mode: candidates)
 TASK_TOT = -1           # a task's point slot for the whole-body COM
+CROWS = 10              # constraint rows of a 6D contact: a block's slot is CROWS × 6
+# shared floats per scenario of tick_prestage (csrc/tick_prestage.cu::
+# kPreSmemMax; up to 7,232 it runs two blocks per SM, beyond that one)
+PRE_SMEM_MAX = 14464
+# shared floats per scenario of tick_qpchain: four scenarios in a block's
+# 227 KB (csrc/tick_qpchain.cu)
+QP_SMEM_MAX = 227 * 1024 // (4 * 4)
 
 # Max abs error of the kernels against their plain versions on the serving
 # inputs of chip_smoke.py (batch 1024, seed 0), about ten times what an H100
@@ -83,7 +91,7 @@ SERVO_TOL = {"fstars": 6e-4, "task_pos": 3e-8, "task_vel": 8e-8, "task_rot": 1.1
 SERVO_OWN, SERVO_LANES_OVER = 4.0, 0.1
 
 # The general-plan kernels against their plain versions on chip_smoke.py
-# phase 17's inputs (batch 1024, seed 0): BASELINE's config 3 on
+# phases 17 and 20's inputs (batch 1024, seed 0): BASELINE's config 3 on
 # entry._swing_inputs; the mixed task set (entry._mixed_tasks_config) on the two
 # 6D feet, static on phase 3's states and masked on the masked sweep's first
 # 1024 lanes, per hypothesis (both feet, left, right), f* 0.05·N(0,1).  Each
@@ -148,6 +156,84 @@ GENERAL_TOL = {
         chain={"torque_task": (0.017, 0.9, 1.1), "torque_cmd": (0.017, 0.9, 1.1),
                "contact_force": (0.058, 0.024, 0.12)},
     ),
+    # phase 20: the hands-and-feet fixture (entry._hands_feet_config) static
+    # on entry._hands_feet_inputs and masked on the first 1024 lanes of
+    # entry._hands_masked_inputs, per hypothesis (feet, + left hand, + right
+    # hand, + both); LINE feet on the same states; the flagship without a
+    # torque limit on phase 3's states.  Where NwJw's basis follows roundoff
+    # (more than two contacts, or a POINT or LINE one) "NwJw" holds
+    # J̄ᵀ[rows]·NwJw (nwjw_determined); with more than two
+    # contacts "chain" holds τ_task only (τ_cmd and the contact force sit on
+    # the contact block's flat face, plain float32 up to 69 Nm from float64).
+    "hands": dict(
+        pre={"torque_grav": (0.0014,), "P_C": (0.0021,), "Jbar_act": (0.0002,),
+             "NwJw": (1.9e-05,), "Ntorques": (0.022,), "Atemp": (9.5e-05,), "bA0": (0.0018,),
+             "health": (1.2e-06,)},
+        qp={"cold.torque_task": (0.16,), "cold.torque_contact": (2.3,),
+            "cold.torque_cmd": (2.4,), "cold.contact_force": (2.5,),
+            "warm.torque_task": (0.16,), "warm.torque_contact": (110.0,),
+            "warm.torque_cmd": (110.0,), "warm.contact_force": (140.0,)},
+        qp32={"cold.torque_task": (0.16,), "cold.torque_contact": (2.4,),
+              "cold.torque_cmd": (2.5,), "cold.contact_force": (2.6,),
+              "warm.torque_task": (0.16,), "warm.torque_contact": (94.0,),
+              "warm.torque_cmd": (94.0,), "warm.contact_force": (140.0,)},
+        chain={"torque_task": (0.16,)},
+    ),
+    "hands masked": dict(
+        pre={"torque_grav": (0.0041, 0.0041, 0.0011, 0.0015),
+             "P_C": (0.0016, 0.0021, 0.0014, 0.0016),
+             "Jbar_act": (0.00018, 0.00019, 0.0002, 0.00019),
+             "NwJw": (3.6e-06, 6e-06, 6.8e-06, 1.6e-05),
+             "Ntorques": (0.03, 0.025, 0.026, 0.022),
+             "Atemp": (8.3e-05, 8.2e-05, 8.4e-05, 9e-05),
+             "bA0": (0.0017, 0.0019, 0.0013, 0.0017),
+             "health": (1.2e-06, 1.2e-06, 1.2e-06, 1.1e-06)},
+        qp={"cold.torque_task": (6.2e-06, 0.048, 0.027, 0.16),
+            "cold.torque_contact": (8.2e-09, 7.2, 2.3, 1.6),
+            "cold.torque_cmd": (1.1e-05, 7.2, 2.3, 1.7),
+            "cold.contact_force": (0.00034, 11.0, 2.3, 1.9),
+            "warm.torque_task": (6.2e-06, 0.048, 0.027, 0.16),
+            "warm.torque_contact": (1.6e-08, 79.0, 120.0, 110.0),
+            "warm.torque_cmd": (1.1e-05, 79.0, 120.0, 110.0),
+            "warm.contact_force": (0.00034, 84.0, 130.0, 120.0)},
+        qp32={"cold.torque_task": (4.7e-06, 0.048, 0.027, 0.16),
+              "cold.torque_contact": (7.2e-09, 7.2, 2.3, 1.7),
+              "cold.torque_cmd": (9e-06, 7.2, 2.3, 1.6),
+              "cold.contact_force": (0.00044, 11.0, 2.3, 1.8),
+              "warm.torque_task": (4.7e-06, 0.048, 0.027, 0.16),
+              "warm.torque_contact": (9.5e-09, 79.0, 92.0, 71.0),
+              "warm.torque_cmd": (9e-06, 79.0, 92.0, 71.0),
+              "warm.contact_force": (0.00044, 83.0, 110.0, 75.0)},
+        chain={"torque_task": (0.0093, 0.047, 0.027, 0.16)},
+    ),
+    "line feet": dict(
+        pre={"torque_grav": (0.014,), "P_C": (0.0018,), "Jbar_act": (0.0002,),
+             "NwJw": (0.0018,), "Ntorques": (0.041,), "Atemp": (8.9e-05,), "bA0": (0.002,),
+             "health": (5.2e-06,)},
+        qp={"cold.torque_task": (0.36,), "cold.torque_contact": (2.6,),
+            "cold.torque_cmd": (2.6,), "cold.contact_force": (3.4,),
+            "warm.torque_task": (0.36,), "warm.torque_contact": (1.1,),
+            "warm.torque_cmd": (1.3,), "warm.contact_force": (3.7,)},
+        qp32={"cold.torque_task": (0.36,), "cold.torque_contact": (2.6,),
+              "cold.torque_cmd": (2.6,), "cold.contact_force": (3.4,),
+              "warm.torque_task": (0.36,), "warm.torque_contact": (1.1,),
+              "warm.torque_cmd": (1.3,), "warm.contact_force": (3.7,)},
+        chain={"torque_task": (0.38,), "torque_cmd": (2.7,), "contact_force": (3.6,)},
+    ),
+    "no limit": dict(
+        pre={"torque_grav": (0.005,), "P_C": (0.0021,), "Jbar_act": (0.0002,),
+             "NwJw": (1.5e-05,), "Ntorques": (0.03,), "Atemp": (9.1e-05,), "bA0": (0.0019,),
+             "health": (1.2e-06,)},
+        qp={"cold.torque_task": (6.2e-06,), "cold.torque_contact": (4.8e-07,),
+            "cold.torque_cmd": (1.1e-05,), "cold.contact_force": (0.00047,),
+            "warm.torque_task": (6.2e-06,), "warm.torque_contact": (6.5e-09,),
+            "warm.torque_cmd": (1.1e-05,), "warm.contact_force": (0.00047,)},
+        qp32={"cold.torque_task": (6.4e-06,), "cold.torque_contact": (5.1e-07,),
+              "cold.torque_cmd": (1.1e-05,), "cold.contact_force": (0.00042,),
+              "warm.torque_task": (6.4e-06,), "warm.torque_contact": (7.9e-09,),
+              "warm.torque_cmd": (1.1e-05,), "warm.contact_force": (0.00042,)},
+        chain={"torque_task": (0.011,), "torque_cmd": (0.011,), "contact_force": (0.067,)},
+    ),
 }
 
 # the ServoParams fields in the order of the servo buffer (csrc/servo.cuh::ServoIn)
@@ -168,40 +254,64 @@ def tasks(plan):
 
 
 def prestage_x_fit(plan):
-    """(floats, room) of the prestage's X buffer (csrc/tick_prestage.cu::
-    PreWS): after A⁻¹ is formed it holds the small inverses' L and X and
-    J_C, then J_C·A⁻¹ (contact space) or a level's Jt, JtA and JAN (the JKT
-    loop), in ndof² floats."""
+    """(floats, nd²) of the prestage's X buffer (csrc/tick_prestage.cu::
+    prestage_x_elems): after A⁻¹ is formed it holds the small inverses' L
+    and X (order max(cdof, 6, largest level)) and J_C, then J_C·A⁻¹
+    (contact space) or a level's Jt, JtA and JAN (the JKT loop); the buffer
+    is the larger of the two."""
     nd, cd = plan.ndof, plan.cdof
     tmax = max(plan.level_tdofs, default=0)
-    return 2 * cd * cd + cd * nd + max(cd * nd, 3 * tmax * nd), nd * nd
+    ls = max(cd, 6, tmax)
+    return 2 * ls * ls + cd * nd + max(cd * nd, 3 * tmax * nd), nd * nd
+
+
+def prestage_smem(plan):
+    """Shared floats per scenario of tick_prestage (csrc/tick_prestage.cu::
+    PreWS::smem): A, X's buffer, the FK frames, then the largest of the
+    CRBA's overlay, the servo's and the contact space's and JKT loop's."""
+    nb, nd, md, cd, cf = plan.nbody, plan.ndof, plan.mdof, plan.cdof, plan.cfree
+    tm = max(plan.level_tdofs, default=0)
+    base = nd * nd + max(prestage_x_fit(plan)) + nd + 15 * nb
+    crba = 3 * nb + 6 * nd + 36 * nb + 6 * nd
+    servo = 6 * nb
+    main = (md * md + md + 6 * cd + cd * cd + 2 * cd * cf + md * cf + 4 * cf * cf + cf + cd + md
+            + cf * tm + 2 * cd * cd + 36 + 3 * tm * tm + tm * md + 4 * md * tm + tm * cd)
+    return base + max(crba, servo, main)
 
 
 def kernel_unsupported(plan) -> str | None:
     """Why the CUDA kernels cannot run this plan, or None if they can: they
-    take one or two 6D contacts (masked mode: 6D candidates), a torque
-    limit, at most NLEV_MAX levels of 6D, position or rotation tasks on a
-    point or on the whole-body COM, NTASK_MAX tasks in all, and a largest
-    level whose rows fit the prestage's shared X buffer.  The library also
-    refuses a model whose prestage would not fit its shared part
-    (``TickKernels``)."""
+    take one to NC_MAX contacts of any type (6D, POINT, LINE; masked mode:
+    candidates), with or without a torque limit, at most NLEV_MAX levels of
+    6D, position or rotation tasks on a point or on the whole-body COM,
+    NTASK_MAX tasks in all, and a plan whose prestage fits its shared part
+    (PRE_SMEM_MAX floats per scenario).  The library also refuses a model
+    whose QP chain would not fit its shared memory (``TickKernels``)."""
     cfg = plan.cfg
-    if any(c.contact_type != T.CONTACT_6D for c in cfg.contacts):
-        return ("the CUDA tick takes 6D contacts only (masked mode: 6D candidates; POINT and "
-                "LINE contacts are not ported)")
-    if len(cfg.contacts) not in (1, 2):
-        return f"the CUDA tick takes one or two contacts, the plan has {len(cfg.contacts)}"
-    if plan.tlim is None:
-        return "the CUDA tick needs a torque limit"
+    if not 1 <= len(cfg.contacts) <= NC_MAX:
+        return (f"the CUDA tick takes one to {NC_MAX} contacts, the plan has "
+                f"{len(cfg.contacts)}")
     if len(plan.task_slots) > NLEV_MAX:
         return f"the CUDA tick takes at most {NLEV_MAX} task levels"
     if len(tasks(plan)) > NTASK_MAX:
         return f"the CUDA tick takes at most {NTASK_MAX} tasks"
-    need, room = prestage_x_fit(plan)
-    if need > room:
-        return (f"the CUDA tick's largest level ({max(plan.level_tdofs)} task rows) does not "
-                f"fit tick_prestage's shared X buffer: {need} floats for {room}")
+    need = prestage_smem(plan)
+    if need > PRE_SMEM_MAX:
+        return (f"the plan's prestage ({len(cfg.contacts)} contacts, a largest level of "
+                f"{max(plan.level_tdofs)} task rows) does not fit tick_prestage's shared "
+                f"memory: {need} floats per scenario for {PRE_SMEM_MAX}")
     return None
+
+
+def contact_rows(plan):
+    """(first J_C row, J_C rows, first constraint row, constraint rows) of
+    each contact, in order: the kernel's contact section."""
+    out, j0, k0 = [], 0, 0
+    for c, blk in zip(plan.cfg.contacts, plan.const_blocks):
+        dof = 6 if plan.masked else c.contact_dof
+        out.append((j0, dof, k0, blk.shape[0]))
+        j0, k0 = j0 + dof, k0 + blk.shape[0]
+    return out
 
 
 def kernel_table(plan) -> np.ndarray:
@@ -222,17 +332,24 @@ def kernel_table(plan) -> np.ndarray:
     hdr[H_NTASK] = len(task_list)
     hdr[H_TOT] = float(plan.uses_tot)
     hdr[H_MASS] = float(m.total_mass)
+    hdr[H_LIM] = float(plan.tlim is not None)
     hdr[H_LEV_T:H_LEV_T + len(plan.level_tdofs)] = plan.level_tdofs
+    cs = plan.cfg.contacts
+    blocks = np.zeros((len(cs), CROWS, 6))
+    for k, b in enumerate(plan.const_blocks):
+        blocks[k, :b.shape[0], :b.shape[1]] = b
     sections = [
         hdr,
         plan.parent, plan.q_index, plan.owner,
         m.axis, m.X_T_rot, m.X_T_trans, m.com, m.inertia, m.mass,
         m.ancestor_mask, m.gravity,
         [link for link, _ in plan.points], [pt for _, pt in plan.points],
-        plan.contact_slots, [c.link for c in plan.cfg.contacts],
-        plan.const_blocks,
+        [(slot, c.link, c.contact_type) + rows
+         for slot, c, rows in zip(plan.contact_slots, cs, contact_rows(plan))],
+        [_ROW_MASK[c.contact_type] for c in cs], [_CROW_MASK[c.contact_type] for c in cs],
+        blocks,
         [(h, slot, r0, nr) for h, _, slot, r0, nr in task_list],
-        plan.tlim,
+        [] if plan.tlim is None else plan.tlim,
     ]
     return np.concatenate([np.asarray(s, np.float64).ravel() for s in sections])
 
@@ -285,6 +402,26 @@ def servo_lanes_over(err, own, tol):
     err and own per lane."""
     over = int((err > torch.clamp_min(SERVO_OWN * own, tol)).sum())
     return over, int(SERVO_LANES_OVER * err.numel())
+
+
+def nwjw_determined(pre, plan, cm):
+    """J̄ᵀ's first (active contact dof − 6) active rows times NwJw, per lane
+    (cfree, cfree, B): M·M⁺ of NwJw's inner system M (a prestage dict's
+    "Jbar_act" and "NwJw"; cm: a masked plan's contact mask (nc, B), else
+    None).  With more than two contacts, or a POINT or LINE one, M can be
+    singular or the kernel space's completion can pick between tied
+    residuals, and then NwJw itself follows roundoff (float32 and float64
+    alike, the plain version and the kernels alike); this product does
+    not."""
+    jb, nw = pre["Jbar_act"], pre["NwJw"]
+    if cm is None:
+        return torch.einsum("ikb,kjb->ijb", jb[:plan.cfree], nw)
+    rm = (torch.repeat_interleave(cm.to(jb), 6, 0)
+          * torch.as_tensor(plan.row_mask, dtype=jb.dtype, device=jb.device)[:, None])
+    idx = torch.cumsum(rm, 0) - 1.0
+    t = torch.arange(plan.cfree, dtype=jb.dtype, device=jb.device)[:, None, None]
+    sel = rm[None] * ((idx[None] - t).abs() < 0.5) * (t < rm.sum(0) - 6.0)
+    return torch.einsum("tib,ikb,kjb->tjb", sel, jb, nw)
 
 
 class PackedPre(NamedTuple):
@@ -369,11 +506,16 @@ class TickKernels(nn.Module):
                          warm=lib.dwbc_warm_elems(host),
                          ws_pre=lib.dwbc_prestage_ws_elems(host),
                          smem_pre=lib.dwbc_prestage_smem_elems(host),
+                         stride_pre=lib.dwbc_prestage_stride(host),
                          smem_qp=lib.dwbc_qpchain_smem_elems(host))
             if sizes["smem_pre"] > lib.dwbc_prestage_smem_cap():
                 raise NotImplementedError(
                     f"tick_prestage needs {sizes['smem_pre']} shared floats per scenario "
                     f"for this model, the kernel has {lib.dwbc_prestage_smem_cap()}")
+            if sizes["smem_qp"] > QP_SMEM_MAX:
+                raise NotImplementedError(
+                    f"tick_qpchain needs {sizes['smem_qp']} shared floats per scenario "
+                    f"for this plan, the kernel has {QP_SMEM_MAX}")
             want = dict(pre=_elems(pre_layout(self.plan)),
                         pre_servo=_elems(pre_layout(self.plan, servo=True)),
                         out=_elems(out_layout(self.plan)),
@@ -435,7 +577,7 @@ class TickKernels(nn.Module):
                                     None if not smask else qdot.data_ptr(),
                                     None if not smask else fs.data_ptr(),
                                     None if not smask else sv.data_ptr(), smask,
-                                    pre.data_ptr(), ws.data_ptr(), B, stream)
+                                    pre.data_ptr(), ws.data_ptr(), sz["stride_pre"], B, stream)
         self._raise_on(rc, "tick_prestage")
         self.launches["tick_prestage"] += 1
         return PackedPre(pre, smask != 0)
@@ -473,7 +615,8 @@ class TickKernels(nn.Module):
         out = torch.empty((sz["out"], B), dtype=torch.float32, device=buf.device)
         wout = torch.empty((sz["warm"], B), dtype=torch.float32, device=buf.device)
         stream = torch.cuda.current_stream(buf.device).cuda_stream
-        rc = lib.dwbc_tick_qpchain(
+        launch = lib.dwbc_tick_qpchain if self.plan.tlim is not None else lib.dwbc_tick_qpchain_nolim
+        rc = launch(
             self.table.data_ptr(), buf.data_ptr(), None if fs is None else fs.data_ptr(),
             None if win is None else win.data_ptr(), out.data_ptr(),
             wout.data_ptr(), sz["smem_qp"], B, int(iters), stream)

@@ -2,8 +2,9 @@
 ``-DDWBC_PRE_STOP=k`` returns at its phase marker k (csrc/tick_prestage.cu),
 so timing the builds that stop at each marker, and the whole kernel, gives
 the time of every phase.  Timed with CUDA events on the serving inputs of
-chip_smoke.py: static at B = 1 and B = 1024, masked at B = 4096, and
-config 3 (single support, a swing-foot third level) at B = 1024.
+chip_smoke.py: static at B = 1 and B = 1024, masked at B = 4096,
+config 3 (single support, a swing-foot third level) at B = 1024, and the
+hands-and-feet plan (entry._hands_feet_config, four contacts) at B = 1024.
 
     python -m libdwbc_tpu_torch.profile_prestage
 
@@ -49,9 +50,10 @@ def build(stop, out: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dwbc_pre_elems.argtypes = [p, i]
-    lib.dwbc_prestage_ws_elems.argtypes = [p]
+    lib.dwbc_prestage_ws_elems.argtypes = lib.dwbc_prestage_stride.argtypes = [p]
     lib.dwbc_pre_elems.restype = lib.dwbc_prestage_ws_elems.restype = ctypes.c_longlong
-    lib.dwbc_tick_prestage.argtypes = [p, p, p, p, p, p, i, p, p, i, p]
+    lib.dwbc_prestage_stride.restype = ctypes.c_longlong
+    lib.dwbc_tick_prestage.argtypes = [p, p, p, p, p, p, i, p, p, i, i, p]
     lib.dwbc_tick_prestage.restype = i
     return lib
 
@@ -77,10 +79,13 @@ def main():
     print(f"profile_prestage  [{card}]")
     cfg3 = standard_tocabi_config(model, both_feet=False, swing_task=True, qp_iters=12)
     q3, _, _ = entry._swing_inputs(model, 1024, seed=0)
+    hq, _, _ = entry._hands_feet_inputs(model, 1024, seed=0)
     for label, c, masked, q, cm in (("static B 1", cfg, False, qs[:1], None),
                                     ("static B 1024", cfg, False, qs, None),
                                     ("masked B 4096", cfg, True, mq, masks),
-                                    ("config 3 B 1024", cfg3, False, q3, None)):
+                                    ("config 3 B 1024", cfg3, False, q3, None),
+                                    ("hands B 1024", entry._hands_feet_config(model), False,
+                                     hq, None)):
         th = kernel_table(TickProgram(model, c, "cpu", torch.float64, masked=masked).plan)
         th = np.ascontiguousarray(th.astype(np.float32))
         td = torch.as_tensor(th, device=dev)

@@ -81,13 +81,17 @@ def test_kernel_table_layout(models):
     hdr = tab[:tc.HDR]
     assert list(hdr[:10]) == [34, 39, 33, 4, 2, 12, 6, 20, 2, 40]
     assert list(hdr[tc.H_LEV_T:tc.H_LEV_T + tc.NLEV_MAX]) == [6, 3, 0, 0]
-    assert (hdr[tc.H_MASKED], hdr[tc.H_NTASK], hdr[tc.H_TOT]) == (0, 2, 0)
+    assert (hdr[tc.H_MASKED], hdr[tc.H_NTASK], hdr[tc.H_TOT], hdr[tc.H_LIM]) == (0, 2, 0, 1)
     assert hdr[tc.H_MASS] == pm.total_mass
     nb, nd, npts, nc, ntask = 34, 39, 4, 2, 2
     want = (tc.HDR + 2 * nb + nd + 3 * nb + 9 * nb + 3 * nb + 3 * nb + 9 * nb + nb
-            + nb * nd + 3 + npts + 3 * npts + 2 * nc + 60 * nc
+            + nb * nd + 3 + npts + 3 * npts + (7 + 6 + 10 + 60) * nc
             + 4 * ntask + 33)
     assert tab.shape == (want,)
+    # the contact section: point slot, link, type (6D), J_C rows from 0 and
+    # 6, constraint rows from 0 and 10
+    c0 = tc.HDR + 2 * nb + nd + 28 * nb + nb * nd + 3 + 4 * npts
+    assert tab[c0:c0 + 14].tolist() == [0, 6, 0, 0, 6, 0, 10, 1, 12, 0, 6, 6, 10, 10]
     # the header's integers exact in float32 (the mass is the one real number)
     ints = np.delete(hdr, tc.H_MASS)
     assert np.array_equal(ints.astype(np.float32).astype(np.float64), ints)
@@ -99,11 +103,16 @@ def test_kernel_table_layout(models):
 
 
 @pytest.mark.parametrize("variant", ["single_foot", "three_levels", "position_task",
-                                     "swing", "com_task"])
+                                     "swing", "com_task", "point_contact", "four_contacts",
+                                     "no_torque_limit", "line_feet", "hands_masked"])
 def test_kernel_table_takes_general_configs(models, variant):
-    """One or two 6D contacts with up to four levels of 6D, position and
-    rotation tasks (a whole-body COM task too) build a table and the
-    kernels' module; the task section lists every task in level order."""
+    """One to four contacts of any type (6D, POINT, LINE; masked: as
+    candidates), with or without a torque limit, under up to four levels
+    of 6D, position and rotation tasks (a whole-body COM task too) build a
+    table and the kernels' module; the task section lists every task in
+    level order, the contact section every contact's rows, the tlim
+    section is there exactly with a limit."""
+    from libdwbc_tpu_torch import entry
     from libdwbc_tpu_torch.ops import tick_cuda as tc
     from libdwbc_tpu_torch.ops.tick_kernel import TickPlan, TickProgram
 
@@ -117,40 +126,60 @@ def test_kernel_table_takes_general_configs(models, variant):
         cfg = dataclasses.replace(cfg, task_specs=(
             ((T.TASK_LINK_6D, pm.nbody),),
             ((T.TASK_LINK_POSITION, 15), (T.TASK_LINK_ROTATION, 31))))
-    plan = TickPlan(pm, cfg)
+    elif variant == "point_contact":
+        cfg = dataclasses.replace(cfg, contacts=(
+            dataclasses.replace(cfg.contacts[0], contact_type=T.CONTACT_POINT),)
+            + cfg.contacts[1:])
+    elif variant in ("four_contacts", "hands_masked"):
+        cfg = entry._hands_feet_config(pm, T.CONTACT_6D if variant == "four_contacts"
+                                       else T.CONTACT_POINT)
+    elif variant == "no_torque_limit":
+        cfg = dataclasses.replace(cfg, torque_limit=None)
+    elif variant == "line_feet":
+        cfg = dataclasses.replace(cfg, contacts=tuple(
+            dataclasses.replace(c, contact_type=T.CONTACT_LINE, plane_y=0.0)
+            for c in cfg.contacts))
+    plan = TickPlan(pm, cfg, masked=variant == "hands_masked")
     assert tc.kernel_unsupported(plan) is None
     tab = tc.kernel_table(plan)
     tasks = tc.tasks(plan)
+    nlim = 0 if variant == "no_torque_limit" else 33
+    assert tab[tc.H_LIM] == float(nlim > 0)
     assert tab[tc.H_NTASK] == len(tasks) and tab[tc.H_TOT] == float(variant == "com_task")
-    assert tab[-33 - 4 * len(tasks):-33].reshape(-1, 4).tolist() == [
+    assert tab[len(tab) - nlim - 4 * len(tasks):len(tab) - nlim].reshape(-1, 4).tolist() == [
         [h, slot, r0, nr] for h, _, slot, r0, nr in tasks]
-    tc.TickKernels(TickProgram(pm, cfg, "cpu", torch.float64))
+    nc = len(cfg.contacts)
+    c0 = len(tab) - nlim - 4 * len(tasks) - (7 + 6 + 10 + 60) * nc
+    assert tab[c0:c0 + 7 * nc].reshape(nc, 7).tolist() == [
+        [slot, c.link, c.contact_type, *rows] for slot, c, rows in
+        zip(plan.contact_slots, cfg.contacts, tc.contact_rows(plan))]
+    assert sum(r[1] for r in tc.contact_rows(plan)) == plan.cdof
+    assert sum(r[3] for r in tc.contact_rows(plan)) == plan.k_rows
+    tc.TickKernels(TickProgram(pm, cfg, "cpu", torch.float64, masked=variant == "hands_masked"))
 
 
-@pytest.mark.parametrize("variant", ["point_contact", "four_contacts", "no_torque_limit",
-                                     "five_levels", "beyond_shared_fit"])
+@pytest.mark.parametrize("variant", ["no_contacts", "five_contacts", "five_levels",
+                                     "beyond_shared_fit"])
 def test_kernel_table_refuses_other_configs(models, variant):
+    from libdwbc_tpu_torch import entry
     from libdwbc_tpu_torch.ops import tick_cuda as tc
     from libdwbc_tpu_torch.ops.tick_kernel import TickPlan, TickProgram
 
     _, pm, _ = models
     cfg = standard_tocabi_config(pm)
-    if variant == "point_contact":
-        cfg = dataclasses.replace(cfg, contacts=(
-            dataclasses.replace(cfg.contacts[0], contact_type=T.CONTACT_POINT),)
-            + cfg.contacts[1:])
-    elif variant == "four_contacts":
-        cfg = dataclasses.replace(cfg, contacts=cfg.contacts + tuple(
-            dataclasses.replace(cfg.contacts[0], link=link) for link in (23, 31)))
-    elif variant == "no_torque_limit":
-        cfg = dataclasses.replace(cfg, torque_limit=None)
+    if variant == "no_contacts":
+        cfg = dataclasses.replace(cfg, contacts=())
+    elif variant == "five_contacts":
+        cfg = entry._hands_feet_config(pm)
+        cfg = dataclasses.replace(cfg, contacts=cfg.contacts + (
+            dataclasses.replace(cfg.contacts[2], link=27),))
     elif variant == "five_levels":
         cfg = dataclasses.replace(cfg, task_specs=cfg.task_specs + (
             ((T.TASK_LINK_ROTATION, 31),), ((T.TASK_LINK_ROTATION, 23),),
             ((T.TASK_LINK_POSITION, 27),)))
     elif variant == "beyond_shared_fit":
         cfg = dataclasses.replace(cfg, task_specs=(
-            ((T.TASK_LINK_6D, 0), (T.TASK_LINK_ROTATION, 15)),))
+            tuple((T.TASK_LINK_6D, link) for link in (0, 15, 31, 23)),))
     plan = TickPlan(pm, cfg)
     assert tc.kernel_unsupported(plan)
     with pytest.raises(NotImplementedError):

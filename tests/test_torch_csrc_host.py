@@ -205,7 +205,7 @@ void sizes64(const double* t, long long* out) {
   out[0] = dwbc::prestage_ws_elems(t); out[1] = dwbc::pre_elems(t, false);
   out[2] = dwbc::qpchain_smem_elems(tb); out[3] = dwbc::out_elems(tb);
   out[4] = dwbc::warm_elems(tb); out[5] = dwbc::pre_elems(t, true);
-  out[6] = dwbc::prestage_smem_elems(t); out[7] = dwbc::kPreSmemElems;
+  out[6] = dwbc::prestage_smem_elems(t); out[7] = dwbc::kPreSmemMax;
 }
 }
 """
@@ -718,37 +718,71 @@ def test_float32_servo_qpchain_lanes_within_servo_bars(lanes, s32, mode):
 
 # ------------------------------------------ general plans (not the flagship)
 def _general_cfg(model, name):
-    """BASELINE's config 3 (single support, a swing-foot third level), or
-    the mixed task set (entry._mixed_tasks_config: a whole-body COM 6D
-    level, a custom-frame position and a rotation task in one level, a
-    COM-frame position level) on the flagship's two 6D feet."""
-    from libdwbc_tpu_torch.entry import _mixed_tasks_config
+    """BASELINE's config 3 (single support, a swing-foot third level); the
+    mixed task set (entry._mixed_tasks_config: a whole-body COM 6D level, a
+    custom-frame position and a rotation task in one level, a COM-frame
+    position level) on the flagship's two 6D feet; the hands-and-feet
+    fixture (entry._hands_feet_config: 6D feet, POINT hands on links 23 and
+    31); the flagship's tasks on LINE feet (edge stance, plane_y 0); the
+    flagship without a torque limit; one foot under a level of 9 task rows
+    (a 6D pelvis task and a position task on the right hand, link 31) over
+    a rotation level on link 15; or the flagship's tasks on one POINT foot
+    (3 contact dof: no kernel basis, the 6×6 health of a rank-3 block)."""
+    import dataclasses
+
+    from libdwbc_tpu_torch.entry import _hands_feet_config, _mixed_tasks_config
+    from libdwbc_tpu_torch.wbc import types as T
     from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
 
+    base = standard_tocabi_config(model)
     if name == "config3":
         return standard_tocabi_config(model, both_feet=False, swing_task=True)
-    return _mixed_tasks_config(model, standard_tocabi_config(model))
+    if name == "hands":
+        return _hands_feet_config(model)
+    if name == "line_feet":
+        return dataclasses.replace(base, contacts=tuple(
+            dataclasses.replace(c, contact_type=T.CONTACT_LINE, plane_y=0.0)
+            for c in base.contacts))
+    if name == "no_limit":
+        return dataclasses.replace(base, torque_limit=None)
+    if name == "one_point":
+        single = standard_tocabi_config(model, both_feet=False)
+        return dataclasses.replace(single, contacts=(dataclasses.replace(
+            single.contacts[0], contact_type=T.CONTACT_POINT),))
+    if name == "wide_level":
+        return dataclasses.replace(standard_tocabi_config(model, both_feet=False), task_specs=(
+            ((T.TASK_LINK_6D, 0), (T.TASK_LINK_POSITION, 31)), ((T.TASK_LINK_ROTATION, 15),)))
+    return _mixed_tasks_config(model, base)
 
 
-@pytest.fixture(scope="module", params=["config3", "mixed", "mixed_masked"])
+# per masked plan, the candidates' 0/1 masks of the three lanes (nc, B):
+# the two feet both, left, right; the four hands-and-feet candidates all,
+# feet and the left hand, the left foot and the right hand
+GENERAL_MASKS = {"mixed": [[1.0, 1.0, 0.0], [1.0, 0.0, 1.0]],
+                 "hands": [[1.0, 1.0, 1.0], [1.0, 1.0, 0.0], [1.0, 1.0, 0.0], [1.0, 0.0, 1.0]]}
+
+
+@pytest.fixture(scope="module", params=["config3", "mixed", "mixed_masked", "hands",
+                                        "hands_masked", "line_feet", "no_limit", "wide_level",
+                                        "one_point"])
 def gsetup(request):
     """Three lanes of a general plan: the standing q with 0.02·N(0,1) on the
     joints, the last lane's base turned and moved, f* 0.1·N(0,1); masked:
-    the mixed task set over the two feet as candidates, one support
-    hypothesis per lane (both, left, right)."""
+    the plan's contacts as candidates, one hypothesis per lane
+    (GENERAL_MASKS)."""
     from libdwbc_tpu_torch.model.compile import RobotModel
     from libdwbc_tpu_torch.ops.tick_cuda import kernel_table
     from libdwbc_tpu_torch.ops.tick_kernel import TickProgram
 
     m = RobotModel.load(MODEL)
-    masked = request.param == "mixed_masked"
-    prog = TickProgram(m, _general_cfg(m, request.param.removesuffix("_masked")), "cpu",
-                       torch.float64, masked=masked)
+    name = request.param.removesuffix("_masked")
+    masked = name != request.param
+    prog = TickProgram(m, _general_cfg(m, name), "cpu", torch.float64, masked=masked)
     rng = np.random.default_rng(13)
     q = np.stack([full_q(CASE_Q[1] + 0.02 * rng.standard_normal(33)) for _ in range(B)])
     q[-1] = _rot_q(q[-1], [1, 1, 1], -0.3)
     fs = [0.1 * rng.standard_normal((B, t)) for t in prog.plan.level_tdofs]
-    cm = np.array([[1.0, 1.0, 0.0], [1.0, 0.0, 1.0]]) if masked else None
+    cm = np.array(GENERAL_MASKS[name]) if masked else None
     return (prog, np.ascontiguousarray(kernel_table(prog.plan)), np.ascontiguousarray(q.T),
             [np.ascontiguousarray(f.T) for f in fs], cm)
 
@@ -770,30 +804,49 @@ def test_general_prestage_warp_lanes_match_one_lane(lanes, gsetup):
 
 
 def test_general_buffer_sizes_match_wrapper_layouts(grun, gsetup):
-    """The kernels' buffers against the wrapper's layouts; config 3's warm
-    state has no redistribution QP (cfree = 0)."""
+    """The kernels' buffers against the wrapper's layouts; with one contact
+    the warm state has no redistribution QP (cfree = 0, config 3: QPs (6,
+    76), (3, 76), (6, 76)); without a torque limit every QP has the k_rows
+    constraint rows alone."""
     from libdwbc_tpu_torch.ops import tick_cuda as tc
 
     plan = gsetup[0].plan
     assert grun["sizes"] == dict(pre=tc._elems(tc.pre_layout(plan)),
                                  out=tc._elems(tc.out_layout(plan)),
                                  warm=tc._elems(tc.warm_layout(plan)))
-    if plan.cfree == 0:
-        assert [shape for _, shape in tc.warm_layout(plan)] == [
-            (6,), (76,), (3,), (76,), (6,), (76,)]
-    else:
-        assert len(tc.warm_layout(plan)) == 2 * (len(plan.level_tdofs) + 1)
+    m = plan.k_rows + (0 if plan.tlim is None else 2 * plan.mdof)
+    nv = [t + plan.cfree for t in plan.level_tdofs] + ([plan.cfree] if plan.cfree else [])
+    assert [shape for _, shape in tc.warm_layout(plan)] == [
+        s for n in nv for s in ((n,), (m,))]
+    if plan.cfree == 0 and plan.level_tdofs == [6, 3, 6]:
+        assert nv == [6, 3, 6] and m == 76
 
 
 @pytest.mark.parametrize("field", ["torque_grav", "P_C", "Jbar_act", "NwJw", "Ntorques",
                                    "Atemp", "bA0", "health"])
 def test_general_prestage_lanes_match_plain(grun, gsetup, field):
     """Every prestage field within 1e-9 of the plain float64 prestage; with
-    one contact NwJw is absent, as in the plain version."""
+    one contact NwJw is absent, as in the plain version.  NwJw = V2·M⁺,
+    M = J̄ᵀ's first (active contact dof − 6) active rows times the kernel
+    basis V2: with more than two contacts M can be singular (the hands'
+    rows), and then which column its thresholded QR drops, and so NwJw,
+    follows the basis that a near-tie of complete_basis picks; what is
+    determined is M·M⁺ = J̄ᵀ[rows]·NwJw, held on every plan, NwJw itself on
+    plans of at most two contacts (on the hands plan the lanes' NwJw and
+    the plain version's part by up to 1.56)."""
+    plan = gsetup[0].plan
     got, want = grun["pre"][field], grun["ref_pre"][field]
-    if field == "NwJw" and gsetup[0].plan.cfree == 0:
+    if field == "NwJw" and plan.cfree == 0:
         assert got is None and want is None
         return
+    if field == "NwJw":
+        from libdwbc_tpu_torch.ops.tick_cuda import nwjw_determined
+
+        prod = [nwjw_determined(grun[k], plan, grun["cm"]) for k in ("pre", "ref_pre")]
+        err = float((prod[0] - prod[1]).abs().max())
+        assert err <= 1e-9, f"J̄ᵀ·NwJw: {err:.3e}"
+        if len(plan.cfg.contacts) > 2:
+            return
     if field == "Ntorques":
         assert len(got) == len(want) == len(gsetup[0].plan.level_tdofs)
         err = max(float((a - b).abs().max()) for a, b in zip(got, want))
@@ -829,14 +882,24 @@ def test_general_qpchain_lanes_match_plain(grun, gsetup, mode):
     if prog.plan.cfree == 0:
         assert not got["torque_contact"].any()
     if mode == "cold":
+        # with more than two contacts the contact block of a level's x sits
+        # on the flat face of a rank-deficient contact space (its Hessian is
+        # zero), where roundoff moves it (the hands plan's turned-base lane:
+        # 3.7e-8 at 25 iterations and 2.5e-7 at 6, with every torque within
+        # 1e-12): there the task block and the redistribution QP's x are held
+        flat = len(prog.plan.cfg.contacts) > 2
         assert len(got["warm_out"]) == len(prog.plan.qp_dims)
-        for (x, _), (rx, _) in zip(got["warm_out"], ref["warm_out"]):
-            assert float((x - rx).abs().max()) <= 1e-8
+        for h, ((x, _), (rx, _)) in enumerate(zip(got["warm_out"], ref["warm_out"])):
+            n = (prog.plan.level_tdofs[h] if flat and h < len(prog.plan.level_tdofs)
+                 else x.shape[0])
+            assert float((x[:n] - rx[:n]).abs().max()) <= 1e-8
         ref6 = prog.qpchain(grun["ref_pre"], grun["fs"], None, 6)
         got6 = tc.TickKernels(prog).unpack_result(
             *(torch.as_tensor(a) for a in grun["qp"](6, None)))
-        for (x, lam), (rx, rlam) in zip(got6["warm_out"], ref6["warm_out"]):
-            assert float((x - rx).abs().max()) <= 1e-8
+        for h, ((x, lam), (rx, rlam)) in enumerate(zip(got6["warm_out"], ref6["warm_out"])):
+            n = (prog.plan.level_tdofs[h] if flat and h < len(prog.plan.level_tdofs)
+                 else x.shape[0])
+            assert float((x[:n] - rx[:n]).abs().max()) <= 1e-8
             assert float((lam - rlam).abs().max()) <= 1e-6 * (1 + float(rlam.abs().max()))
 
 
@@ -964,12 +1027,16 @@ def test_general_servo_lanes_match_plain(gsrun):
 
 
 def test_prestage_x_fit_matches_kernel_layout(lanes, monkeypatch):
-    """The wrapper's shared-fit rule (tick_cuda.prestage_x_fit) against the
-    prestage's own layout (PreWS::smem, 2⁴⁰ where X's buffer overflows):
-    a largest level of 6 task rows fits with two contacts and 9 does not,
-    9 fits with one and 12 does not; whatever fits X fits the shared part."""
+    """The wrapper's shared-fit rule (tick_cuda.prestage_smem, with X's
+    buffer prestage_x_fit) against the prestage's own layout (PreWS::smem)
+    on plans of one to four contacts, static and masked, with levels of 6
+    to 24 task rows: the same floats per scenario, and kernel_unsupported
+    refuses exactly those beyond the kernel's cap (a level of four 6D tasks
+    over two contacts); X's buffer grows past nd² with three or more
+    contacts and with a level of 9 rows over two contacts, 12 over one."""
     import dataclasses
 
+    from libdwbc_tpu_torch.entry import _hands_feet_config
     from libdwbc_tpu_torch.model.compile import RobotModel
     from libdwbc_tpu_torch.ops import tick_cuda as tc
     from libdwbc_tpu_torch.ops.tick_kernel import TickPlan
@@ -977,30 +1044,40 @@ def test_prestage_x_fit_matches_kernel_layout(lanes, monkeypatch):
     from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
 
     m = RobotModel.load(MODEL)
-    level = {6: ((T.TASK_LINK_6D, 0),),
-             9: ((T.TASK_LINK_6D, 0), (T.TASK_LINK_POSITION, 15)),
-             12: ((T.TASK_LINK_6D, 0), (T.TASK_LINK_6D, 31))}
-    why = {}
-    for both, rows in ((True, 6), (True, 9), (False, 9), (False, 12)):
-        cfg = dataclasses.replace(standard_tocabi_config(m, both_feet=both),
-                                  task_specs=(level[rows], ((T.TASK_LINK_ROTATION, 15),)))
-        plan = TickPlan(m, cfg)
-        why[(both, rows)] = tc.kernel_unsupported(plan)
-        with monkeypatch.context() as mp:
-            mp.setattr(tc, "kernel_unsupported", lambda p: None)
-            smem, cap = _sizes(lanes, np.ascontiguousarray(tc.kernel_table(plan)))[6:8]
-        fits = why[(both, rows)] is None
-        assert (smem <= cap) == fits, (both, rows, smem, cap)
-        assert (smem < 2**40) == fits, (both, rows, smem)
-    assert why[(True, 6)] is None and why[(False, 9)] is None
-    assert "shared X buffer" in why[(True, 9)] and "shared X buffer" in why[(False, 12)]
+    six = [(T.TASK_LINK_6D, link) for link in (0, 15, 31, 23)]
+    level = {6: tuple(six[:1]), 9: (six[0], (T.TASK_LINK_POSITION, 15)),
+             12: tuple(six[:2]), 18: tuple(six[:3]), 24: tuple(six)}
+    hands = _hands_feet_config(m)
+    seen = {}
+    for contacts, base in (("one", standard_tocabi_config(m, both_feet=False)),
+                           ("two", standard_tocabi_config(m)), ("four", hands)):
+        for rows, lv in level.items():
+            cfg = dataclasses.replace(base, task_specs=(lv, ((T.TASK_LINK_ROTATION, 15),)))
+            for masked in (False, True):
+                plan = TickPlan(m, cfg, masked=masked)
+                with monkeypatch.context() as mp:
+                    mp.setattr(tc, "kernel_unsupported", lambda p: None)
+                    smem, cap = _sizes(lanes, np.ascontiguousarray(tc.kernel_table(plan)))[6:8]
+                why = tc.kernel_unsupported(plan)
+                assert smem == tc.prestage_smem(plan), (contacts, rows, masked, smem)
+                assert cap == tc.PRE_SMEM_MAX
+                assert (why is None) == (smem <= cap), (contacts, rows, masked, why)
+                need, room = tc.prestage_x_fit(plan)
+                seen[(contacts, rows, masked)] = (why is None, need > room)
+    assert seen[("two", 6, False)] == (True, False) and seen[("one", 9, False)] == (True, False)
+    assert seen[("two", 9, False)] == (True, True) and seen[("one", 12, False)] == (True, True)
+    assert seen[("four", 6, False)] == (True, True) and seen[("four", 6, True)] == (True, True)
+    assert not seen[("two", 24, False)][0] and not seen[("four", 18, True)][0]
+    assert "shared memory" in tc.kernel_unsupported(TickPlan(m, dataclasses.replace(
+        hands, task_specs=(level[24],))))
 
 
 def test_kernel_unsupported_reasons():
-    """Config 3 and the mixed task set (static and masked) are taken; POINT
-    and LINE contacts, three contacts, no torque limit, five levels and a
-    level beyond the prestage's shared fit are refused, each with its
-    reason."""
+    """Config 3, the mixed task set (static and masked), the hands-and-feet
+    fixture (static and masked), LINE feet, no torque limit and one foot
+    under a 9-row level are taken; no contacts, five contacts, five levels,
+    seventeen tasks and a plan beyond the prestage's shared fit are
+    refused, each with its reason."""
     import dataclasses
 
     from libdwbc_tpu_torch.model.compile import RobotModel
@@ -1009,21 +1086,22 @@ def test_kernel_unsupported_reasons():
     from libdwbc_tpu_torch.wbc import types as T
 
     m = RobotModel.load(MODEL)
+    for name, masked in (("config3", False), ("mixed", False), ("mixed", True), ("hands", False),
+                         ("hands", True), ("line_feet", False), ("line_feet", True),
+                         ("no_limit", False), ("wide_level", False)):
+        assert kernel_unsupported(TickPlan(m, _general_cfg(m, name), masked=masked)) is None
     mixed = _general_cfg(m, "mixed")
-    for cfg, masked in ((_general_cfg(m, "config3"), False), (mixed, False), (mixed, True)):
-        assert kernel_unsupported(TickPlan(m, cfg, masked=masked)) is None
-    foot = mixed.contacts[0]
+    hands = _general_cfg(m, "hands")
+    rot = ((T.TASK_LINK_ROTATION, 31),)
     refused = {
-        "6D contacts only": dataclasses.replace(mixed, contacts=(
-            foot, dataclasses.replace(foot, link=12, contact_type=T.CONTACT_LINE, plane_y=0.0),
-            dataclasses.replace(foot, link=23, contact_type=T.CONTACT_POINT))),
-        "one or two contacts, the plan has 3": dataclasses.replace(
-            mixed, contacts=mixed.contacts + (dataclasses.replace(foot, link=23),)),
-        "needs a torque limit": dataclasses.replace(mixed, torque_limit=None),
+        "one to 4 contacts, the plan has 0": dataclasses.replace(mixed, contacts=()),
+        "one to 4 contacts, the plan has 5": dataclasses.replace(
+            hands, contacts=hands.contacts + (dataclasses.replace(hands.contacts[2], link=27),)),
         "at most 4 task levels": dataclasses.replace(
-            mixed, task_specs=mixed.task_specs + (((T.TASK_LINK_ROTATION, 31),),) * 2),
-        "shared X buffer": dataclasses.replace(mixed, task_specs=(
-            ((T.TASK_LINK_6D, 0), (T.TASK_LINK_POSITION, 15)),)),
+            mixed, task_specs=mixed.task_specs + (rot,) * 2),
+        "at most 16 tasks": dataclasses.replace(mixed, task_specs=(rot * 9, rot * 8)),
+        "shared memory": dataclasses.replace(mixed, task_specs=(
+            tuple((T.TASK_LINK_6D, link) for link in (0, 15, 31, 23)),)),
     }
     for reason, cfg in refused.items():
         why = kernel_unsupported(TickPlan(m, cfg))

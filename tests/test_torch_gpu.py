@@ -498,7 +498,10 @@ def test_masked_fused_tick_cuda_serving(mcase, dev):
     assert not bool(lr.qp_error.any()) and float(lr.qp_primal_res.max()) <= 1e-3
 
 
-def test_masked_fused_cuda_refuses_point_candidates(mcase, dev):
+def test_masked_fused_cuda_takes_point_candidates(mcase, dev):
+    """A masked plan with a POINT candidate builds its kernels and ticks:
+    one launch of each, finite torques, the POINT candidate's moment rows
+    of J̄ᵀ exact zeros on every lane."""
     import dataclasses
 
     from libdwbc_tpu_torch.wbc import types as T
@@ -506,9 +509,16 @@ def test_masked_fused_cuda_refuses_point_candidates(mcase, dev):
 
     cfg = mcase["cfg"]
     point = dataclasses.replace(cfg.contacts[1], contact_type=T.CONTACT_POINT)
-    with pytest.raises(NotImplementedError):
-        FusedTick(mcase["model"], dataclasses.replace(cfg, contacts=(cfg.contacts[0], point)),
-                  dev, backend="cuda", masked=True)
+    tick = FusedTick(mcase["model"], dataclasses.replace(cfg, contacts=(cfg.contacts[0], point)),
+                     dev, backend="cuda", masked=True)
+    mask = torch.ones((2, 8), device=dev)
+    pre = tick.kernels.prestage(mcase["q_el"][:, :8].contiguous().to(dev), mask)
+    res = tick.kernels.qpchain(pre, [f[:, :8].contiguous().to(dev) for f in mcase["fs_el"]],
+                               None, 12)
+    torch.cuda.synchronize()
+    assert tick.kernels.launches == {"tick_prestage": 1, "tick_qpchain": 1}
+    assert torch.isfinite(res["torque_cmd"]).all()
+    assert not pre["Jbar_act"][9:12].any()
 
 
 # ------------------------------------------------------------- the servo
@@ -656,29 +666,52 @@ def test_servo_loop_cuda_launches(scase, dev):
 # ------------------------------------------- general plans (not the flagship)
 def _general(model, name):
     """(plan config, masked) of a general plan: BASELINE's config 3 (single
-    support, a swing-foot third level), or the mixed task set (a whole-body
+    support, a swing-foot third level); the mixed task set (a whole-body
     COM level, a custom-frame position and a rotation task in one level, a
-    COM-frame position level) on the two 6D feet, static or masked."""
-    from libdwbc_tpu_torch.entry import _mixed_tasks_config
+    COM-frame position level) on the two 6D feet, static or masked; the
+    hands-and-feet fixture (6D feet, POINT hands), static or masked; the
+    flagship on LINE feet; or the flagship without a torque limit."""
+    import dataclasses
+
+    from libdwbc_tpu_torch.entry import _hands_feet_config, _mixed_tasks_config
+    from libdwbc_tpu_torch.wbc import types as T
     from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
 
+    base = standard_tocabi_config(model, qp_iters=12)
     if name == "config 3":
         return standard_tocabi_config(model, both_feet=False, swing_task=True, qp_iters=12), False
-    cfg = _mixed_tasks_config(model, standard_tocabi_config(model, qp_iters=12))
-    return cfg, name == "mixed masked"
+    if name.startswith("hands"):
+        return _hands_feet_config(model), name == "hands masked"
+    if name == "line feet":
+        return dataclasses.replace(base, contacts=tuple(
+            dataclasses.replace(c, contact_type=T.CONTACT_LINE, plane_y=0.0)
+            for c in base.contacts)), False
+    if name == "no limit":
+        return dataclasses.replace(base, torque_limit=None), False
+    return _mixed_tasks_config(model, base), name == "mixed masked"
 
 
 def _general_inputs(model, name, nb, seed):
     """q, f* (numpy, float32) and the contact mask of nb lanes: config 3's
-    serving inputs (entry._swing_inputs), the flagship's standing q with
-    joint noise and f* 0.05·N(0,1), or the masked sweep's lanes."""
-    from libdwbc_tpu_torch.entry import _example_inputs, _masked_inputs, _swing_inputs
+    serving inputs (entry._swing_inputs), the hands-and-feet ones (entry.
+    _hands_feet_inputs; masked: entry._hands_masked_inputs), the
+    flagship's standing q with joint noise and f* 0.05·N(0,1), or the
+    masked sweep's lanes."""
+    from libdwbc_tpu_torch.entry import (_example_inputs, _hands_feet_inputs,
+                                         _hands_masked_inputs, _masked_inputs, _swing_inputs)
 
     rng = np.random.default_rng(seed)
     if name == "config 3":
         q, _, fs = _swing_inputs(model, nb, seed=seed)
         return q, fs, None
-    fs = [0.05 * rng.standard_normal((nb, t)).astype(np.float32) for t in (6, 6, 3)]
+    if name in ("hands", "line feet"):
+        q, _, fs = _hands_feet_inputs(model, nb, seed=seed)
+        return q, fs, None
+    if name == "hands masked":
+        q, _, fs, masks = _hands_masked_inputs(model, nb, seed=seed)
+        return q, fs, masks
+    fs = [0.05 * rng.standard_normal((nb, t)).astype(np.float32)
+          for t in ((6, 3) if name == "no limit" else (6, 6, 3))]
     if name == "mixed masked":
         q, _, _, masks = _masked_inputs(model, nb, seed=seed)
         return q, fs, masks
@@ -688,7 +721,8 @@ def _general_inputs(model, name, nb, seed):
     return q, fs, None
 
 
-@pytest.mark.parametrize("name", ["config 3", "mixed", "mixed masked"])
+@pytest.mark.parametrize("name", ["config 3", "mixed", "mixed masked", "hands", "hands masked",
+                                  "line feet", "no limit"])
 @pytest.mark.parametrize("nb", [1, 5, 4097])
 def test_general_kernels_partial_blocks(case, dev, name, nb):
     """The general-plan kernels at batches that fill one block partly (1, 5)
@@ -696,8 +730,9 @@ def test_general_kernels_partial_blocks(case, dev, name, nb):
     float64 prestage, and tick_qpchain (cold at 12 iterations, warm at 7)
     against the plain float32 qpchain, both on the plain float32 prestage,
     each within tick_cuda.GENERAL_TOL[name] ("pre", "qp32"; masked: per
-    hypothesis, lane % 3)."""
-    from libdwbc_tpu_torch.ops.tick_cuda import GENERAL_TOL, TickKernels
+    hypothesis, lane % 3, the hands' lane % 4; NwJw through
+    nwjw_determined where its basis follows roundoff)."""
+    from libdwbc_tpu_torch.ops.tick_cuda import GENERAL_TOL, TickKernels, nwjw_determined
     from libdwbc_tpu_torch.ops.tick_kernel import TickProgram
 
     m = case["model"]
@@ -708,12 +743,14 @@ def test_general_kernels_partial_blocks(case, dev, name, nb):
     def el(a, dtype=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(a.T)).to(dtype)
 
+    nh = 4 if name == "hands masked" else 3
+
     def errs(got, want):
         d = (got.detach().cpu().double() - want.detach().cpu().double()).abs().reshape(-1, nb)
         if not masked:
             return [float(d.max())]
-        lane = torch.arange(nb) % 3
-        return [float(d[:, lane == h].max()) if (lane == h).any() else 0.0 for h in range(3)]
+        lane = torch.arange(nb) % nh
+        return [float(d[:, lane == h].max()) if (lane == h).any() else 0.0 for h in range(nh)]
 
     p64 = TickProgram(m, cfg, "cpu", torch.float64, masked=masked)
     p32 = TickProgram(m, cfg, "cpu", torch.float32, masked=masked)
@@ -722,8 +759,12 @@ def test_general_kernels_partial_blocks(case, dev, name, nb):
     got = kern.prestage(el(q).to(dev), None if cm is None else cm.to(dev))
     ref = p64.prestage(el(q, torch.float64), None if cm is None else cm.double())
     torch.cuda.synchronize()
+    basis_free = len(cfg.contacts) > 2 or any(c.contact_type != 0 for c in cfg.contacts)
     for k, t in tol["pre"].items():
         pairs = zip(got[k], ref[k]) if k == "Ntorques" else [(got[k], ref[k])]
+        if k == "NwJw" and basis_free:
+            pairs = [tuple(nwjw_determined(x, p64.plan, None if cm is None else cm.to(
+                x["NwJw"].device)) for x in (got, ref))]
         for g, r in pairs:
             assert torch.isfinite(g).all(), k
             e = errs(g, r)
@@ -809,10 +850,36 @@ def test_general_fused_tick_cuda_serving(case, dev):
             assert e <= max(SERVO_TOL[name], 4 * o), (h, name, e, o)
 
 
+def test_hands_fused_tick_cuda_serving(case, dev):
+    """FusedTick(backend="cuda") serving the hands-and-feet chain: through
+    make_control_loop (tick 0 cold at the configuration's 25 iterations,
+    then warm at 7, gap_fallback 1e-3) exactly two launches per tick and
+    re-solve, and one unbatched tick; no lane flagged, the contacts
+    carrying the weight."""
+    from libdwbc_tpu_torch.entry import _hands_feet_inputs
+    from libdwbc_tpu_torch.wbc.fused import FusedTick
+    from libdwbc_tpu_torch.wbc.loop import make_control_loop
+
+    m = case["model"]
+    cfg, _ = _general(m, "hands")
+    tick = FusedTick(m, cfg, dev, backend="cuda")
+    q, qd, fs = (torch.as_tensor(a, device=dev) if not isinstance(a, tuple) else
+                 tuple(torch.as_tensor(f, device=dev) for f in a)
+                 for a in _hands_feet_inputs(m, B))
+    lr = make_control_loop(tick, K=4, warm_start=True, warm_iters=7, gap_fallback=1e-3)(q, qd, fs)
+    r1 = tick._tick_impl(q[0], qd[0], tuple(f[0] for f in fs))
+    torch.cuda.synchronize()
+    n = 4 + lr.refined_ticks + 1
+    assert tick.kernels.launches == {"tick_prestage": n, "tick_qpchain": n}
+    assert not bool(lr.qp_error.any()) and float(lr.qp_primal_res.max()) <= 1e-3
+    assert not bool(r1.qp_error) and r1.contact_force.shape == (18,)
+    assert float(r1.contact_force[[2, 8, 14, 17]].sum()) < -400.0
+
+
 def test_general_refusals_raise(case, dev):
     """FusedTick(backend="cuda") refuses what the kernels do not take, with
-    its reason: POINT and LINE contacts, three contacts, no torque limit,
-    five levels, a level beyond tick_prestage's shared fit."""
+    its reason: no contacts, five contacts, five levels, a plan beyond
+    tick_prestage's shared memory."""
     import dataclasses
 
     from libdwbc_tpu_torch.wbc import types as T
@@ -820,16 +887,14 @@ def test_general_refusals_raise(case, dev):
 
     m = case["model"]
     cfg, _ = _general(m, "mixed")
-    foot = cfg.contacts[0]
+    hands, _ = _general(m, "hands")
     for reason, bad in (
-            ("6D contacts only", dataclasses.replace(cfg, contacts=(
-                foot, dataclasses.replace(foot, link=12, contact_type=T.CONTACT_LINE)))),
-            ("one or two contacts", dataclasses.replace(
-                cfg, contacts=cfg.contacts + (dataclasses.replace(foot, link=23),))),
-            ("torque limit", dataclasses.replace(cfg, torque_limit=None)),
+            ("the plan has 0", dataclasses.replace(cfg, contacts=())),
+            ("the plan has 5", dataclasses.replace(hands, contacts=hands.contacts + (
+                dataclasses.replace(hands.contacts[2], link=27),))),
             ("at most 4 task levels", dataclasses.replace(
                 cfg, task_specs=cfg.task_specs + (((T.TASK_LINK_ROTATION, 31),),) * 2)),
-            ("shared X buffer", dataclasses.replace(cfg, task_specs=(
-                ((T.TASK_LINK_6D, 0), (T.TASK_LINK_POSITION, 15)),)))):
+            ("shared memory", dataclasses.replace(cfg, task_specs=(
+                tuple((T.TASK_LINK_6D, link) for link in (0, 15, 31, 23)),)))):
         with pytest.raises(NotImplementedError, match=reason):
             FusedTick(m, bad, dev, backend="cuda")

@@ -221,6 +221,44 @@ def test_line_candidates_match_masked_tick():
     assert float(mres.qp_primal_res) < 1e-6
 
 
+def test_hands_candidates_match_jax():
+    """The four hands-and-feet candidates (6D feet, POINT hands; entry.
+    _hands_feet_config) against the JAX masked fused tick at float64, one
+    lane per hypothesis (feet, feet and the left hand, feet and the right
+    hand, all four), cold at 25 iterations: the tick's torques and contact
+    force within 1e-8, no lane flagged.  (The JAX prestage alone would add
+    a minute of eager dispatch; its fields are held through the static
+    hands variant of test_torch_prestage.py and, masked, through the
+    kernels' lanes against the plain prestage in test_torch_csrc_host.py.)"""
+    from libdwbc_tpu.model.compile import RobotModel as JM
+    from libdwbc_tpu.wbc import pipeline as jpipe
+    from libdwbc_tpu.wbc import types as JT
+    from libdwbc_tpu.wbc.fused import FusedTick as JF
+    from libdwbc_tpu_torch.entry import HANDS_MASKS, _hands_feet_config
+    from libdwbc_tpu_torch.model.compile import RobotModel
+
+    m = JM.load(MODEL)
+    base = jpipe.standard_tocabi_config(m, qp_iters=25)
+    jcfg = dataclasses.replace(base, contacts=base.contacts + tuple(
+        dataclasses.replace(base.contacts[0], link=link, contact_type=JT.CONTACT_POINT,
+                            plane_x=0.04, plane_y=0.04) for link in (23, 31)))
+    masks = HANDS_MASKS.astype(np.float64)
+    nb = len(masks)
+    f1, f2 = CASE_FSTAR[1]
+    q = np.tile(full_q(CASE_Q[1]), (nb, 1))
+    q[:, 6:39] += 1e-2 * np.random.default_rng(3).standard_normal((nb, 33))
+    qd, fs = np.zeros((nb, 39)), (np.tile(f1, (nb, 1)), np.tile(f2, (nb, 1)))
+    jt = JF(m, jcfg, dtype=jnp.float64, backend="xla", masked=True)
+    jres, _ = jt._tick_impl(q, qd, fs, masks, warm=jt.init_warm((nb,)), qp_iters=25)
+    pt = _port_tick(_hands_feet_config(RobotModel.load(MODEL)))
+    pres, _ = pt._tick_impl(q, qd, fs, masks, warm=pt.init_warm((nb,)), qp_iters=25)
+    assert pres.contact_force.shape == (nb, 24)
+    for field in TAUS + ("contact_force",):
+        err = _err(getattr(pres, field), np.asarray(getattr(jres, field)))
+        assert err <= 1e-8, f"{field}: {err:.3e}"
+    assert not pres.qp_error.any() and not np.asarray(jres.qp_error).any()
+
+
 def test_float32_warm_masked_lanes_stay_near_float64():
     """The plain float32 masked QP chain on 1024 lanes of the masked sweep,
     cold at 12 iterations then warm at 7, against the float64 QP chain from

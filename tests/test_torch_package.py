@@ -81,21 +81,30 @@ def test_cuda_backend_raises_without_a_card(flagship):
 
 
 def test_masked_kernels_refuse_point_candidates(flagship):
-    """The CUDA tick takes the flagship's two 6D candidates only: a POINT
-    candidate is refused when the kernel table is built (FusedTick(masked,
+    """The CUDA tick's masked table carries a POINT candidate's type and its
+    live jacobian and constraint rows (the translation rows, the cone), so
+    the kernels take it; what they still refuse — here five candidates — is
+    refused when the kernel table is built (FusedTick(masked,
     backend="cuda") builds it), never sent to the plain version."""
     import dataclasses
 
-    from libdwbc_tpu_torch.ops.tick_cuda import H_MASKED, kernel_table
+    from libdwbc_tpu_torch.ops import tick_cuda as tc
     from libdwbc_tpu_torch.ops.tick_kernel import TickPlan
     from libdwbc_tpu_torch.wbc import types as T
 
     m, cfg = flagship
-    assert kernel_table(TickPlan(m, cfg, masked=True))[H_MASKED] == 1.0
+    assert tc.kernel_table(TickPlan(m, cfg, masked=True))[tc.H_MASKED] == 1.0
     point = dataclasses.replace(cfg.contacts[1], contact_type=T.CONTACT_POINT)
-    with pytest.raises(NotImplementedError, match="6D candidate"):
-        kernel_table(TickPlan(m, dataclasses.replace(cfg, contacts=(cfg.contacts[0], point)),
-                              masked=True))
+    plan = TickPlan(m, dataclasses.replace(cfg, contacts=(cfg.contacts[0], point)), masked=True)
+    tab = tc.kernel_table(plan)
+    c0 = len(tab) - 33 - 4 * len(tc.tasks(plan)) - (7 + 6 + 10 + 60) * 2
+    assert tab[c0 + 7:c0 + 14].tolist() == [1, 12, T.CONTACT_POINT, 6, 6, 10, 10]
+    assert tab[c0 + 14 + 6:c0 + 14 + 12].tolist() == [1, 1, 1, 0, 0, 0]
+    assert tab[c0 + 26 + 10:c0 + 26 + 20].tolist() == [0] * 4 + [1] * 6
+    five = dataclasses.replace(cfg, contacts=cfg.contacts + tuple(
+        dataclasses.replace(point, link=link) for link in (23, 31, 27)))
+    with pytest.raises(NotImplementedError, match="the plan has 5"):
+        tc.kernel_table(TickPlan(m, five, masked=True))
 
 
 def test_unknown_backend_raises(flagship):

@@ -93,12 +93,25 @@ def test_prestage_float32_close_to_float64(q_el, torch_pre):
 def _variant_cfg(T, cfg_mod, model, variant):
     """Static-mode branches the flagship does not take: mixed 6D/line/point
     contacts with a whole-body COM task and custom/COM-frame task points,
-    a single foot (no redistribution space, cfree = 0), or BASELINE's
-    config 3, a single foot with a swing-foot third level."""
+    a single foot (no redistribution space, cfree = 0), BASELINE's config
+    3, a single foot with a swing-foot third level, the reference's
+    hands-and-feet fixture (6D feet, POINT hands on links 23 and 31 with a
+    0.04 × 0.04 plane; tests/test_contacts_non6d.py:20-40), or the
+    flagship on LINE feet (edge stance, plane_y 0)."""
     import dataclasses
 
     if variant == "swing":
         return cfg_mod.standard_tocabi_config(model, both_feet=False, swing_task=True)
+    if variant == "hands":
+        base = cfg_mod.standard_tocabi_config(model)
+        return dataclasses.replace(base, contacts=base.contacts + tuple(
+            dataclasses.replace(base.contacts[0], link=link, contact_type=T.CONTACT_POINT,
+                                plane_x=0.04, plane_y=0.04) for link in (23, 31)))
+    if variant == "line_feet":
+        base = cfg_mod.standard_tocabi_config(model)
+        return dataclasses.replace(base, contacts=tuple(
+            dataclasses.replace(c, contact_type=T.CONTACT_LINE, plane_y=0.0)
+            for c in base.contacts))
     base = cfg_mod.standard_tocabi_config(model, both_feet=variant == "mixed")
     if variant == "single_foot":
         return base
@@ -116,7 +129,7 @@ def _variant_cfg(T, cfg_mod, model, variant):
     return dataclasses.replace(base, contacts=contacts, task_specs=tasks)
 
 
-@pytest.fixture(scope="module", params=["mixed", "single_foot", "swing"])
+@pytest.fixture(scope="module", params=["mixed", "single_foot", "swing", "hands", "line_feet"])
 def variant(request, q_el):
     from libdwbc_tpu.model.compile import RobotModel as JM
     from libdwbc_tpu.ops.tick_kernel import TickProgram as JP

@@ -157,11 +157,12 @@ def test_float32_tick_close_to_float64(serving, serving32, tick):
 
 
 # ------------------------------ other static-mode configurations, cold
-@pytest.mark.parametrize("variant", ["mixed", "single_foot", "swing"])
+@pytest.mark.parametrize("variant", ["mixed", "single_foot", "swing", "hands", "line_feet"])
 def test_variant_cold_tick_matches_jax(variant):
     """Mixed 6D/line/point contacts with a whole-body COM task (three
-    levels), a single foot (no redistribution QP), and BASELINE's config 3
-    (a single foot, a swing-foot third level)."""
+    levels), a single foot (no redistribution QP), BASELINE's config 3 (a
+    single foot, a swing-foot third level), the hands-and-feet fixture
+    (6D feet, POINT hands) and LINE feet."""
     import dataclasses
 
     from libdwbc_tpu.model.compile import RobotModel as JM
