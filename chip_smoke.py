@@ -34,10 +34,14 @@ Phases, each fatal on failure (nothing is caught):
    tick in float64 on the CPU, and both CUDA ticks against the port's
    CompiledTick in float64 on the CPU, the independent formulation; τ_grav
    and τ_cmd within 0.05 Nm;
-7. times with CUDA events at batch 1024 and batch 1: each kernel against
-   its plain version run on the card (and replayed from a captured CUDA
-   graph, without the wrapper's host time), psd_inverse against
-   torch.linalg.inv, and the warm chains' solves/s of both ticks;
+7. times with CUDA events at batch 1024 and batch 1 (qp_solve also at
+   4096, the tick's batch tiled): each kernel against its plain version
+   run on the card (and replayed from a captured CUDA graph, without the
+   wrapper's host time), psd_inverse against torch.linalg.inv, and the
+   warm chains' solves/s of both ticks; CompiledTick's warm tick split
+   into qp_solve's device time (CUDA events around its launches), the
+   device's other kernels and the host alone (the device's busy time by
+   torch.profiler);
 8. the masked kernels against their plain versions, on the first 1024
    lanes of the masked sweep (entry._masked_inputs: the two feet as
    candidates, the hypotheses both / left / right cycled over the lanes),
@@ -159,7 +163,9 @@ Phases, each fatal on failure (nothing is caught):
    the normal forces below −400 N; times and solves/s.
 
 Then each kernel's resources (registers and local bytes per thread, shared
-bytes and threads per block, resident blocks per SM, ptxas's spill bytes).
+bytes and threads per block, resident blocks per SM, ptxas's spill bytes;
+qp_solve's problems per block and shared bytes at each of the tick's three
+QP shapes).
 The last lines are the kernels' JSON record (with each kernel's bound: the
 larger of its bytes over the card's memory rate and its operations over the
 float32 rate, a tick kernel's operations counted by tick_flops on the plan
@@ -1017,6 +1023,7 @@ def main():
     from libdwbc_tpu_torch.ops.qp_cuda import QP_SOLVE_TOL, qp_solve_plain
     from libdwbc_tpu_torch.ops.tick_cuda import PRE_TOL, QP_TOL, TickKernels
     from libdwbc_tpu_torch.ops.tick_kernel import TickProgram
+    from libdwbc_tpu_torch.profile_tick import tick_split
     from libdwbc_tpu_torch.wbc.fused import FusedTick
     from libdwbc_tpu_torch.wbc.pipeline import CompiledTick, standard_tocabi_config
 
@@ -1318,8 +1325,9 @@ def main():
         kw = dict(iters=WARM_ITERS, ridge=p["ridge"], mirror=p["mirror"])
         x0, _, lam0 = qp_cuda.qp_solve(p["H"], p["g"], p["C"], p["d"], iters=COLD_ITERS,
                                        ridge=p["ridge"], mirror=p["mirror"])
-        for nb in (B, 1):
-            a = [t[:nb].contiguous() for t in (p["H"], p["g"], p["C"], p["d"], x0, lam0)]
+        for nb in (B, 1, B_M):            # B_M: the batch tiled, as MaskedTick's sweep
+            a = [t.repeat((-(-nb // B),) + (1,) * (t.ndim - 1))[:nb].contiguous()
+                 for t in (p["H"], p["g"], p["C"], p["d"], x0, lam0)]
             times[("qp_solve", name, nb)] = interleaved(
                 lambda: qp_solve_plain(*a, **kw), lambda: qp_cuda.qp_solve(*a, **kw), 2, 10)
             pt, kt, gk = times[("qp_solve", name, nb)]
@@ -1338,6 +1346,15 @@ def main():
                                                     tuple(f[0] for f in fs_d)), 3)
     print(f"CompiledTick warm chain: {K_C - 1} ticks at batch {B} in {cchain_ms:.3f} ms -> "
           f"{csolves:.1f} solves/s; unbatched cold tick {csingle_ms:.3f} ms  [{card}]")
+    split = tick_split(cchain, K_C - 1, _build.library())
+    print(f"CompiledTick warm tick at batch {B}, split per tick: wall {cchain_ms / (K_C - 1):.3f} "
+          f"ms (CUDA events around the chain); qp_solve {split['qp_events']:.3f} ms by CUDA "
+          f"events around its {split['qp_launches']:g} launches ({split['qp_prof']:.3f} ms by "
+          f"torch.profiler); the device's other kernels {split['busy'] - split['qp_prof']:.3f} "
+          f"ms; the host alone (the device idle) {cchain_ms / (K_C - 1) - split['busy']:.3f} "
+          f"ms; device busy share {split['busy'] / (cchain_ms / (K_C - 1)):.3f} "
+          f"(busy {split['busy']:.3f} ms: the union of its kernels' intervals, torch.profiler)  "
+          f"[{card}]")
 
     # --------------------- 8. the masked kernels vs their plain versions
     from libdwbc_tpu_torch.ops.tick_cuda import PRE_TOL_MASKED, QP_TOL_MASKED
@@ -1973,8 +1990,15 @@ def main():
     # each kernel's resources at the launch shape of its record: registers
     # and local bytes per thread, shared bytes per block, blocks per SM, and
     # ptxas's spill bytes
-    resources = {"psd_inverse": _build.kernel_info("psd_inverse", 39),
-                 "qp_solve": _build.kernel_info("qp_solve")}
+    resources = {"psd_inverse": _build.kernel_info("psd_inverse", 39)}
+    for name, p in zip(QP_NAMES, seen["qp_solve"]):
+        _, m_, n_ = p["C"].shape
+        res = _build.kernel_info("qp_solve", n_, m_, p["mirror"])
+        resources.setdefault("qp_solve", res)          # the record's: level 0
+        print(f"qp_solve launch shape, {name} (n {n_}, m {m_}, mirror {p['mirror']}): "
+              f"{res['threads_per_block'] // 32} problems per block, "
+              f"{res['smem_per_block']} shared bytes per block ({qp_cuda.smem_elems(n_, m_, p['mirror'])} floats per problem), "
+              f"{res['blocks_per_sm']} blocks per SM")
     for tag, k_ in (("", kern), ("_masked", mkern), ("_swing", kern3), ("_hands", kern_h),
                     ("_hands_masked", kern_hm)):
         sz = k_._lib_and_sizes()[1]

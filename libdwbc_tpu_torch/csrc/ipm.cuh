@@ -31,8 +31,8 @@
 // ill-conditioned, and a skipped step would stall the lane.
 //
 // The nl lanes of a Lanes (warp_linalg.cuh) share one problem: tick_qpchain
-// runs a warp per scenario on shared memory, qp_solve one thread per
-// problem (nl = 1).  The lanes split outputs, never a sum: the stored rows
+// runs a warp per scenario and qp_solve a warp per problem, each on shared
+// memory.  The lanes split outputs, never a sum: the stored rows
 // of C·x, the n outputs of Cᵀv, the n(n+1)/2 entries of the Gram, the m
 // rows of every elementwise update, the trailing triangle of each Cholesky
 // column; the two triangular solves are one lane's; μ, μ_aff and the gap

@@ -102,14 +102,13 @@ def library() -> ctypes.CDLL:
         getattr(lib, name).restype = i
     lib.dwbc_psd_inverse.argtypes = [p, p, i, i, p]
     lib.dwbc_psd_inverse.restype = i
-    lib.dwbc_qp_solve_ws_elems.argtypes = [i, i, i]
-    lib.dwbc_qp_solve_ws_elems.restype = ll
-    lib.dwbc_qp_solve.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                  ctypes.c_float, p]
+    lib.dwbc_qp_solve_smem_elems.argtypes = [i, i, i]
+    lib.dwbc_qp_solve_smem_elems.restype = ll
+    lib.dwbc_qp_solve.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
     lib.dwbc_qp_solve.restype = i
     for name, args in (("dwbc_tick_prestage_info", [i, p]), ("dwbc_tick_qpchain_info", [i, p]),
                        ("dwbc_tick_qpchain_nolim_info", [i, p]),
-                       ("dwbc_psd_inverse_info", [i, p]), ("dwbc_qp_solve_info", [p])):
+                       ("dwbc_psd_inverse_info", [i, p]), ("dwbc_qp_solve_info", [i, i, i, p])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = i

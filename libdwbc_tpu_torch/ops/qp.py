@@ -11,10 +11,11 @@ Infinite bounds are handled by row masking; H may be positive
 semidefinite.  All arguments broadcast on leading batch dims.
 
 Routing: with ``backend="cuda"``, a CUDA float32 problem that is one-sided
-(``lb`` None), has no equality rows and n ≤ 24 goes to the ``qp_solve``
-kernel (``ops/qp_cuda.py``), with that kernel's semantics; gap and primal
-residual are computed here from the unmirrored C, as the JAX module does.
-Everything else takes the loop below.
+(``lb`` None), has no equality rows and a shape that
+``qp_cuda.kernel_takes`` accepts (n ≤ 24, m ≤ 512, as the JAX router) goes
+to the ``qp_solve`` kernel (``ops/qp_cuda.py``), with that kernel's
+semantics; gap and primal residual are computed here from the unmirrored
+C, as the JAX module does.  Everything else takes the loop below.
 """
 
 from __future__ import annotations
@@ -29,7 +30,6 @@ from . import smallmat as sm
 _BIG = 1.0e20
 # Above this size the loop factorizations give way to torch.linalg.
 _UNROLL_LIMIT = 48
-_KERNEL_MAX_N = 24
 
 
 class QPSolution(NamedTuple):
@@ -78,9 +78,10 @@ def _one_sided(A, lb, ub):
     return C, d
 
 
-def _use_kernel(H, A, lb, Aeq, backend):
+def _use_kernel(H, A, lb, Aeq, backend, mirror=0):
     return (backend == "cuda" and lb is None and Aeq is None and A.is_cuda
-            and H.dtype == torch.float32 and H.shape[-1] <= _KERNEL_MAX_N)
+            and H.dtype == torch.float32
+            and qp_cuda.kernel_takes(H.shape[-1], A.shape[-2], mirror))
 
 
 def _solve_kernel(H, g, A, ub, iters, ridge, warm, mirror):
@@ -120,7 +121,7 @@ def solve_qp(H, g, A, lb, ub, Aeq=None, beq=None, iters: int = 30,
     (the ± torque-limit pairs); only the kernel uses it, the caller
     guarantees the structure.  backend: "torch" (this loop) or "cuda"
     (route eligible problems to the qp_solve kernel)."""
-    if _use_kernel(H, A, lb, Aeq, backend):
+    if _use_kernel(H, A, lb, Aeq, backend, mirror):
         return _solve_kernel(H, g, A, ub, iters, ridge, warm, mirror)
     n = H.shape[-1]
     dtype, dev = H.dtype, H.device

@@ -19,8 +19,10 @@ Float64 is the Pallas recurrence unchanged.
 
 ``qp_solve`` follows the wrappers' rule: CPU tensors go to the plain
 version; CUDA tensors go to the kernel, or the call raises (dtype other
-than float32, a wrong shape or layout, a failed build, a refused launch).
-Nothing falls back.  Each launch adds one to ``launches["qp_solve"]``.
+than float32, a wrong shape or layout, a shape that ``kernel_takes``
+refuses, a failed build, a refused launch).  Nothing falls back.  Each
+launch adds one to ``launches["qp_solve"]``.  ``kernel_takes`` is the one
+rule of which shapes the kernel takes; ``ops/qp.py`` routes by it.
 """
 
 from __future__ import annotations
@@ -40,6 +42,28 @@ launches = {"qp_solve": 0}
 # (x 2.1e-9, λ 1.8e-15, gap 1.3e-13).  The primal residual was 0 on both
 # sides; its limit is float32 roundoff of a unit-scale row.
 QP_SOLVE_TOL = {"x": 2e-8, "lam": 2e-14, "gap": 2e-12, "pres": 1e-7}
+
+# pallas_qp_solve's routing limits (libdwbc_tpu/ops/qp.py:76)
+MAX_N, MAX_M = 24, 512
+# shared bytes a block may opt into on the H100 (csrc/qp_solve.cu::kSmemOptin)
+SMEM_OPTIN_BYTES = 232448
+
+
+def smem_elems(n: int, m: int, mirror: int) -> int:
+    """Shared floats of one problem's working set, as ``csrc/qp_solve.cu::
+    qp_solve_smem_elems``: H and the Cholesky factor (n² each), g, the
+    stored rows [B; D] of C padded to an odd length, d and nine more
+    m-vectors, five n-vectors, x and λ."""
+    return 2 * n * n + n + (m - mirror) * (n | 1) + 11 * m + 6 * n
+
+
+def kernel_takes(n: int, m: int, mirror: int) -> bool:
+    """Whether the kernel takes a problem of n variables, m rows and
+    ``mirror`` mirrored row pairs: n ≤ 24 and m ≤ 512 (the JAX router's
+    limits), 0 ≤ 2·mirror ≤ m, and one problem's working set fits a block's
+    shared memory."""
+    return (1 <= n <= MAX_N and 1 <= m <= MAX_M and 0 <= 2 * mirror <= m
+            and 4 * smem_elems(n, m, mirror) <= SMEM_OPTIN_BYTES)
 
 
 def qp_solve_flops(n: int, m: int, mr: int, iters: int) -> int:
@@ -206,8 +230,8 @@ def qp_solve(H, g, C, d, x0=None, lam0=None, iters=12, ridge=1e-6, mirror=0):
     if C.ndim != 3:
         raise ValueError(f"qp_solve kernel: C must be (B, m, n), got {tuple(C.shape)}")
     B, m, n = C.shape
-    if not 0 <= 2 * mirror <= m:
-        raise ValueError(f"qp_solve kernel: mirror {mirror} for {m} rows")
+    if not kernel_takes(n, m, mirror):
+        raise ValueError(f"qp_solve kernel: does not take n {n}, m {m}, mirror {mirror}")
     if (x0 is None) != (lam0 is None):
         raise ValueError("qp_solve kernel: give both x0 and lam0, or neither")
     args = [("H", H, (B, n, n)), ("g", g, (B, n)), ("C", C, (B, m, n)), ("d", d, (B, m))]
@@ -221,13 +245,11 @@ def qp_solve(H, g, C, d, x0=None, lam0=None, iters=12, ridge=1e-6, mirror=0):
     x = torch.empty((B, n), dtype=C.dtype, device=C.device)
     s = torch.empty((B, m), dtype=C.dtype, device=C.device)
     lam = torch.empty((B, m), dtype=C.dtype, device=C.device)
-    ws = torch.empty((lib.dwbc_qp_solve_ws_elems(n, m, mirror), B), dtype=C.dtype,
-                     device=C.device)
     stream = torch.cuda.current_stream(C.device).cuda_stream
     rc = lib.dwbc_qp_solve(
         H.data_ptr(), g.data_ptr(), C.data_ptr(), d.data_ptr(),
         None if x0 is None else x0.data_ptr(), None if lam0 is None else lam0.data_ptr(),
-        x.data_ptr(), s.data_ptr(), lam.data_ptr(), ws.data_ptr(), B, n, m, mirror,
+        x.data_ptr(), s.data_ptr(), lam.data_ptr(), B, n, m, mirror,
         int(iters), float(ridge), stream)
     if rc != 0:
         raise RuntimeError(f"qp_solve launch failed: CUDA error {rc}")

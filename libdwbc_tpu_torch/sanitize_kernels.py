@@ -1,15 +1,18 @@
-"""Small calls of the warp-per-problem kernels, ``psd_inverse`` and
-``tick_qpchain``, for NVIDIA's compute-sanitizer:
+"""Small calls of the warp-per-problem kernels, ``psd_inverse``,
+``qp_solve`` and ``tick_qpchain``, for NVIDIA's compute-sanitizer:
 
     compute-sanitizer --tool racecheck python -m libdwbc_tpu_torch.sanitize_kernels
     compute-sanitizer --tool memcheck python -m libdwbc_tpu_torch.sanitize_kernels
 
 ``psd_inverse`` at n = 33, 39 and 64 on 5 matrices (two blocks, the second
-partly empty), and ``tick_qpchain`` on 5 scenarios of the flagship in each
-mode it serves: static cold and warm, masked (the three support
-hypotheses) and servo'd (f* read from the prestage buffer).  The inputs
-come from the plain versions on the CPU (float32), so no other kernel of
-the port runs.  Each call is synchronised and checked for finite output.
+partly empty); ``qp_solve`` cold and warm on 5 problems at the tick's
+level-0 shape (n = 12, m = 86, 33 mirrored pairs: four problems per block)
+and at the largest it takes (n = 24, m = 512, with 33 mirrored pairs three
+per block, without two), on random strictly feasible problems; and
+``tick_qpchain`` on 5 scenarios of the flagship in each mode it serves:
+static cold and warm, masked (the three support hypotheses) and servo'd
+(f* read from the prestage buffer), its inputs from the plain versions on
+the CPU (float32), so no other kernel of the port runs.  Each call is synchronised and checked for finite output.
 Needs a CUDA device.
 """
 
@@ -20,7 +23,7 @@ import torch
 
 from . import entry
 from .model.compile import RobotModel
-from .ops import linalg_cuda
+from .ops import linalg_cuda, qp_cuda
 from .ops.tick_cuda import TickKernels
 from .ops.tick_kernel import TickProgram
 from .wbc.fused import FusedTick
@@ -54,6 +57,20 @@ def main():
         torch.cuda.synchronize()
         assert torch.isfinite(out).all()
         print(f"psd_inverse n {n} batch {NB}: done")
+
+    for n, k, extra, mr in ((12, 33, 20, 33), (24, 33, 446, 33), (24, 33, 446, 0)):
+        m = 2 * k + extra
+        Q = rng.standard_normal((NB, n, n))
+        Bm = rng.standard_normal((NB, k, n))
+        C = np.concatenate([Bm, -Bm, rng.standard_normal((NB, extra, n))], axis=1)
+        d = np.einsum("bmn,bn->bm", C, rng.standard_normal((NB, n))) + rng.uniform(0.05, 2, (NB, m))
+        H, g, C, d = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (
+            Q @ np.swapaxes(Q, -1, -2) * 0.1 + np.eye(n), rng.standard_normal((NB, n)), C, d))
+        x, _, lam = qp_cuda.qp_solve(H, g, C, d, iters=12, mirror=mr)
+        out = qp_cuda.qp_solve(H, g, C, d, x, lam, iters=7, mirror=mr)
+        torch.cuda.synchronize()
+        assert all(torch.isfinite(t).all() for t in out)
+        print(f"qp_solve n {n} m {m} mirror {mr} batch {NB}, cold and warm: done")
 
     model = RobotModel.load(str(entry.MODEL_PATH))
     cfg = standard_tocabi_config(model, qp_iters=12)

@@ -169,8 +169,9 @@ def test_kernel_routing_with_the_plain_versions(monkeypatch):
 
     monkeypatch.setattr(linalg_cuda, "use_kernel", lambda M, backend: (
         M.dtype == torch.float32 and linalg_cuda.MIN_N <= M.shape[-1] <= linalg_cuda.MAX_N))
-    monkeypatch.setattr(qp, "_use_kernel", lambda H, A, lb, Aeq, backend: (
-        lb is None and Aeq is None and H.dtype == torch.float32))
+    monkeypatch.setattr(qp, "_use_kernel", lambda H, A, lb, Aeq, backend, mirror=0: (
+        lb is None and Aeq is None and H.dtype == torch.float32
+        and qp_cuda.kernel_takes(H.shape[-1], A.shape[-2], mirror)))
     monkeypatch.setattr(linalg_cuda, "psd_inverse", count("psd_inverse", inv))
     monkeypatch.setattr(qp_cuda, "qp_solve", count("qp_solve", solve))
     n0 = dict(linalg_cuda.launches, **qp_cuda.launches)

@@ -164,15 +164,21 @@ void elem64(int kind, int m, int k, int n, const double* A, const double* Bm, do
     }
   });
 }
-long long qpws64(int n, int m, int mr) { return dwbc::qp_solve_ws_elems<double>(n, m, mr); }
+long long qpsm64(int n, int m, int mr) { return dwbc::qp_solve_smem_elems<double>(n, m, mr); }
+// B problems, one at a time, each run by nl lanes on a NaN-filled scratch
+// copy of its shared working set.
 void qpsolve64(const double* H, const double* g, const double* C, const double* d,
-               const double* x0, const double* l0, double* x, double* s, double* l,
-               double* w, int B, int n, int m, int mr, int iters, double ridge) {
+               const double* x0, const double* l0, double* x, double* s, double* l, int B,
+               int n, int m, int mr, int iters, double ridge, int nl) {
+  std::vector<double> sm(dwbc::qp_solve_smem_elems<double>(n, m, mr));
   for (int b = 0; b < B; ++b) {
-    long long bn = (long long)b * n, bm = (long long)b * m;
-    dwbc::qp_solve_lane<double>(H + bn * n, g + bn, C + bm * n, d + bm,
-                                x0 ? x0 + bn : nullptr, l0 ? l0 + bm : nullptr, x + bn,
-                                s + bm, l + bm, w + b, B, n, m, mr, iters, ridge);
+    std::fill(sm.begin(), sm.end(), (double)NAN);
+    const long long bn = (long long)b * n, bm = (long long)b * m;
+    run_lanes(nl, [&](dwbc::Lanes wp) {
+      dwbc::qp_solve_warp<double>(H + bn * n, g + bn, C + bm * n, d + bm,
+                                  x0 ? x0 + bn : nullptr, l0 ? l0 + bm : nullptr, x + bn,
+                                  s + bm, l + bm, sm.data(), n, m, mr, iters, ridge, wp);
+    });
   }
 }
 // The prestage of B scenarios, one at a time, run by nl lanes: w is the
@@ -1217,17 +1223,27 @@ def _qp_problems(rng, n, k, extra):
     return [np.ascontiguousarray(a) for a in (H, g, C, d)]
 
 
-@pytest.mark.parametrize("mode", ["cold", "warm", "mirror"])
+# (n, mirrored pairs k, other rows): the tick's level 0 with its ± pairs
+# unfolded (cold, warm) and folded (mirror); the largest routed shape, n =
+# 24 and m = 512, without and with 33 folded pairs
+QP_MODES = {"cold": (12, 20, 20, 0), "warm": (12, 20, 20, 0), "mirror": (12, 33, 20, 33),
+            "largest": (24, 33, 446, 0), "largest_mirror": (24, 33, 446, 33)}
+
+
+@pytest.mark.parametrize("mode", list(QP_MODES))
 def test_qp_solve_lanes_match_plain(lanes, mode):
+    """qp_solve's warp code, each problem on a NaN-filled shared scratch:
+    one lane against qp_solve_plain within 1e-10, and 5 and 32 lanes as
+    threads equal to one lane bit for bit."""
     from libdwbc_tpu_torch.ops.qp_cuda import qp_solve_plain
 
     p, i = ctypes.c_void_p, ctypes.c_int
-    lanes.qpws64.argtypes = [i, i, i]
-    lanes.qpws64.restype = ctypes.c_longlong
-    lanes.qpsolve64.argtypes = [p] * 10 + [i] * 5 + [ctypes.c_double]
+    lanes.qpsm64.argtypes = [i, i, i]
+    lanes.qpsm64.restype = ctypes.c_longlong
+    lanes.qpsolve64.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_double, i]
     rng = np.random.default_rng(6)
-    mr = 33 if mode == "mirror" else 0
-    H, g, C, d = _qp_problems(rng, 12, 33 if mode == "mirror" else 20, 20)
+    nv, k, extra, mr = QP_MODES[mode]
+    H, g, C, d = _qp_problems(rng, nv, k, extra)
     n, m = g.shape[1], d.shape[1]
     x0 = l0 = None
     if mode == "warm":
@@ -1238,14 +1254,19 @@ def test_qp_solve_lanes_match_plain(lanes, mode):
     # amplifies summation-order roundoff in λ (1e-6 relative by μ ≈ 1e-13),
     # and the comparison would measure roundoff, not the recurrence
     iters = 4 if mode == "warm" else 8
-    x, s, lam = np.zeros((B, n)), np.zeros((B, m)), np.zeros((B, m))
-    ws = np.full((lanes.qpws64(n, m, mr), B), np.nan)
-    lanes.qpsolve64(_ptr(H), _ptr(g), _ptr(C), _ptr(d), _ptr(x0), _ptr(l0), _ptr(x), _ptr(s),
-                    _ptr(lam), _ptr(ws), B, n, m, mr, iters, 1e-6)
+    outs = {}
+    for nl in (1, 5, 32):
+        x, s, lam = np.full((B, n), np.nan), np.full((B, m), np.nan), np.full((B, m), np.nan)
+        lanes.qpsolve64(_ptr(H), _ptr(g), _ptr(C), _ptr(d), _ptr(x0), _ptr(l0), _ptr(x), _ptr(s),
+                        _ptr(lam), B, n, m, mr, iters, 1e-6, nl)
+        outs[nl] = (x, s, lam)
     ref = qp_solve_plain(*map(torch.as_tensor, (H, g, C, d)),
                          *(None if a is None else torch.as_tensor(a) for a in (x0, l0)),
                          iters=iters, ridge=1e-6, mirror=mr)
-    for name, got, want in zip(("x", "s", "lam"), (x, s, lam), ref):
+    for name, got, want in zip(("x", "s", "lam"), outs[1], ref):
         want = want.numpy()
         err = np.abs(got - want).max() / max(1.0, np.abs(want).max())
         assert err <= 1e-10, f"{mode}.{name}: {err:.3e}"
+    for nl in (5, 32):
+        for name, got, want in zip(("x", "s", "lam"), outs[nl], outs[1]):
+            assert np.array_equal(got, want), f"{mode}.{name}: {nl} lanes"

@@ -308,16 +308,43 @@ def tick_qps(case, dev):
     return seen
 
 
+def _largest(H, g, C, d):
+    """A tick QP grown to the largest shape the kernel takes, n = 24 and
+    m = 512: its rows repeated in turn after the 86 (the mirrored pairs
+    stay the first rows), and 12 more variables with an identity Hessian
+    that no row reads (they stay 0)."""
+    nb, m0, n0 = C.shape
+    idx = torch.arange(512, device=C.device) % m0
+    H2 = torch.zeros((nb, 24, 24), device=H.device)
+    H2[:, :n0, :n0] = H
+    H2[:, n0:, n0:] = torch.eye(24 - n0, device=H.device)
+    g2 = torch.zeros((nb, 24), device=g.device)
+    g2[:, :n0] = g
+    C2 = torch.zeros((nb, 512, 24), device=C.device)
+    C2[:, :, :n0] = C[:, idx]
+    return H2, g2, C2, d[:, idx].contiguous()
+
+
+@pytest.mark.parametrize("shape,nb", [("tick", None), ("tick", 1), ("tick", 5), ("tick", 4097),
+                                      ("largest", None), ("largest", 5)])
 @pytest.mark.parametrize("mode", ["cold", "warm", "unfolded"])
-def test_qp_solve_kernel_matches_plain(tick_qps, dev, mode):
+def test_qp_solve_kernel_matches_plain(tick_qps, dev, mode, shape, nb):
     """The tick's three QPs (n = 12, 9, 6; m = 86) against the plain float32
     version on the CPU, within qp_cuda.QP_SOLVE_TOL: cold at 12 iterations
     with the 33 mirrored rows folded, warm at 7, and cold with the mirror
-    unfolded (mirror = 0, all 86 rows stored)."""
+    unfolded (mirror = 0, all rows stored); at the fixture's batch and at
+    batches that leave the last block partly empty (its lanes tiled to 1, 5
+    and 4097 problems), and grown to n = 24, m = 512 (_largest: 3 problems
+    per block folded, 2 unfolded)."""
     from libdwbc_tpu_torch.ops import qp_cuda
     from libdwbc_tpu_torch.ops.qp import _comp_gap
 
     for H, g, C, d, ridge, mirror in tick_qps:
+        if nb is not None:
+            H, g, C, d = (t.repeat((-(-nb // t.shape[0]),) + (1,) * (t.ndim - 1))[:nb]
+                          .contiguous() for t in (H, g, C, d))
+        if shape == "largest":
+            H, g, C, d = _largest(H, g, C, d)
         cpu = [t.cpu() for t in (H, g, C, d)]
         kw = dict(ridge=ridge, mirror=0 if mode == "unfolded" else mirror)
         warm, iters = (), 12
@@ -331,16 +358,17 @@ def test_qp_solve_kernel_matches_plain(tick_qps, dev, mode):
         assert qp_cuda.launches["qp_solve"] == n0 + 1
         err = dict(x=float((got[0] - ref[0]).abs().max()),
                    lam=float(((got[2] - ref[2]).abs() / (1.0 + ref[2].abs())).max()))
+        m = C.shape[1]
         slack_k = cpu[3] - (cpu[2] @ got[0][..., None])[..., 0]
         slack_r = cpu[3] - (cpu[2] @ ref[0][..., None])[..., 0]
-        err["gap"] = float((_comp_gap(slack_k, got[2], 86) - _comp_gap(slack_r, ref[2], 86))
+        err["gap"] = float((_comp_gap(slack_k, got[2], m) - _comp_gap(slack_r, ref[2], m))
                            .abs().max())
         err["pres"] = float((torch.clamp_min(-slack_k, 0).max(-1).values
                              - torch.clamp_min(-slack_r, 0).max(-1).values).abs().max())
-        print(f"qp_solve {mode} n {g.shape[-1]}: " + " ".join(f"{k} {v:.3e}"
-                                                             for k, v in err.items()))
+        print(f"qp_solve {mode} {shape} B {C.shape[0]} n {g.shape[-1]}: "
+              + " ".join(f"{k} {v:.3e}" for k, v in err.items()))
         for k, v in err.items():
-            assert v <= qp_cuda.QP_SOLVE_TOL[k], (mode, k, v)
+            assert v <= qp_cuda.QP_SOLVE_TOL[k], (mode, shape, nb, k, v)
 
 
 def test_qp_solve_kernel_raises_on_bad_inputs(dev):
@@ -355,6 +383,14 @@ def test_qp_solve_kernel_raises_on_bad_inputs(dev):
         qp_cuda.qp_solve(H, g, C, d, x0=torch.zeros_like(g))
     with pytest.raises(ValueError):
         qp_cuda.qp_solve(H, g, C[:, :, :5].contiguous(), d)
+    # shapes kernel_takes refuses: n = 25, m = 513
+    for n, k, extra in ((25, 3, 4), (6, 3, 507)):
+        H, g, C, d = [a.to(dev) for a in _qp(np.random.default_rng(5), 2, n, k, extra)]
+        assert not qp_cuda.kernel_takes(n, C.shape[1], 3)
+        n0 = qp_cuda.launches["qp_solve"]
+        with pytest.raises(ValueError, match="does not take"):
+            qp_cuda.qp_solve(H, g, C, d, mirror=3)
+        assert qp_cuda.launches["qp_solve"] == n0
 
 
 def test_compiled_tick_cuda_serving(case, dev):

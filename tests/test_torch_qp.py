@@ -222,8 +222,9 @@ def test_float32_masked_tick_qps_stay_near_float64(monkeypatch):
     from libdwbc_tpu_torch.wbc.masked import MaskedTick
     from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
 
-    monkeypatch.setattr(qp, "_use_kernel", lambda H, A, lb, Aeq, backend: (
-        backend == "cuda" and lb is None and Aeq is None and H.dtype == torch.float32))
+    monkeypatch.setattr(qp, "_use_kernel", lambda H, A, lb, Aeq, backend, mirror=0: (
+        backend == "cuda" and lb is None and Aeq is None and H.dtype == torch.float32
+        and qp_cuda.kernel_takes(H.shape[-1], A.shape[-2], mirror)))
     real, dtau = qp_cuda.qp_solve, []
 
     def beside_float64(H, g, C, d, x0=None, lam0=None, iters=12, ridge=1e-6, mirror=0):
@@ -255,3 +256,92 @@ def test_float32_masked_tick_qps_stay_near_float64(monkeypatch):
     err = torch.stack(dtau)
     assert len(dtau) == 3 * (4 + res.refined_ticks)
     assert float(err.max()) <= 1e-3, (float(err.max()), (err > 1e-3).nonzero().tolist())
+
+
+def _smem_lib(tmp_path):
+    """csrc/qp_solve.cu built by the host C++ compiler (its C interface
+    outside the CUDA launchers), or None without one."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        return None
+    so = tmp_path / "libqpsmem.so"
+    subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-x", "c++",
+                    os.path.join(ROOT, "libdwbc_tpu_torch", "csrc", "qp_solve.cu"), "-o",
+                    str(so)], check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    lib.dwbc_qp_solve_smem_elems.argtypes = [ctypes.c_int] * 3
+    lib.dwbc_qp_solve_smem_elems.restype = ctypes.c_longlong
+    return lib
+
+
+def test_kernel_takes_is_the_routing_rule(tmp_path, monkeypatch):
+    """qp_cuda.kernel_takes, the one rule of the qp_solve kernel's shapes,
+    and the router on it, without a card: every (n, m, mirror) that the
+    port's float32 ticks hand solve_qp under backend="cuda" (CompiledTick
+    on the flagship and on the hands-and-feet plan, MaskedTick on the
+    flagship's two feet) is taken; n = 25 and m = 513 are refused, as by
+    the JAX router (libdwbc_tpu/ops/qp.py:76), and solve_qp then routes a
+    CUDA problem to its loop; the per-problem shared float count here is
+    csrc/qp_solve.cu's, built by the host compiler."""
+    from types import SimpleNamespace
+
+    from libdwbc_tpu_torch import entry
+    from libdwbc_tpu_torch.model.compile import RobotModel
+    from libdwbc_tpu_torch.ops import qp, qp_cuda
+    from libdwbc_tpu_torch.wbc.masked import MaskedTick
+    from libdwbc_tpu_torch.wbc.pipeline import CompiledTick, standard_tocabi_config
+
+    seen = set()
+
+    def record(H, A, lb, Aeq, backend, mirror=0):
+        if backend == "cuda" and lb is None and Aeq is None and H.dtype == torch.float32:
+            seen.add((H.shape[-1], A.shape[-2], mirror))
+        return False
+
+    monkeypatch.setattr(qp, "_use_kernel", record)
+    m = RobotModel.load(os.path.join(ROOT, "models", "tocabi.npz"))
+    cfg = standard_tocabi_config(m, qp_iters=12)
+    hcfg = entry._hands_feet_config(m)
+    q, qd, fs = entry._example_inputs(m)
+    hq, hqd, hfs = entry._hands_feet_inputs(m, 2, seed=0)
+    mq, mqd, mfs, masks = entry._masked_inputs(m, 3, seed=0)
+    T = (lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32))
+    for tick, args in (
+            (CompiledTick(m, cfg, "cpu", torch.float32, backend="torch"),
+             (T(q), T(qd), tuple(T(f) for f in fs))),
+            (CompiledTick(m, hcfg, "cpu", torch.float32, backend="torch"),
+             (T(hq), T(hqd), tuple(T(f) for f in hfs))),
+            (MaskedTick(m, cfg, "cpu", torch.float32, backend="torch"),
+             (T(mq), T(mqd), tuple(T(f) for f in mfs), T(masks)))):
+        tick.backend = "cuda"                 # route the QPs as on the card
+        tick._tick_impl(*args, warm=tick.init_warm(args[0].shape[:-1]), qp_iters=2)
+    routed = {(n, 86, 33) for n in (12, 9, 6)} | {(n, 98, 33) for n in (18, 15, 12)}
+    assert seen == routed, seen
+    assert all(qp_cuda.kernel_takes(*s) for s in routed)
+    for shape in ((24, 512, 0), (24, 512, 33), (24, 512, 256), (1, 1, 0)):
+        assert qp_cuda.kernel_takes(*shape), shape
+    for shape in ((25, 86, 33), (12, 513, 0), (12, 513, 33), (12, 86, 44), (12, 86, -1),
+                  (0, 86, 0)):
+        assert not qp_cuda.kernel_takes(*shape), shape
+
+    # the router asks kernel_takes: a CUDA float32 problem of m = 513 or
+    # n = 25 goes to the loop
+    monkeypatch.undo()
+    H = SimpleNamespace(dtype=torch.float32, shape=(4, 12, 12))
+    for n, rows, take in ((12, 512, True), (12, 513, False), (25, 86, False)):
+        H.shape = (4, n, n)
+        A = SimpleNamespace(is_cuda=True, shape=(4, rows, n))
+        assert qp._use_kernel(H, A, None, None, "cuda", 33) is take, (n, rows)
+        assert not qp._use_kernel(H, A, None, None, "torch", 33)
+
+    lib = _smem_lib(tmp_path)
+    if lib is None:
+        pytest.skip("no host C++ compiler")
+    want = {(12, 86, 33): 2007, (18, 98, 33): 3087, (24, 512, 0): 19752}
+    for shape in sorted(routed | set(want) | {(24, 512, 33), (7, 40, 20), (1, 1, 0)}):
+        assert qp_cuda.smem_elems(*shape) == lib.dwbc_qp_solve_smem_elems(*shape), shape
+        assert want.get(shape, qp_cuda.smem_elems(*shape)) == qp_cuda.smem_elems(*shape)
