@@ -160,7 +160,39 @@ Phases, each fatal on failure (nothing is caught):
    FusedTick(masked, cuda), gap_fallback 1e-3) over B = 4096 scenarios of
    entry._hands_masked_inputs and K = 32 ticks, its launch counts set to 0
    just before and read just after: no qp_error, primal residual ≤ 1e-3,
-   the normal forces below −400 N; times and solves/s.
+   the normal forces below −400 N; times and solves/s;
+23. the kernels at ReducedTick's shapes against their plain versions
+   (reduced_kernels), on the inputs one ReducedTick(backend="cuda") tick
+   gives them at batch 1024 — the flagship's serving inputs (psd_inverse
+   on A at 39, A_R at 24 and the reduced W + V2ᵀV2 at 18; qp_solve on
+   (n, m) = (12, 44), (12, 44), (6, 44), 12 mirrored rows) and config 3's
+   (A at 39, A_R at 18; (6, 22) twice, 6 mirrored): psd_inverse vs the
+   plain version in float64 on the CPU (PSD_INV_RTOL), qp_solve vs the
+   plain version in float32 on the CPU, cold at 12 iterations and warm at
+   7, within QP_SOLVE_TOL or, where larger, REDUCED_QP_OWN × the plain
+   float32 version's own error against a float64 solve (the primal
+   residual within float32 roundoff of the rows' scale), on every lane the
+   plain float32 version solves; on the others the kernel may leave no
+   more unsolved, within phase 13's spread;
+24. the reduced serving path (reduced_serving): ReducedTick(backend="cuda")
+   through entry._model_and_tick(reduced=True) on the flagship and on
+   config 3 (swing=True), a cold tick at 12 iterations, 15 warm ticks at 7
+   carrying (x, λ) at batch 1024, one unbatched tick, its launch counts set
+   to 0 just before and read just after: every output finite, exactly 3
+   psd_inverse and 3 qp_solve launches per tick on the flagship (2 and 2
+   on config 3); the flagship with no qp_error and gap and primal residual
+   ≤ 1e-3; config 3, whose nc resultant QP float32 assembles from noise,
+   with no more flagged lane-ticks than the plain float32 tick on the card
+   (phase 13's spread) and none in float64 on the card; the truth guard on
+   4 lanes (τ_grav and τ_cmd within 0.05 Nm of ReducedTick in float64 on
+   the CPU, τ_grav of CompiledTick in float64 too; the cross-formulation
+   τ_cmd printed);
+25. the reduced path's times: its warm chain's solves/s at batch 1024
+   beside CompiledTick(cuda)'s on the same inputs, the unbatched warm tick
+   against the 1 ms bar, the warm tick's device time by torch.profiler
+   split into qp_solve, psd_inverse, the other kernels and the host alone,
+   and each kernel at the reduced shapes at batch 1024 and 1 against its
+   plain version on the card (psd_inverse also against torch.linalg.inv).
 
 Then each kernel's resources (registers and local bytes per thread, shared
 bytes and threads per block, resident blocks per SM, ptxas's spill bytes;
@@ -925,6 +957,301 @@ def hands_serving(dev, model, card, times):
           f"{B * (K - 1) / (chain_ms / 1e3):.1f} solves/s; unbatched warm tick ({WARM_ITERS} "
           f"iterations) {single_warm_ms:.3f} ms, against the single-lane bar of 1 ms  [{card}]")
     return launches, kern
+
+
+REDUCED_QP_DIMS = {"flagship": [(12, 44), (12, 44), (6, 44)], "config 3": [(6, 22), (6, 22)]}
+REDUCED_QP_NAMES = {"flagship": ("level 0", "nc resultant", "redistribution"),
+                    "config 3": ("level 0", "nc resultant")}
+REDUCED_QP_OWN = 4.0       # the kernel's limit in units of plain float32's own error
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+def reduced_kernels(dev, tag, tick, q_d, qd_d, fs_d):
+    """Phase 23, one configuration: the inputs one cold ReducedTick(cuda)
+    tick gives psd_inverse and qp_solve at batch B; psd_inverse on A_R and
+    the reduced W + V2ᵀV2 (A at n = 39 is phase 4's) vs the plain version
+    in float64 on the CPU (relative, linalg_cuda.PSD_INV_RTOL), qp_solve on
+    each QP vs the plain version in float32 on the CPU, cold at COLD_ITERS
+    and warm at WARM_ITERS (the limits below).  Returns (captured inputs,
+    psd abs errors by n, qp errors by (QP, cold/warm))."""
+    from libdwbc_tpu_torch.ops import linalg_cuda, qp_cuda
+    from libdwbc_tpu_torch.ops.linalg_cuda import PSD_INV_RTOL, psd_inverse_plain
+    from libdwbc_tpu_torch.ops.qp_cuda import QP_SOLVE_TOL, qp_solve_plain
+
+    seen = capture_kernel_inputs(tick, q_d, qd_d, fs_d, COLD_ITERS)
+    co, r_sys = tick.ridx.co_dof, tick.ridx.reduced_system_dof
+    cfree = sum(c.contact_dof for c in tick.cfg.contacts) - 6
+    # A (ndof), A_R (co_dof + 12) and, with a contact free space, the
+    # reduced contact space's W + V2ᵀV2 (co_dof + 6); Λ_c (6 per 6D foot)
+    # and the task operators stay below psd_inverse's n = 16
+    want_n = [tick.model.ndof, r_sys] + ([co + 6] if cfree else [])
+    assert [tuple(A.shape) for A in seen["psd_inverse"]] == [(B, n, n) for n in want_n], \
+        [tuple(A.shape) for A in seen["psd_inverse"]]
+    assert [(tuple(p["C"].shape[1:]), p["mirror"]) for p in seen["qp_solve"]] == [
+        ((m, n), co) for n, m in REDUCED_QP_DIMS[tag]]
+    psd_abs = {}
+    for A in seen["psd_inverse"][1:]:          # A at n = 39 is phase 4's
+        n = A.shape[-1]
+        out = linalg_cuda.psd_inverse(A)
+        torch.cuda.synchronize()
+        ref = psd_inverse_plain(A.cpu().double())
+        scale = float(ref.abs().max())
+        psd_abs[n] = maxerr(out, ref)
+        own = maxerr(psd_inverse_plain(A.cpu()), ref) / scale
+        symmetric = torch.equal(out, out.transpose(-1, -2))
+        print(f"reduced {tag}: psd_inverse n = {n} vs plain float64 (max abs err / max "
+              f"|A⁻¹|, [plain float32's own] <= limit): {psd_abs[n] / scale:.3e} [{own:.3e}] "
+              f"<= {PSD_INV_RTOL[n]:g}; exactly symmetric: {symmetric}")
+        assert torch.isfinite(out).all() and symmetric
+        assert psd_abs[n] / scale <= PSD_INV_RTOL[n], (tag, n, psd_abs[n] / scale)
+    # qp_solve vs the plain float32 version within QP_SOLVE_TOL, or where
+    # larger within REDUCED_QP_OWN × the plain float32 version's own
+    # distance from a float64 solve of the same QP (the gap: or its own
+    # gap), the primal residual within float32 roundoff of the rows' scale:
+    # the tangential redistribution QP's dense H and forces of ~200 N put
+    # float32's relative roundoff far above QP_SOLVE_TOL's absolute limits,
+    # which were set on QPs whose x is ≪ 1
+    qps_err, qps_lim, qps_unsolved = {}, {}, {}
+    for name, p in zip(REDUCED_QP_NAMES[tag], seen["qp_solve"]):
+        cpu = {k: p[k].cpu() for k in "HgCd"}
+        c64 = {k: v.double() for k, v in cpu.items()}
+        kw = dict(ridge=p["ridge"], mirror=p["mirror"])
+        ref_c = qp_solve_plain(cpu["H"], cpu["g"], cpu["C"], cpu["d"], iters=COLD_ITERS, **kw)
+        ker_c = qp_cuda.qp_solve(p["H"], p["g"], p["C"], p["d"], iters=COLD_ITERS, **kw)
+        f64_c = qp_solve_plain(c64["H"], c64["g"], c64["C"], c64["d"], iters=COLD_ITERS, **kw)
+        x0, lam0 = ref_c[0], ref_c[2]
+        ref_w = qp_solve_plain(cpu["H"], cpu["g"], cpu["C"], cpu["d"], x0, lam0,
+                               iters=WARM_ITERS, **kw)
+        ker_w = qp_cuda.qp_solve(p["H"], p["g"], p["C"], p["d"], x0.to(dev), lam0.to(dev),
+                                 iters=WARM_ITERS, **kw)
+        f64_w = qp_solve_plain(c64["H"], c64["g"], c64["C"], c64["d"], x0.double(),
+                               lam0.double(), iters=WARM_ITERS, **kw)
+        torch.cuda.synchronize()
+
+        def errs(got, ref, lanes):
+            """Max errors of got against ref over the given lanes, and got's
+            gap and primal residual per lane."""
+            g_k, p_k = gap_pres(c64["C"], c64["d"], got[0].cpu().double(), got[2].cpu().double())
+            g_r, p_r = gap_pres(c64["C"], c64["d"], ref[0].double(), ref[2].double())
+            lam_rel = ((got[2].cpu().double() - ref[2].double()).abs()
+                       / (1.0 + ref[2].double().abs()))
+            return dict(x=maxerr(got[0].cpu()[lanes], ref[0][lanes]),
+                        lam=float(lam_rel[lanes].max()),
+                        gap=maxerr(g_k[lanes], g_r[lanes]),
+                        pres=maxerr(p_k[lanes], p_r[lanes])), g_k, p_k
+
+        for t_, ref, ker, f64 in (("cold", ref_c, ker_c, f64_c), ("warm", ref_w, ker_w, f64_w)):
+            for t in ker:
+                assert torch.isfinite(t).all(), (tag, name, t_)
+            every = torch.ones(B, dtype=torch.bool)
+            _, g_own, p_own = errs(ref, f64, every)
+            # lanes the plain float32 version leaves unsolved (gap or primal
+            # residual above QP_FAIL: config 3's nc resultant QP, whose rows
+            # float32 assembles as noise, see reduced_serving) are compared
+            # by count: the kernel may leave no more, within phase 13's
+            # spread; every other lane by value
+            solved = (g_own <= QP_FAIL) & (p_own <= QP_FAIL)
+            qps_err[(name, t_)], g_k, p_k = errs(ker, ref, solved)
+            own = errs(ref, f64, solved)[0]
+            n_ker = int(((g_k > QP_FAIL) | (p_k > QP_FAIL)).sum())
+            n_plain = B - int(solved.sum())
+            qps_unsolved[(name, t_)] = (n_ker, n_plain)
+            assert n_ker <= 1.25 * n_plain + 1e-3 * B, (tag, name, t_, n_ker, n_plain)
+            own["gap"] = max(own["gap"], float(g_own[solved].max()))
+            lim = {k: max(QP_SOLVE_TOL[k], REDUCED_QP_OWN * own[k]) for k in own}
+            # a float32 solution meets its rows to float32 roundoff of their
+            # scale: ε₃₂·max |d| (QP_SOLVE_TOL's limit is that of a unit row)
+            lim["pres"] = max(lim["pres"], EPS32 * float(cpu["d"].abs().max()))
+            qps_lim[(name, t_)] = lim
+    print(f"reduced {tag}: qp_solve vs plain float32 (max abs err of x, gap and pres; of λ "
+          f"relative to 1 + |λ|; <= the larger of QP_SOLVE_TOL and {REDUCED_QP_OWN:g} × the "
+          "plain float32's own error against float64): "
+          + "  ".join(f"{n}.{t}: " + " ".join(f"{k} {v:.3e} <= {qps_lim[(n, t)][k]:.3e}"
+                                             for k, v in e.items())
+                      + " lanes unsolved (kernel, plain) {}".format(qps_unsolved[(n, t)])
+                      for (n, t), e in qps_err.items()))
+    for (n, t), e in qps_err.items():
+        for k, v in e.items():
+            assert v <= qps_lim[(n, t)][k], (tag, n, t, k, v, qps_lim[(n, t)][k])
+    return seen, psd_abs, qps_err
+
+
+def reduced_serving(dev, model, tag, tick, q, qd, fs, card):
+    """Phases 24 and 25, one configuration: ReducedTick(cuda) at batch B — a
+    cold tick at COLD_ITERS, K − 1 warm ticks at WARM_ITERS carrying (x, λ)
+    (q[:, 6:39] += 1e-6·tanh(τ_cmd) between ticks), one unbatched tick —
+    its launch counts set to 0 just before and read just after; the truth
+    guard on 4 lanes; the warm chain's solves/s beside CompiledTick(cuda)'s
+    on the same inputs, the unbatched warm tick, and the warm tick's device
+    time split by torch.profiler.  Returns (launches, solves/s)."""
+    from libdwbc_tpu_torch.ops import _build, linalg_cuda, qp_cuda
+    from libdwbc_tpu_torch.profile_tick import tick_split
+    from libdwbc_tpu_torch.wbc.pipeline import CompiledTick
+    from libdwbc_tpu_torch.wbc.reduced_tick import ReducedTick
+
+    md = model.model_dof
+    q_d, qd_d = torch.as_tensor(q, device=dev), torch.as_tensor(qd, device=dev)
+    fs_d = tuple(torch.as_tensor(f, device=dev) for f in fs)
+
+    def step(qq, warm, iters, tk=tick):
+        res, warm = tk._tick_impl(qq, qd_d.to(qq.dtype), tuple(f.to(qq.dtype) for f in fs_d),
+                                  warm=warm, qp_iters=iters)
+        qq = qq.clone()
+        qq[:, 6:6 + md] += 1e-6 * torch.tanh(res.torque_cmd)
+        return res, qq, warm
+
+    def serve(tk, qq):
+        """The serving chain of tick tk: K ticks at batch B from qq."""
+        warm, results = tk.init_warm((B,)), []
+        for k in range(K):
+            res, qq, warm = step(qq, warm, COLD_ITERS if k == 0 else WARM_ITERS, tk)
+            results.append(res)
+        return results, warm
+
+    linalg_cuda.launches["psd_inverse"] = 0
+    qp_cuda.launches["qp_solve"] = 0
+    results, warm = serve(tick, q_d)
+    res1 = tick._tick_impl(q_d[0], qd_d[0], tuple(f[0] for f in fs_d))
+    torch.cuda.synchronize()
+    launches = {"psd_inverse": linalg_cuda.launches["psd_inverse"],
+                "qp_solve": qp_cuda.launches["qp_solve"]}
+    print(f"ReducedTick {tag} serving path: {K} ticks at batch {B} + 1 unbatched tick, "
+          f"launches {launches}")
+    # per tick: psd_inverse on A (n = 39), A_R (co_dof + 12) and, with a
+    # contact free space, W + V2ᵀV2 (co_dof + 6); qp_solve on every QP that
+    # init_warm lists (each co level, the nc resultant, the redistribution)
+    n_inv = 2 + (tick.ridx.co_dof + 6 >= 16
+                 and sum(c.contact_dof for c in tick.cfg.contacts) > 6)
+    n_qp = len(tick.init_warm())
+    assert (n_inv, n_qp) == {"flagship": (3, 3), "config 3": (2, 2)}[tag], (n_inv, n_qp)
+    assert launches == {"psd_inverse": n_inv * (K + 1), "qp_solve": n_qp * (K + 1)}, launches
+    for r in results + [res1]:
+        for name, v in r._asdict().items():
+            if v.dtype != torch.bool:
+                assert torch.isfinite(v).all(), f"ReducedTick {tag}: non-finite {name}"
+    assert res1.torque_cmd.shape == (md,)
+    assert [tuple(x.shape) + tuple(l.shape) for x, l in warm] == [
+        (B, nv, B, m) for nv, m in REDUCED_QP_DIMS[tag]]
+
+    def flagged(rs):
+        return (sum(int(r.qp_error.sum()) for r in rs), max(float(r.qp_gap.max()) for r in rs),
+                max(float(r.qp_primal_res.max()) for r in rs))
+
+    n_err, gap_max, pres_max = flagged(results)
+    print(f"ReducedTick {tag} serving path: gap max {gap_max:.3e}  pres max {pres_max:.3e}  "
+          f"qp_error lane-ticks {n_err} of {K * B}  unbatched τ_cmd[0:3] "
+          f"{res1.torque_cmd[:3].tolist()} (qp_error {bool(res1.qp_error)})")
+    if tag == "flagship":
+        assert n_err == 0 and gap_max <= QP_FAIL and pres_max <= QP_FAIL
+        assert not bool(res1.qp_error)
+    else:
+        # In single support the nc resultant QP's torque map J_base_R_kt is
+        # zero to roundoff (2e-14 in float64): float32 assembles it as noise
+        # of ~3e-2 and flags lanes, the JAX package's float32 tick too, while
+        # float64 flags none.  The kernels may flag no more lane-ticks than
+        # the plain float32 tick on the card, within the spread of two
+        # rollouts that part on roundoff (phase 13's rule); the same chain in
+        # float64 on the card flags none.
+        plain = flagged(serve(ReducedTick(model, tick.cfg, dev, backend="torch"), q_d)[0])
+        f64 = ReducedTick(model, tick.cfg, dev, torch.float64, backend="torch")
+        r64, _ = serve(f64, q_d.double())
+        n64 = flagged(r64)
+        print(f"ReducedTick {tag} serving path, the same chain through the plain float32 tick "
+              f"on the card: qp_error lane-ticks {plain[0]}, gap max {plain[1]:.3e}, pres max "
+              f"{plain[2]:.3e}; through the plain float64 tick on the card: {n64[0]}, "
+              f"{n64[1]:.3e}, {n64[2]:.3e}")
+        assert n_err <= 1.25 * plain[0] + 1e-3 * K * B, (n_err, plain[0])
+        assert n64[0] == 0 and n64[2] <= QP_FAIL, n64
+
+    # the truth guard: tick 0 on four lanes against the port's ReducedTick
+    # and CompiledTick (the independent formulation) in float64 on the CPU
+    lanes = (q[:4].astype(np.float64), qd[:4].astype(np.float64),
+             tuple(f[:4].astype(np.float64) for f in fs))
+    r64 = ReducedTick(model, tick.cfg, "cpu", torch.float64, backend="torch")
+    rr64, _ = r64._tick_impl(*lanes, warm=r64.init_warm((4,)), qp_iters=COLD_ITERS)
+    c64 = CompiledTick(model, tick.cfg, "cpu", torch.float64, backend="torch")
+    rc64, _ = c64._tick_impl(*lanes, warm=c64.init_warm((4,)), qp_iters=COLD_ITERS)
+    n64 = ReducedTick(model, tick.cfg, "cpu", torch.float64, backend="torch",
+                      tangential_weight=False)
+    rn64, _ = n64._tick_impl(*lanes, warm=n64.init_warm((4,)), qp_iters=COLD_ITERS)
+    d_grav = maxerr(results[0].torque_grav[:4], rr64.torque_grav)
+    d_cmd = maxerr(results[0].torque_cmd[:4], rr64.torque_cmd)
+    d_grav_c = maxerr(results[0].torque_grav[:4], rc64.torque_grav)
+    print(f"ReducedTick {tag} truth guard (4 lanes): vs ReducedTick float64 τ_grav "
+          f"{d_grav:.3e} τ_cmd {d_cmd:.3e}; vs CompiledTick float64 τ_grav {d_grav_c:.3e}; "
+          f"printed, not held (the flat-face rule): τ_cmd of ReducedTick(tangential_weight="
+          f"False) float64 vs CompiledTick float64 {maxerr(rn64.torque_cmd, rc64.torque_cmd):.3e}, "
+          f"ReducedTick(cuda) vs CompiledTick float64 {maxerr(results[0].torque_cmd[:4], rc64.torque_cmd):.3e}")
+    assert max(d_grav, d_cmd, d_grav_c) <= TAU_GRAV_TOL, (tag, d_grav, d_cmd, d_grav_c)
+
+    # phase 25: the warm chain, the unbatched warm tick, the device split
+    def chain(tk=tick, w0=warm):
+        qq_, w_ = q_d, w0
+        for _ in range(K - 1):
+            _, qq_, w_ = step(qq_, w_, WARM_ITERS, tk)
+
+    chain_ms = cuda_time(chain, 1)
+    solves = B * (K - 1) / (chain_ms / 1e3)
+    ctick = CompiledTick(model, tick.cfg, dev, backend="cuda")
+    _, cwarm = ctick._tick_impl(q_d, qd_d, fs_d, warm=ctick.init_warm((B,)), qp_iters=COLD_ITERS)
+    c_solves = B * (K - 1) / (cuda_time(lambda: chain(ctick, cwarm), 1) / 1e3)
+    q1, qd1, fs1 = q_d[0], qd_d[0], tuple(f[0] for f in fs_d)
+    _, warm1 = tick._tick_impl(q1, qd1, fs1, warm=tick.init_warm(()), qp_iters=COLD_ITERS)
+    single_warm_ms = cuda_time(lambda: tick._tick_impl(q1, qd1, fs1, warm=warm1,
+                                                       qp_iters=WARM_ITERS), 10)
+    print(f"ReducedTick {tag} warm chain: {K - 1} ticks at batch {B} in {chain_ms:.3f} ms -> "
+          f"{solves:.1f} solves/s (CompiledTick, same inputs and run: {c_solves:.1f} solves/s); "
+          f"unbatched warm tick ({WARM_ITERS} iterations) {single_warm_ms:.3f} ms, against the "
+          f"single-lane bar of 1 ms  [{card}]")
+    split = tick_split(chain, K - 1, _build.library())
+    psd_prof = sum(e.time_range.end - e.time_range.start for e in split["kernels"]
+                   if "psd_inverse_kernel" in e.name) / 1e3 / (K - 1)
+    wall = chain_ms / (K - 1)
+    print(f"ReducedTick {tag} warm tick at batch {B}, split per tick: wall {wall:.3f} ms (CUDA "
+          f"events around the chain); under torch.profiler the device busy {split['busy']:.3f} "
+          f"ms: qp_solve {split['qp_prof']:.3f} ms ({split['qp_launches']:g} launches; "
+          f"{split['qp_events']:.3f} ms by CUDA events around them), psd_inverse "
+          f"{psd_prof:.3f} ms, the other kernels {split['busy'] - split['qp_prof'] - psd_prof:.3f} "
+          f"ms ({len(split['kernels']) / (K - 1):.0f} device kernels per tick); the host alone "
+          f"(the device idle) {wall - split['busy']:.3f} ms; device busy share "
+          f"{split['busy'] / wall:.3f}  [{card}]")
+    return launches, solves
+
+
+def reduced_kernel_times(seen, tag, times, card):
+    """Phase 25: each kernel at the reduced shapes against its plain version
+    on the card, at B and 1 (qp_solve warm at WARM_ITERS from the kernel's
+    cold solve), and psd_inverse against torch.linalg.inv.  Returns the
+    library times by (n, batch)."""
+    from libdwbc_tpu_torch.ops import linalg_cuda, qp_cuda
+    from libdwbc_tpu_torch.ops.linalg_cuda import psd_inverse_plain
+    from libdwbc_tpu_torch.ops.qp_cuda import qp_solve_plain
+
+    lib_ms = {}
+    for A in seen["psd_inverse"][1:]:
+        n = A.shape[-1]
+        for nb in (B, 1):
+            An = A[:nb].contiguous()
+            times[("psd_inverse", tag, n, nb)] = interleaved(
+                lambda: psd_inverse_plain(An), lambda: linalg_cuda.psd_inverse(An), 2, 10)
+            lib_ms[(n, nb)] = cuda_time(lambda: torch.linalg.inv(An), 10)
+            p, kt, gk = times[("psd_inverse", tag, n, nb)]
+            print(f"time psd_inverse reduced {tag} n {n} batch {nb}: kernel {kt:.3f} ms (graph "
+                  f"replay {gk:.3f} ms)  plain (torch on the card) {p:.3f} ms  "
+                  f"torch.linalg.inv {lib_ms[(n, nb)]:.3f} ms  [{card}]")
+    for name, p in zip(REDUCED_QP_NAMES[tag], seen["qp_solve"]):
+        kw = dict(iters=WARM_ITERS, ridge=p["ridge"], mirror=p["mirror"])
+        x0, _, lam0 = qp_cuda.qp_solve(p["H"], p["g"], p["C"], p["d"], iters=COLD_ITERS,
+                                       ridge=p["ridge"], mirror=p["mirror"])
+        for nb in (B, 1):
+            a = [t[:nb].contiguous() for t in (p["H"], p["g"], p["C"], p["d"], x0, lam0)]
+            times[("qp_solve", tag, name, nb)] = interleaved(
+                lambda: qp_solve_plain(*a, **kw), lambda: qp_cuda.qp_solve(*a, **kw), 2, 10)
+            pt, kt, gk = times[("qp_solve", tag, name, nb)]
+            print(f"time qp_solve reduced {tag} {name} (warm, {WARM_ITERS} iterations) batch "
+                  f"{nb}: kernel {kt:.3f} ms (graph replay {gk:.3f} ms)  plain (torch on the "
+                  f"card) {pt:.3f} ms  [{card}]")
+    return lib_ms
 
 
 def hands_masked_loop(dev, model, card, times):
@@ -1941,6 +2268,29 @@ def main():
     # ----------------------- 22. the masked four-candidate sweep (hands and feet)
     launches_hm, kern_hm = hands_masked_loop(dev, model, card, times)
 
+    # ----------------- 23. the kernels at the reduced shapes vs their plain versions
+    from libdwbc_tpu_torch.wbc.reduced_tick import ReducedTick
+
+    q3s, qd3s, fs3s = entry._swing_inputs(model, B, seed=0)
+    red = {"flagship": (qs, np.zeros((B, model.ndof), np.float32), fs),
+           "config 3": (q3s, qd3s, fs3s)}
+    red_ticks, red_seen, red_psd, red_qp = {}, {}, {}, {}
+    for tag, (rq, rqd, rfs) in red.items():
+        _, rtick = entry._model_and_tick(dev, qp_iters=COLD_ITERS, reduced=True,
+                                         swing=tag == "config 3")
+        assert isinstance(rtick, ReducedTick) and rtick.backend == "cuda"
+        red_ticks[tag] = rtick
+        red_seen[tag], red_psd[tag], red_qp[tag] = reduced_kernels(
+            dev, tag, rtick, torch.as_tensor(rq, device=dev), torch.as_tensor(rqd, device=dev),
+            tuple(torch.as_tensor(f, device=dev) for f in rfs))
+
+    # ----------------------------- 24. the reduced serving path, 25. its times
+    red_launches, red_solves, red_lib = {}, {}, {}
+    for tag, (rq, rqd, rfs) in red.items():
+        red_launches[tag], red_solves[tag] = reduced_serving(dev, model, tag, red_ticks[tag],
+                                                             rq, rqd, rfs, card)
+        red_lib[tag] = reduced_kernel_times(red_seen[tag], tag, times, card)
+
     # bounds at batch B (B_M masked): bytes of each kernel's inputs and
     # outputs, and its operations on this run's shapes, every tick kernel's
     # counted by tick_flops on the plan as run
@@ -1983,6 +2333,16 @@ def main():
     me0 = m0 - p0["mirror"]
     bounds["qp_solve"] = bound(4 * B * (n0 * n0 + n0 + me0 * n0 + m0 + (n0 + m0) + (n0 + 2 * m0)),
                                qp_cuda.qp_solve_flops(n0, m0, p0["mirror"], WARM_ITERS) * B)
+    for tag, suffix in (("flagship", "_reduced"), ("config 3", "_reduced_swing")):
+        n_r = red_seen[tag]["psd_inverse"][1].shape[-1]        # A_R
+        bounds["psd_inverse" + suffix] = bound(4 * B * (n_r * (n_r + 1) // 2 + n_r * n_r),
+                                               linalg_cuda.psd_inverse_flops(n_r) * B)
+        pr = red_seen[tag]["qp_solve"][0]
+        _, m_r, nv_r = pr["C"].shape
+        me_r = m_r - pr["mirror"]
+        bounds["qp_solve" + suffix] = bound(
+            4 * B * (nv_r * nv_r + nv_r + me_r * nv_r + m_r + (nv_r + m_r) + (nv_r + 2 * m_r)),
+            qp_cuda.qp_solve_flops(nv_r, m_r, pr["mirror"], WARM_ITERS) * B)
     for name, (ms, by) in bounds.items():
         print(f"bound {name} at batch {B_M if name.endswith('masked') else B}: "
               f"{ms:.6f} ms ({by})")
@@ -1999,6 +2359,12 @@ def main():
               f"{res['threads_per_block'] // 32} problems per block, "
               f"{res['smem_per_block']} shared bytes per block ({qp_cuda.smem_elems(n_, m_, p['mirror'])} floats per problem), "
               f"{res['blocks_per_sm']} blocks per SM")
+    for tag, suffix in (("flagship", "_reduced"), ("config 3", "_reduced_swing")):
+        resources["psd_inverse" + suffix] = _build.kernel_info(
+            "psd_inverse", red_seen[tag]["psd_inverse"][1].shape[-1])
+        pr = red_seen[tag]["qp_solve"][0]
+        resources["qp_solve" + suffix] = _build.kernel_info(
+            "qp_solve", pr["C"].shape[2], pr["C"].shape[1], pr["mirror"])
     for tag, k_ in (("", kern), ("_masked", mkern), ("_swing", kern3), ("_hands", kern_h),
                     ("_hands_masked", kern_hm)):
         sz = k_._lib_and_sizes()[1]
@@ -2061,6 +2427,18 @@ def main():
                g_err["hands masked"][0], ("tick_prestage_hands_masked", B_M), None, fused_site),
         entry_("tick_qpchain_hands_masked", launches_hm["tick_qpchain"],
                g_err["hands masked"][1], ("tick_qpchain_hands_masked", B_M), None, fused_site),
+    ] + [
+        rec_
+        for tag, suffix in (("flagship", "_reduced"), ("config 3", "_reduced_swing"))
+        for n_r in [red_seen[tag]["psd_inverse"][1].shape[-1]]
+        for rec_ in (
+            entry_("psd_inverse" + suffix, red_launches[tag]["psd_inverse"],
+                   max(red_psd[tag].values()), ("psd_inverse", tag, n_r, B),
+                   red_lib[tag][(n_r, B)], "libdwbc_tpu/ops/pallas_linalg.py:145"),
+            entry_("qp_solve" + suffix, red_launches[tag]["qp_solve"],
+                   max(e["x"] for e in red_qp[tag].values()),
+                   ("qp_solve", tag, REDUCED_QP_NAMES[tag][0], B), None,
+                   "libdwbc_tpu/ops/pallas_qp.py:302"))
     ]}
     print(json.dumps(record))
     print(gpu_line())

@@ -15,9 +15,16 @@ whose pelvis steps 1 cm, for the closed loop).
 BASELINE's config 3 is single support with a swing-foot third level:
 ``standard_tocabi_config(model, both_feet=False, swing_task=True)``, the left
 foot (link 6) down, a 6D pelvis task, a rotation task on link 15 and a 6D
-task on the right foot (link 12).  Its inputs: ``_swing_inputs`` (the
-standing state with joint noise) and ``_swing_servo_inputs`` (every level
-servo'd: pelvis and torso held, the swing foot lifted).
+task on the right foot (link 12); ``_model_and_tick(swing=True)`` serves
+it.  Its inputs: ``_swing_inputs`` (the standing state with joint noise)
+and ``_swing_servo_inputs`` (every level servo'd: pelvis and torso held,
+the swing foot lifted).
+
+``_model_and_tick(reduced=True)`` serves either configuration through
+``ReducedTick``, the reduced-dimension tick (the reference's ``_R`` path):
+the legs in contact form the contact chain, the rest is lumped into one
+virtual body.  On the flagship its QPs are (12, 44), (12, 44) and (6, 44);
+on config 3, (6, 22) twice.
 
 The hands-and-feet configuration is the reference's own four-contact
 fixture (dwbc_test.cpp:66-71): the flagship's 6D feet and tasks, and POINT
@@ -41,20 +48,27 @@ from .model.compile import RobotModel
 from .wbc import types as T
 from .wbc.fused import FusedTick
 from .wbc.pipeline import CompiledTick, make_servo, standard_tocabi_config
+from .wbc.reduced_tick import ReducedTick
 
 MODEL_PATH = Path(__file__).resolve().parent.parent / "models" / "tocabi.npz"
 
 
 def _model_and_tick(device=None, dtype=torch.float32, qp_iters=12, backend="cuda",
-                    fused=True, masked=False):
+                    fused=True, masked=False, reduced=False, swing=False):
     """(model, tick) for the flagship configuration: ``FusedTick`` when
     ``fused``, else ``CompiledTick`` (as the JAX entry returns off the TPU);
     ``masked`` gives ``FusedTick(masked=True)``, whose calls take a contact
-    mask over the two feet.  ``device`` defaults to the card; pass "cpu"
-    (with backend="torch") for the plain version on the CPU."""
+    mask over the two feet; ``reduced`` gives ``ReducedTick``, the
+    reduced-dimension tick.  ``swing`` serves BASELINE's config 3 instead
+    of the flagship (inputs: ``_swing_inputs``).  ``device`` defaults to
+    the card; pass "cpu" (with backend="torch") for the plain version on
+    the CPU."""
     model = RobotModel.load(str(MODEL_PATH))
-    cfg = standard_tocabi_config(model, qp_iters=qp_iters)
+    cfg = standard_tocabi_config(model, qp_iters=qp_iters, both_feet=not swing,
+                                 swing_task=swing)
     device = "cuda" if device is None else device
+    if reduced:
+        return model, ReducedTick(model, cfg, device, dtype=dtype, backend=backend)
     if masked:
         return model, FusedTick(model, cfg, device, dtype=dtype, backend=backend,
                                 masked=True)

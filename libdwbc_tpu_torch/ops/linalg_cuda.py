@@ -24,9 +24,12 @@ launches = {"psd_inverse": 0}
 # plain version in float64 on the serving inputs of chip_smoke.py (batch
 # 1024), by n: about ten times the plain float32 version's own error there
 # (6.6e-7 for A at n = 39, 7.7e-6 for W + V2ᵀV2 at n = 33; the kernel showed
-# 6.3e-7 and 6.8e-6 on an H100).  The kernel's rsqrt pivot and the plain
-# version's sqrt-then-reciprocal differ by float32 rounding only.
-PSD_INV_RTOL = {39: 7e-6, 33: 8e-5}
+# 6.3e-7 and 6.8e-6 on an H100).  ReducedTick's: A_R at n = 24 and the
+# reduced W + V2ᵀV2 at n = 18 on the flagship (plain float32 8.4e-7 and
+# 8.9e-7; the kernel 7.5e-7 and 8.9e-7), A_R at n = 18 on config 3.  The
+# kernel's rsqrt pivot and the plain version's sqrt-then-reciprocal differ
+# by float32 rounding only.
+PSD_INV_RTOL = {39: 7e-6, 33: 8e-5, 24: 9e-6, 18: 9e-6}
 
 
 def psd_inverse_flops(n: int) -> int:

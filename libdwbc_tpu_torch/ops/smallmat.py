@@ -139,3 +139,23 @@ def qr_pinv(M, rcond=1e-6):
     R = torch.where(live, R, eye)          # dead row j ← e_j (solves to 0)
     B = torch.where(live, QT, torch.zeros_like(QT))
     return solve_upper(R, B)
+
+
+def qr_inv(M):
+    """Inverse of a small square matrix by MGS QR: M⁻¹ = R⁻¹Qᵀ.  Unlike
+    ``inv_via_normal`` it does not square the condition number (qr_thin's
+    second pass keeps Q orthonormal to working precision)."""
+    Q = qr_thin(M)
+    QT = Q.transpose(-1, -2)
+    return solve_upper(QT @ M, QT)
+
+
+def inv_via_normal(M):
+    """Inverse of a small square matrix by the normal equations:
+    M⁻¹ = (MᵀM)⁻¹Mᵀ, with a ridge of 1e-12·tr(MᵀM).  Squares the condition
+    number: for well-conditioned matrices."""
+    MT = M.transpose(-1, -2)
+    G = MT @ M
+    tr = torch.diagonal(G, dim1=-2, dim2=-1).sum(-1)
+    G = G + 1e-12 * tr[..., None, None] * torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    return psd_solve(G, MT)

@@ -1,8 +1,9 @@
 """Operational-space WBC functions in torch, batch-major (counterpart of
 ``libdwbc_tpu/wbc/dynamics.py``): contact-consistent dynamics, gravity
 compensation, the task-to-torque map J_kt, task null-space chaining, the
-contact force observation, and the per-contact-type jacobian rows,
-constraint blocks and rotation blocks.
+contact force observation, the per-contact-type jacobian rows,
+constraint blocks and rotation blocks, and the closed-form two-contact
+redistribution (``contact_redistribute_two``, ``yaw_rotation``).
 
 ``backend="cuda"`` routes the SPD inverses of CUDA float32 matrices with
 16 ≤ n ≤ 64 (the flagship's W + V2ᵀV2 at n = 33) to the ``psd_inverse``
@@ -234,3 +235,79 @@ def contact_rotation_block(contact_type, R):
         out[..., 4, 4] = 1.0
         return out
     raise ValueError(f"unknown contact type {contact_type}")
+
+
+# ---------------------------------------------------------------------------
+# Closed-form two-contact force redistribution (src/wbd.cpp:273-404)
+# ---------------------------------------------------------------------------
+
+def _eta_interval_update(A, B, C, eta_lb, eta_ub):
+    """Intersect the eta interval with the roots of (A²−C²)η² + 2ABη + B² ≤ 0."""
+    a = A * A
+    b = 2.0 * A * B
+    c = B * B - C * C
+    disc = torch.sqrt(torch.clamp_min(b * b - 4.0 * a * c, 0.0))
+    valid = a.abs() > 1e-30
+    safe_a = torch.where(valid, a, torch.ones_like(a))
+    sol1 = (-b + disc) / (2.0 * safe_a)
+    sol2 = (-b - disc) / (2.0 * safe_a)
+    eta_ub = torch.where(valid, torch.minimum(eta_ub, torch.maximum(sol1, sol2)), eta_ub)
+    eta_lb = torch.where(valid, torch.maximum(eta_lb, torch.minimum(sol1, sol2)), eta_lb)
+    return eta_lb, eta_ub
+
+
+def contact_redistribute_two(eta_cust, footlength, footwidth, mu_static, ratio_x, ratio_y,
+                             P1, P2, F12):
+    """Closed-form two-foot redistribution (``ContactRedistributetwomod``).
+
+    F12: (...,12) stacked [f1(3) m1(3) f2(3) m2(3)] in a yaw-aligned frame;
+    P1, P2: (...,3) foot positions relative to the COM (same frame).
+    Returns (resultant wrench (6), redistributed F12 (12), eta)."""
+    f1, m1 = F12[..., 0:3], F12[..., 3:6]
+    f2, m2 = F12[..., 6:9], F12[..., 9:12]
+    cross = torch.linalg.cross
+    Fr = f1 + f2
+    Mr = m1 + m2 + cross(P1, f1, dim=-1) + cross(P2, f2, dim=-1)
+    R = torch.cat([Fr, Mr], dim=-1)
+
+    ones = torch.ones_like(R[..., 0])
+    eta_lb = (1.0 - eta_cust) * ones
+    eta_ub = eta_cust * ones
+
+    dP = P1 - P2
+    # Mx bound
+    A = dP[..., 2] * R[..., 1] - dP[..., 1] * R[..., 2]
+    B = R[..., 3] + P2[..., 2] * R[..., 1] - P2[..., 1] * R[..., 2]
+    C = ratio_y * footwidth / 2.0 * R[..., 2].abs()
+    eta_lb, eta_ub = _eta_interval_update(A, B, C, eta_lb, eta_ub)
+    # My bound
+    A2 = -dP[..., 2] * R[..., 0] + dP[..., 0] * R[..., 2]
+    B2 = R[..., 4] - P2[..., 2] * R[..., 0] + P2[..., 0] * R[..., 2]
+    C2 = ratio_x * footlength / 2.0 * R[..., 2].abs()
+    eta_lb, eta_ub = _eta_interval_update(A2, B2, C2, eta_lb, eta_ub)
+    # Mz bound
+    A3 = -dP[..., 0] * R[..., 1] + dP[..., 1] * R[..., 0]
+    B3 = R[..., 5] + P2[..., 1] * R[..., 0] - P2[..., 0] * R[..., 1]
+    C3 = mu_static * R[..., 2].abs()
+    eta_lb, eta_ub = _eta_interval_update(A3, B3, C3, eta_lb, eta_ub)
+
+    eta_s = (-R[..., 3] - P2[..., 2] * R[..., 1] + P2[..., 1] * R[..., 2]) / A
+    eta = torch.minimum(torch.maximum(eta_s, eta_lb), eta_ub)
+    eta = torch.where((eta > eta_cust) | (eta < 1.0 - eta_cust), torch.full_like(eta, 0.5), eta)
+
+    M_lin = torch.stack([A * eta * eta + B * eta, A2 * eta * eta + B2 * eta,
+                         A3 * eta * eta + B3 * eta], dim=-1)
+    out1 = torch.cat([eta[..., None] * R[..., 0:3], M_lin], dim=-1)
+    one_m = (1.0 - eta)[..., None]
+    M_b = torch.stack([A * eta + B, A2 * eta + B2, A3 * eta + B3], dim=-1)
+    out2 = torch.cat([one_m * R[..., 0:3], one_m * M_b], dim=-1)
+    return R, torch.cat([out1, out2], dim=-1), eta
+
+
+def yaw_rotation(yaw):
+    """Rz(yaw) (rotateWithZ, src/math.cpp:55-72)."""
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    zero, one = torch.zeros_like(c), torch.ones_like(c)
+    return torch.stack([torch.stack([c, -s, zero], dim=-1),
+                        torch.stack([s, c, zero], dim=-1),
+                        torch.stack([zero, zero, one], dim=-1)], dim=-2)

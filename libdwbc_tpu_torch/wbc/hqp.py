@@ -9,11 +9,12 @@
   (``CalcContactRedistribute``, src/dwbc.cpp:1372-1620).
 
 The ± torque-limit rows come as a mirrored pair over the m actuated dofs,
-so ``mirror=m`` is passed to the solver (the ``qp_solve`` kernel folds
-them).  ``constraint_row_mask`` (masked ticks) lifts the cone/ZMP rows of
-inactive contacts to ub = +inf, which the solver turns into 0·x ≤ 1.  The
-JAX module's ``limit_rows`` (reduced path) waits for the slice that ports
-its caller.
+so ``mirror`` is passed to the solver (the ``qp_solve`` kernel folds
+them): m, or ``len(limit_rows)`` where ``limit_rows`` keeps the pairs of
+those torque rows alone (the reduced tick: the actuated contact-chain rows;
+its virtual lumped-body rows carry no limit and are dropped statically).
+``constraint_row_mask`` (masked ticks) lifts the cone/ZMP rows of inactive
+contacts to ub = +inf, which the solver turns into 0·x ≤ 1.
 """
 
 from __future__ import annotations
@@ -53,6 +54,20 @@ def _mask_rows(ub_c, row_mask):
     return torch.where(row_mask > 0.5, ub_c, torch.full_like(ub_c, _INF))
 
 
+def _limit_pairs(rows, ubs, blk, torque_limit, tau, limit_rows):
+    """Append the ± torque-limit pair (blk x ≤ lim − τ, −blk x ≤ lim + τ),
+    cut to ``limit_rows`` when given; returns its row count, the
+    ``mirror`` the solver folds (0 without a limit)."""
+    if torque_limit is None:
+        return 0
+    if limit_rows is not None:
+        li = list(limit_rows)
+        blk, torque_limit, tau = blk[..., li, :], torque_limit[..., li], tau[..., li]
+    rows += [blk, -blk]
+    ubs += [torque_limit - tau, torque_limit + tau]
+    return blk.shape[-2]
+
+
 class TaskQPResult(NamedTuple):
     f_star_delta: torch.Tensor   # (t,)
     contact_qp: torch.Tensor     # (c-6,)
@@ -76,6 +91,7 @@ def solve_task_level_qp(
     warm=None,
     backend: str = "torch",
     constraint_row_mask=None,  # (...,k) 1 = live cone/ZMP row (masked ticks)
+    limit_rows=None,  # static indices of the torque rows with ± limit pairs
 ) -> TaskQPResult:
     """One hierarchy level's QP (src/dwbc.cpp:941-1127)."""
     m, t = Ntorque_task.shape[-2], Ntorque_task.shape[-1]
@@ -91,10 +107,8 @@ def solve_task_level_qp(
     tau_base = torque_prev + (Ntorque_task @ f_star[..., None])[..., 0]
 
     rows, ubs = [], []
-    if torque_limit is not None:
-        blk = torch.cat([Ntorque_task, NwJw], dim=-1)
-        rows += [blk, -blk]
-        ubs += [torque_limit - tau_base, torque_limit + tau_base]
+    n_lim = _limit_pairs(rows, ubs, torch.cat([Ntorque_task, NwJw], dim=-1), torque_limit,
+                         tau_base, limit_rows)
 
     # contact cone/ZMP rows: −(A_const A_rot J̄ᵀ_act)[Ntorque | NwJw] x ≤ −bA
     CM = A_const @ A_rot
@@ -106,8 +120,7 @@ def solve_task_level_qp(
     batch = torch.broadcast_shapes(*(r.shape[:-2] for r in rows))
     A = torch.cat([r.expand(batch + r.shape[-2:]) for r in rows], dim=-2)
     ub = torch.cat([u.expand(batch + u.shape[-1:]) for u in ubs], dim=-1)
-    sol = solve_qp(H, g, A, None, ub, iters=iters, warm=warm, backend=backend,
-                   mirror=m if torque_limit is not None else 0)
+    sol = solve_qp(H, g, A, None, ub, iters=iters, warm=warm, backend=backend, mirror=n_lim)
     return TaskQPResult(f_star_delta=sol.x[..., :t], contact_qp=sol.x[..., t:],
                         gap=sol.gap, primal_res=sol.primal_res, x=sol.x, lam=sol.lam)
 
@@ -125,6 +138,7 @@ def solve_contact_redistribution_qp(
     warm=None,
     backend: str = "torch",
     constraint_row_mask=None,
+    limit_rows=None,
 ):
     """Final redistribution QP over f_c,red (src/dwbc.cpp:1396-1561).
     tangential_weight=True minimizes the tangential contact-force components
@@ -151,9 +165,7 @@ def solve_contact_redistribution_qp(
         g = torch.zeros(cfree, dtype=dtype, device=dev)
 
     rows, ubs = [], []
-    if torque_limit is not None:
-        rows += [NwJw, -NwJw]
-        ubs += [torque_limit - torque_input, torque_limit + torque_input]
+    n_lim = _limit_pairs(rows, ubs, NwJw, torque_limit, torque_input, limit_rows)
 
     CM = -(A_const @ A_rot)
     rows.append(CM @ JT_act @ NwJw)
@@ -164,5 +176,4 @@ def solve_contact_redistribution_qp(
     batch = torch.broadcast_shapes(*(r.shape[:-2] for r in rows))
     A = torch.cat([r.expand(batch + r.shape[-2:]) for r in rows], dim=-2)
     ub = torch.cat([u.expand(batch + u.shape[-1:]) for u in ubs], dim=-1)
-    return solve_qp(H, g, A, None, ub, iters=iters, warm=warm, backend=backend,
-                    mirror=m if torque_limit is not None else 0)
+    return solve_qp(H, g, A, None, ub, iters=iters, warm=warm, backend=backend, mirror=n_lim)

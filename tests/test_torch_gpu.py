@@ -934,3 +934,86 @@ def test_general_refusals_raise(case, dev):
                 tuple((T.TASK_LINK_6D, link) for link in (0, 15, 31, 23)),)))):
         with pytest.raises(NotImplementedError, match=reason):
             FusedTick(m, bad, dev, backend="cuda")
+
+
+# ------------------------------------------------------ the reduced tick
+# ReducedTick(cuda) against its plain float32 version on the card, per field:
+# the chained kernels' limits of chip_smoke.py (CHAIN_TOL: about four times
+# the plain float32 tick's own error from float64), the diagnostics at the
+# failure bars' scale
+REDUCED_TOL = {"torque_grav": 1e-2, "torque_task": 1e-2, "torque_contact": 1e-2,
+               "torque_cmd": 1e-2, "contact_force": 7e-2, "qp_gap": 1e-4,
+               "qp_primal_res": 1e-4, "contact_rank_health": 1e-5}
+
+
+def _reduced(m, dev, backend="cuda", swing=False):
+    from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
+    from libdwbc_tpu_torch.wbc.reduced_tick import ReducedTick
+
+    cfg = standard_tocabi_config(m, qp_iters=12, both_feet=not swing, swing_task=swing)
+    return ReducedTick(m, cfg, dev, backend=backend)
+
+
+@pytest.mark.parametrize("nb", [1, 5, 1024])
+def test_reduced_tick_cuda_matches_plain(case, dev, nb):
+    """ReducedTick(cuda) on the flagship, cold and warm, against the plain
+    float32 ReducedTick on the card, per field; 3 psd_inverse and 3 qp_solve
+    launches per tick, nothing routed to a plain version."""
+    from libdwbc_tpu_torch.entry import _swing_inputs
+    from libdwbc_tpu_torch.ops import linalg_cuda, qp_cuda
+
+    m = case["model"]
+    tick, plain = _reduced(m, dev), _reduced(m, dev, backend="torch")
+    q, qd, fs = _swing_inputs(m, nb, seed=5)
+    q, qd = torch.as_tensor(q, device=dev), torch.as_tensor(qd, device=dev)
+    fs = tuple(torch.as_tensor(f, device=dev) for f in fs[:2])
+    n0 = (linalg_cuda.launches["psd_inverse"], qp_cuda.launches["qp_solve"])
+    rk, wk = tick._tick_impl(q, qd, fs, warm=tick.init_warm((nb,)), qp_iters=12)
+    rk2, _ = tick._tick_impl(q, qd, fs, warm=wk, qp_iters=7)
+    torch.cuda.synchronize()
+    assert (linalg_cuda.launches["psd_inverse"] - n0[0],
+            qp_cuda.launches["qp_solve"] - n0[1]) == (6, 6)
+    n1 = (linalg_cuda.launches["psd_inverse"], qp_cuda.launches["qp_solve"])
+    rp, wp = plain._tick_impl(q, qd, fs, warm=plain.init_warm((nb,)), qp_iters=12)
+    rp2, _ = plain._tick_impl(q, qd, fs, warm=wp, qp_iters=7)
+    assert (linalg_cuda.launches["psd_inverse"], qp_cuda.launches["qp_solve"]) == n1
+    for got, want in ((rk, rp), (rk2, rp2)):
+        assert not bool(got.qp_error.any()) and not bool(want.qp_error.any())
+        for name, tol in REDUCED_TOL.items():
+            err = float((getattr(got, name) - getattr(want, name)).abs().max())
+            print(f"ReducedTick(cuda) vs plain float32, batch {nb}, {name}: {err:.3e}")
+            assert err <= tol, (name, err)
+
+
+@pytest.mark.parametrize("swing", [False, True])
+def test_reduced_tick_routes_every_qp_and_inverse(case, dev, swing):
+    """Every QP of ReducedTick is one kernel_takes accepts (mirror co_dof) and
+    every inverse of 16 ≤ n ≤ 64 goes to psd_inverse: flagship 3 + 3 per
+    tick, config 3 2 + 2, at B = 1 too."""
+    from libdwbc_tpu_torch.entry import _swing_inputs
+    from libdwbc_tpu_torch.ops import linalg_cuda, qp_cuda
+
+    m = case["model"]
+    tick = _reduced(m, dev, swing=swing)
+    for nv, rows in tick._dims:
+        assert qp_cuda.kernel_takes(nv, rows, tick.ridx.co_dof)
+    q, qd, fs = _swing_inputs(m, 1, seed=5)
+    fs = fs if swing else fs[:2]
+    n0 = (linalg_cuda.launches["psd_inverse"], qp_cuda.launches["qp_solve"])
+    r = tick._tick_impl(torch.as_tensor(q[0], device=dev), torch.as_tensor(qd[0], device=dev),
+                        tuple(torch.as_tensor(f[0], device=dev) for f in fs))
+    torch.cuda.synchronize()
+    want = (2, 2) if swing else (3, 3)
+    assert (linalg_cuda.launches["psd_inverse"] - n0[0],
+            qp_cuda.launches["qp_solve"] - n0[1]) == want
+    assert r.torque_cmd.shape == (33,) and bool(torch.isfinite(r.torque_cmd).all())
+
+
+def test_reduced_tick_cuda_refuses_a_cpu_device_and_float64(case, dev):
+    from libdwbc_tpu_torch.wbc.reduced_tick import ReducedTick
+
+    m = case["model"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ReducedTick(m, case["cfg"], "cpu", backend="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        ReducedTick(m, case["cfg"], dev, torch.float64, backend="cuda")

@@ -26,7 +26,11 @@ MODULES = ("libdwbc_tpu_torch", "libdwbc_tpu_torch.convert", "libdwbc_tpu_torch.
            "libdwbc_tpu_torch.wbc.dynamics", "libdwbc_tpu_torch.wbc.hqp",
            "libdwbc_tpu_torch.wbc.fused", "libdwbc_tpu_torch.wbc.pipeline",
            "libdwbc_tpu_torch.wbc.types", "libdwbc_tpu_torch.wbc.masked",
-           "libdwbc_tpu_torch.wbc.loop", "libdwbc_tpu_torch.utils.traj")
+           "libdwbc_tpu_torch.wbc.loop", "libdwbc_tpu_torch.utils.traj",
+           "libdwbc_tpu_torch.model.urdf", "libdwbc_tpu_torch.model.rotations_np",
+           "libdwbc_tpu_torch.model.surgery", "libdwbc_tpu_torch.kin.centroidal",
+           "libdwbc_tpu_torch.wbc.reduced", "libdwbc_tpu_torch.wbc.reduced_tick",
+           "libdwbc_tpu_torch.wbc.lqp")
 
 
 def test_port_imports_no_jax():
@@ -50,6 +54,8 @@ def test_port_imports_no_jax():
             "cfg3 = standard_tocabi_config(model, both_feet=False, swing_task=True)\n"
             "q, qd, fs = entry._swing_inputs(model, 2)\n"
             "FusedTick(model, cfg3, 'cpu', backend='torch')._tick_impl(q, qd, fs)\n"
+            "model, tick = entry._model_and_tick('cpu', backend='torch', reduced=True, swing=True)\n"
+            "tick._tick_impl(q, qd, fs, warm=tick.init_warm((2,)))\n"
             "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
             "assert not any(k.startswith('libdwbc_tpu.') or k == 'libdwbc_tpu' for k in sys.modules)\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
