@@ -193,6 +193,47 @@ Phases, each fatal on failure (nothing is caught):
    split into qp_solve, psd_inverse, the other kernels and the host alone,
    and each kernel at the reduced shapes at batch 1024 and 1 against its
    plain version on the card (psd_inverse also against torch.linalg.inv).
+26. the controller facade on the card (facade_phase): RobotData() — the
+   card, float32, backend cuda — on the flagship (entry._facade) and the
+   reference unit tests' standing cases 1 and 2 (entry._facade_cases),
+   each run's launch counts set to 0 just before it and read just after:
+   the OSF-HQP tick (CalcContactConstraint returns 1, qp_error_ 0, every
+   output finite; exactly 2 psd_inverse — A at n = 39, W + V2ᵀV2 at 33 —
+   and 3 qp_solve launches), the Reduced* chain (3 + 3: A_R, both
+   W + V2ᵀV2; the pelvis level, the nc resultant, the redistribution), the
+   LQP, JACC, _R and _R_NC methods (3 psd_inverse from the reduced
+   dynamics; each of their QPs printed with its (n, m) and equality rows,
+   and qp_solve launched for exactly those the routing rule takes: the
+   reduced cascade's (18, 92) level, whose launch is held against the
+   plain version on the same inputs by phase 23's rule, and the cascade's
+   y against the same facade with the plain version in the kernel's
+   place; the rest have equality rows or more than 24 variables); then
+   ChangeLinkToFixedJoint on the right wrist (link 33) and a tick
+   (psd_inverse at n = 38 and 32), and config 3 (2 + 3: A and W at 33, the
+   three level QPs, no redistribution QP); the truth guard — τ_grav within
+   0.05 Nm of the port's facade in float64 on the CPU, τ_cmd within 0.05
+   Nm or twice the plain float32 facade's own error (phase 14's rule) — and
+   τ_task, each QP's x and each acceleration method's torque within
+   FACADE_OWN × the plain float32 facade's own distance from float64 on
+   the CPU (phase 23's rule);
+27. the facade's times (facade_times): ms per method and per OSF-HQP tick
+   on the flagship and config 3, median of FACADE_REPS synced calls after
+   a warm-up (the LQP and JACC methods one synced call each), the tick
+   against the 1 ms bar (printed, not held), its device-busy share by
+   torch.profiler with qp_solve's and psd_inverse's shares, and each
+   kernel's launches at the facade's shapes at batch 1 held against its
+   plain version (psd_inverse within PSD_INV_RTOL, qp_solve by phase 23's
+   rule) and timed against it on the card (psd_inverse also against
+   torch.linalg.inv);
+28. the bridges and the sweep (bridges_phase): RlWBCBridge() on the card
+   for K_RL ticks from MuJoCo-layout states (2 + 3 launches a tick, finite,
+   no qp_error_), BatchedRlWBCBridge(B_BRIDGE) on CompiledTick(cuda) (2 + 3
+   per solve, no lane with qp_error, the truth guard on 4 lanes against the
+   port's RlWBCBridge in float64 on the CPU, solves/s), and
+   hypothesis_sweep at B_BRIDGE over the two feet's three modes (6 + 7
+   launches: each mode's CompiledTick(cuda); 2 lanes per mode against the
+   port's sweep in float64 on the CPU, τ within 0.05 Nm and the same
+   argmin over those lanes; solves/s).
 
 Then each kernel's resources (registers and local bytes per thread, shared
 bytes and threads per block, resident blocks per SM, ptxas's spill bytes;
@@ -219,6 +260,7 @@ ROOT = Path(__file__).resolve().parent
 B = 1024
 K = 16                     # ticks of the fused serving chain: 1 cold-start + 15 warm
 K_C = 6                    # ticks of the compiled serving chain: 1 cold-start + 5 warm
+K_SPLIT = 5                # warm ticks per chain profiled by torch.profiler (phases 25, 27)
 COLD_ITERS, WARM_ITERS = 12, 7
 TAU_GRAV_TOL = 0.05        # bench.py's truth guard on τ_grav (Nm)
 TAU_CMD_TOL = 5e-2         # the repo's bar for τ_cmd across solvers (Nm)
@@ -966,6 +1008,21 @@ REDUCED_QP_OWN = 4.0       # the kernel's limit in units of plain float32's own 
 EPS32 = float(np.finfo(np.float32).eps)
 
 
+def qp_errs(c64, got, ref, lanes):
+    """Max errors of the solve got against ref (each (x, s, λ)) over the
+    given lanes — x, the gap and the primal residual absolute, λ relative to
+    1 + |λ| — and got's gap and primal residual per lane, all from the
+    unmirrored C and d of c64 in float64."""
+    g_k, p_k = gap_pres(c64["C"], c64["d"], got[0].cpu().double(), got[2].cpu().double())
+    g_r, p_r = gap_pres(c64["C"], c64["d"], ref[0].cpu().double(), ref[2].cpu().double())
+    lam_rel = ((got[2].cpu().double() - ref[2].cpu().double()).abs()
+               / (1.0 + ref[2].cpu().double().abs()))
+    return dict(x=maxerr(got[0].cpu()[lanes], ref[0].cpu()[lanes]),
+                lam=float(lam_rel[lanes].max()),
+                gap=maxerr(g_k[lanes], g_r[lanes]),
+                pres=maxerr(p_k[lanes], p_r[lanes])), g_k, p_k
+
+
 def reduced_kernels(dev, tag, tick, q_d, qd_d, fs_d):
     """Phase 23, one configuration: the inputs one cold ReducedTick(cuda)
     tick gives psd_inverse and qp_solve at batch B; psd_inverse on A_R and
@@ -1027,32 +1084,19 @@ def reduced_kernels(dev, tag, tick, q_d, qd_d, fs_d):
         f64_w = qp_solve_plain(c64["H"], c64["g"], c64["C"], c64["d"], x0.double(),
                                lam0.double(), iters=WARM_ITERS, **kw)
         torch.cuda.synchronize()
-
-        def errs(got, ref, lanes):
-            """Max errors of got against ref over the given lanes, and got's
-            gap and primal residual per lane."""
-            g_k, p_k = gap_pres(c64["C"], c64["d"], got[0].cpu().double(), got[2].cpu().double())
-            g_r, p_r = gap_pres(c64["C"], c64["d"], ref[0].double(), ref[2].double())
-            lam_rel = ((got[2].cpu().double() - ref[2].double()).abs()
-                       / (1.0 + ref[2].double().abs()))
-            return dict(x=maxerr(got[0].cpu()[lanes], ref[0][lanes]),
-                        lam=float(lam_rel[lanes].max()),
-                        gap=maxerr(g_k[lanes], g_r[lanes]),
-                        pres=maxerr(p_k[lanes], p_r[lanes])), g_k, p_k
-
         for t_, ref, ker, f64 in (("cold", ref_c, ker_c, f64_c), ("warm", ref_w, ker_w, f64_w)):
             for t in ker:
                 assert torch.isfinite(t).all(), (tag, name, t_)
             every = torch.ones(B, dtype=torch.bool)
-            _, g_own, p_own = errs(ref, f64, every)
+            _, g_own, p_own = qp_errs(c64, ref, f64, every)
             # lanes the plain float32 version leaves unsolved (gap or primal
             # residual above QP_FAIL: config 3's nc resultant QP, whose rows
             # float32 assembles as noise, see reduced_serving) are compared
             # by count: the kernel may leave no more, within phase 13's
             # spread; every other lane by value
             solved = (g_own <= QP_FAIL) & (p_own <= QP_FAIL)
-            qps_err[(name, t_)], g_k, p_k = errs(ker, ref, solved)
-            own = errs(ref, f64, solved)[0]
+            qps_err[(name, t_)], g_k, p_k = qp_errs(c64, ker, ref, solved)
+            own = qp_errs(c64, ref, f64, solved)[0]
             n_ker = int(((g_k > QP_FAIL) | (p_k > QP_FAIL)).sum())
             n_plain = B - int(solved.sum())
             qps_unsolved[(name, t_)] = (n_ker, n_plain)
@@ -1185,9 +1229,9 @@ def reduced_serving(dev, model, tag, tick, q, qd, fs, card):
     assert max(d_grav, d_cmd, d_grav_c) <= TAU_GRAV_TOL, (tag, d_grav, d_cmd, d_grav_c)
 
     # phase 25: the warm chain, the unbatched warm tick, the device split
-    def chain(tk=tick, w0=warm):
+    def chain(tk=tick, w0=warm, n=K - 1):
         qq_, w_ = q_d, w0
-        for _ in range(K - 1):
+        for _ in range(n):
             _, qq_, w_ = step(qq_, w_, WARM_ITERS, tk)
 
     chain_ms = cuda_time(chain, 1)
@@ -1203,16 +1247,16 @@ def reduced_serving(dev, model, tag, tick, q, qd, fs, card):
           f"{solves:.1f} solves/s (CompiledTick, same inputs and run: {c_solves:.1f} solves/s); "
           f"unbatched warm tick ({WARM_ITERS} iterations) {single_warm_ms:.3f} ms, against the "
           f"single-lane bar of 1 ms  [{card}]")
-    split = tick_split(chain, K - 1, _build.library())
+    split = tick_split(lambda: chain(n=K_SPLIT), K_SPLIT, _build.library())
     psd_prof = sum(e.time_range.end - e.time_range.start for e in split["kernels"]
-                   if "psd_inverse_kernel" in e.name) / 1e3 / (K - 1)
+                   if "psd_inverse_kernel" in e.name) / 1e3 / K_SPLIT
     wall = chain_ms / (K - 1)
     print(f"ReducedTick {tag} warm tick at batch {B}, split per tick: wall {wall:.3f} ms (CUDA "
           f"events around the chain); under torch.profiler the device busy {split['busy']:.3f} "
           f"ms: qp_solve {split['qp_prof']:.3f} ms ({split['qp_launches']:g} launches; "
           f"{split['qp_events']:.3f} ms by CUDA events around them), psd_inverse "
           f"{psd_prof:.3f} ms, the other kernels {split['busy'] - split['qp_prof'] - psd_prof:.3f} "
-          f"ms ({len(split['kernels']) / (K - 1):.0f} device kernels per tick); the host alone "
+          f"ms ({len(split['kernels']) / K_SPLIT:.0f} device kernels per tick); the host alone "
           f"(the device idle) {wall - split['busy']:.3f} ms; device busy share "
           f"{split['busy'] / wall:.3f}  [{card}]")
     return launches, solves
@@ -1337,7 +1381,636 @@ def hands_masked_loop(dev, model, card, times):
     return launches, kern
 
 
+FACADE_REPS = 50           # the facade's OSF-HQP and reduced methods: median of 50 calls
+FACADE_OWN = 4.0           # a card result's limit in units of plain float32's own error
+B_BRIDGE = 1024            # BatchedRlWBCBridge and the hypothesis sweep: environments
+K_RL = 16                  # RlWBCBridge ticks
+
+
+def count_launches(fn):
+    """(fn's result, {"psd_inverse": n, "qp_solve": n}): the kernel
+    launches of one call of fn, the counts set to 0 just before and read
+    just after."""
+    from libdwbc_tpu_torch.ops import linalg_cuda, qp_cuda
+
+    linalg_cuda.launches["psd_inverse"] = 0
+    qp_cuda.launches["qp_solve"] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"psd_inverse": linalg_cuda.launches["psd_inverse"],
+                 "qp_solve": qp_cuda.launches["qp_solve"]}
+
+
+def osf_tick(rd, flags, q, qd, fs):
+    """One OSF-HQP tick through the facade, stage by stage: its statuses,
+    torques and each QP's x."""
+    from libdwbc_tpu_torch import entry
+
+    entry._facade_set(rd, flags, q, qd, fs)
+    status = [rd.CalcContactConstraint()]
+    rd.CalcGravCompensation()
+    status += [rd.CalcTaskControlTorque(), rd.CalcContactRedistribute()]
+    out = {"status": status, "qp_error": rd.qp_error_, "torque_grav": rd.torque_grav_,
+           "torque_task": rd.torque_task_, "torque_contact": rd.torque_contact_,
+           "torque_cmd": rd.torque_grav_ + rd.torque_task_ + rd.torque_contact_}
+    out.update({f"x level {h}": r.x for h, r in enumerate(rd.qp_results)})
+    if rd.cspace.NwJw.shape[-1]:
+        out["x redistribution"] = rd.cf_redis_qp_
+    return out
+
+
+def reduced_chain(rd):
+    """The facade's Reduced* chain on its current state: statuses, torques
+    and each QP's x."""
+    rd.ReducedDynamicsCalculate()
+    status = [rd.ReducedCalcContactConstraint()]
+    rd.ReducedCalcGravCompensation()
+    status.append(rd.ReducedCalcTaskControlTorque())
+    out = {}
+    if rd.cspace_r.NwJw.shape[-1]:
+        status.append(rd.ReducedCalcContactRedistribute())
+        out["x redistribution"] = rd.redist_r_result.x
+    out.update({"status": status, "torque_grav": rd.torque_grav_, "torque_task": rd.torque_task_,
+                "torque_contact": rd.torque_contact_,
+                "torque_cmd": rd.torque_grav_ + rd.torque_task_ + rd.torque_contact_})
+    out.update({f"x qp {i}": r.x for i, r in enumerate(rd._r_qp_results)})
+    return out
+
+
+def accel_methods(rd):
+    """The facade's LQP, JACC, _R and _R_NC methods on its current state,
+    in the facade tests' order: each method's torque."""
+    rd.ConfigureLQP()
+    out = {"LQP": rd.CalcControlTorqueLQP(), "JACC": rd.CalcTaskControlTorqueJACC()}
+    rd.ReducedDynamicsCalculate()
+    rd.ReducedCalcContactConstraint()
+    out["JACC_R"] = rd.CalcTaskControlTorqueJACC_R()
+    out["JACC_R_NC"] = rd.CalcTaskControlTorqueJACC_R_NC()
+    rd.ConfigureLQP_R()
+    out["LQP_R"] = rd.CalcControlTorqueLQP_R()
+    rd.ConfigureLQP_R_NC(rd.lqp_r_result.y[:rd._ridx.reduced_system_dof])
+    out["LQP_R_NC"] = rd.CalcControlTorqueLQP_R_NC()
+    return out
+
+
+def own_guard(tag, got, f32, f64, keys):
+    """Each key of got within FACADE_OWN × plain float32's own distance
+    from float64 (at least QP_SOLVE_TOL's x limit), as phase 23 holds the
+    kernels; returns the errors and limits."""
+    from libdwbc_tpu_torch.ops.qp_cuda import QP_SOLVE_TOL
+
+    rows = {}
+    for k in keys:
+        assert torch.isfinite(torch.as_tensor(got[k])).all(), (tag, k)
+        e, own = maxerr(torch.as_tensor(got[k]), torch.as_tensor(f64[k])), maxerr(
+            torch.as_tensor(f32[k]), torch.as_tensor(f64[k]))
+        rows[k] = (e, max(FACADE_OWN * own, QP_SOLVE_TOL["x"]))
+    print(f"{tag} vs the port's facade in float64 on the CPU (max abs err <= {FACADE_OWN:g} × "
+          "plain float32's own): " + "  ".join(f"{k} {e:.3e} <= {lim:.3e}"
+                                               for k, (e, lim) in rows.items()))
+    for k, (e, lim) in rows.items():
+        assert e <= lim, (tag, k, e, lim)
+    return rows
+
+
+def capture_calls(fn):
+    """fn run once with the psd_inverse and qp_solve wrappers wrapped to
+    keep a copy of each call's inputs and output; returns (fn's result,
+    the copies: psd_inverse's (A, A⁻¹), qp_solve's dicts)."""
+    from libdwbc_tpu_torch.ops import linalg_cuda, qp_cuda
+
+    seen = {"psd_inverse": [], "qp_solve": []}
+    inv, solve = linalg_cuda.psd_inverse, qp_cuda.qp_solve
+
+    def copy(t):
+        return None if t is None else t.clone()
+
+    def inv_rec(A):
+        out = inv(A)
+        seen["psd_inverse"].append((A.clone(), out.clone()))
+        return out
+
+    def solve_rec(H, g, C, d, x0=None, lam0=None, iters=12, ridge=1e-6, mirror=0):
+        rec = dict(H=H.clone(), g=g.clone(), C=C.clone(), d=d.clone(), x0=copy(x0),
+                   lam0=copy(lam0), iters=iters, ridge=ridge, mirror=mirror)
+        out = solve(H, g, C, d, x0, lam0, iters=iters, ridge=ridge, mirror=mirror)
+        rec["out"] = tuple(t.clone() for t in out)
+        seen["qp_solve"].append(rec)
+        return out
+
+    linalg_cuda.psd_inverse, qp_cuda.qp_solve = inv_rec, solve_rec
+    try:
+        out = fn()
+    finally:
+        linalg_cuda.psd_inverse, qp_cuda.qp_solve = inv, solve
+    torch.cuda.synchronize()
+    return out, seen
+
+
+def facade_qp_vs_plain(tag, p):
+    """One qp_solve launch of the facade (capture_calls' record, with its
+    output) against the plain version on the same inputs in float32 on the
+    CPU, by phase 23's rule: x, λ and the gap within the larger of
+    QP_SOLVE_TOL and REDUCED_QP_OWN × the plain float32 version's own
+    distance from a float64 solve of the same QP (the gap: or its own gap),
+    the primal residual within float32 roundoff of the rows' scale; the
+    kernel may leave no problem unsolved (gap or primal residual above
+    QP_FAIL) that the plain version solves.  The objective ½xᵀHx + gᵀx,
+    which a face of solutions shares where x is not unique, is held
+    relative to 1 + |objective| by the same rule.  Returns the errors."""
+    from libdwbc_tpu_torch.ops.qp_cuda import QP_SOLVE_TOL, qp_solve_plain
+
+    cpu = [p[k].cpu() for k in "HgCd"]
+    c64 = {k: v.double() for k, v in zip("HgCd", cpu)}
+    warm = [None if p[k] is None else p[k].cpu() for k in ("x0", "lam0")]
+    kw = dict(iters=p["iters"], ridge=p["ridge"], mirror=p["mirror"])
+    ref = qp_solve_plain(*cpu, *warm, **kw)
+    f64 = qp_solve_plain(*c64.values(), *(None if w is None else w.double() for w in warm), **kw)
+    every = torch.ones(cpu[2].shape[0], dtype=torch.bool)
+    for t in p["out"]:
+        assert torch.isfinite(t).all(), tag
+    err, g_k, p_k = qp_errs(c64, p["out"], ref, every)
+    own, g_own, p_own = qp_errs(c64, ref, f64, every)
+    own["gap"] = max(own["gap"], float(g_own.max()))
+
+    def objective(x):
+        x = x.cpu().double()
+        return 0.5 * (x * (c64["H"] @ x[..., None])[..., 0]).sum(-1) + (c64["g"] * x).sum(-1)
+
+    o_ref = objective(ref[0])
+    err["obj"] = float(((objective(p["out"][0]) - o_ref).abs() / (1.0 + o_ref.abs())).max())
+    own["obj"] = float(((objective(f64[0]) - o_ref).abs() / (1.0 + o_ref.abs())).max())
+    # the objective's floor: float32 roundoff, relative
+    lim = {k: max(QP_SOLVE_TOL.get(k, 16 * EPS32), REDUCED_QP_OWN * own[k]) for k in own}
+    lim["pres"] = max(lim["pres"], EPS32 * float(cpu[3].abs().max()))
+    n_ker = int(((g_k > QP_FAIL) | (p_k > QP_FAIL)).sum())
+    n_plain = int(((g_own > QP_FAIL) | (p_own > QP_FAIL)).sum())
+    _, nc, nv = cpu[2].shape
+    print(f"{tag}: qp_solve (n {nv}, m {nc}, mirror {p['mirror']}, {p['iters']} iterations, "
+          f"{'warm' if warm[0] is not None else 'cold'}) as launched vs plain float32 on the same "
+          "inputs (x, gap, pres absolute; λ and the objective relative to 1 + |.|; <= the larger "
+          f"of QP_SOLVE_TOL and {REDUCED_QP_OWN:g} × plain float32's own error against float64): "
+          + "  ".join(f"{k} {v:.3e} <= {lim[k]:.3e}" for k, v in err.items())
+          + f"; unsolved (kernel, plain) ({n_ker}, {n_plain})")
+    assert n_ker <= n_plain, (tag, n_ker, n_plain)
+    for k, v in err.items():
+        assert v <= lim[k], (tag, k, v, lim[k])
+    return err
+
+
+def cascade_objectives(levels, y):
+    """Per level of an LQP cascade, the values it minimizes in turn at y:
+    ‖B y + b‖ and ‖max(A y + a, 0)‖ over rows normalized as the cascade
+    normalizes them, and yᵀHy; float64, flat."""
+    y = y.detach().cpu().double()
+    out = []
+    for L in levels:
+        terms = [(L.B, L.b, False)] + ([(L.A, L.a, True)] if L.A is not None else [])
+        for M, v, one_sided in terms:
+            M, v = M.detach().cpu().double(), v.detach().cpu().double()
+            nrm = torch.linalg.vector_norm(M, dim=-1)
+            r = (M @ y + v) / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
+            out.append(torch.linalg.vector_norm(torch.clamp_min(r, 0.0) if one_sided else r))
+        if L.H is not None:
+            out.append(y @ L.H.detach().cpu().double() @ y)
+    return torch.stack(out)
+
+
+def lqp_r_y(rd, solve):
+    """The facade's ConfigureLQP_R + CalcControlTorqueLQP_R again on its
+    current state, with qp_cuda.qp_solve replaced by solve: the cascade's
+    y."""
+    from libdwbc_tpu_torch.ops import qp_cuda
+
+    kernel = qp_cuda.qp_solve
+    qp_cuda.qp_solve = solve
+    try:
+        rd.ConfigureLQP_R()
+        rd.CalcControlTorqueLQP_R()
+    finally:
+        qp_cuda.qp_solve = kernel
+    return rd.lqp_r_result.y.clone()
+
+
+def plain64_solve(H, g, C, d, x0=None, lam0=None, **kw):
+    """The plain qp_solve in float64 on float32 inputs, its output float32."""
+    from libdwbc_tpu_torch.ops.qp_cuda import qp_solve_plain
+
+    def up(t):
+        return None if t is None else t.double()
+
+    return tuple(t.float() for t in qp_solve_plain(up(H), up(g), up(C), up(d), up(x0), up(lam0),
+                                                   **kw))
+
+
+def truth_guard(tag, got, f32, f64):
+    """τ_grav within TAU_GRAV_TOL of the float64 facade's; τ_cmd within
+    TAU_GRAV_TOL, or twice the plain float32 facade's own error where that
+    is larger (phase 14's rule: the float32 task operators' relative ridge
+    of 1e-4 puts the plain float32 facade itself up to 0.09 Nm from float64
+    on the standing cases)."""
+    d_grav = maxerr(got["torque_grav"], f64["torque_grav"])
+    d_cmd = maxerr(got["torque_cmd"], f64["torque_cmd"])
+    own = maxerr(f32["torque_cmd"], f64["torque_cmd"])
+    lim = max(TAU_GRAV_TOL, 2.0 * own)
+    print(f"{tag} truth guard vs the port's facade in float64 on the CPU: τ_grav {d_grav:.3e} "
+          f"(<= {TAU_GRAV_TOL:g}) τ_cmd {d_cmd:.3e} (<= {lim:.3e}; plain float32's own "
+          f"{own:.3e}) Nm")
+    assert d_grav <= TAU_GRAV_TOL and d_cmd <= lim, (tag, d_grav, d_cmd, lim)
+
+
+def facade_phase(dev, card):
+    """Phase 26: the facade (RobotData(): the card, float32, backend cuda)
+    on the flagship's standing cases 1 and 2 — the OSF-HQP tick, the
+    Reduced* chain, the LQP and JACC methods — then after
+    ChangeLinkToFixedJoint on the right wrist, and on config 3; each run's
+    kernel launches counted (counts set to 0 just before, read just after)
+    and held to what the routing rules give its shapes; the truth guard
+    against the port's facade in float64 on the CPU, the plain float32
+    facade on the CPU giving each field's own-error scale.  Returns the
+    flagship OSF-HQP ticks' launches."""
+    from libdwbc_tpu_torch import entry
+    from libdwbc_tpu_torch.ops import qp_cuda
+    from libdwbc_tpu_torch.ops.qp_cuda import QP_SOLVE_TOL, qp_solve_plain
+    from libdwbc_tpu_torch.wbc import lqp
+    from libdwbc_tpu_torch.wbc import robot as robot_mod
+
+    rd, flags = entry._facade()                 # the card, float32, backend cuda
+    assert rd.device.type == "cuda" and rd.backend == "cuda" and rd.dtype == torch.float32
+    r64, _ = entry._facade(torch.float64, "cpu", "torch")
+    r32, _ = entry._facade(torch.float32, "cpu", "torch")
+    osf_launches = {"psd_inverse": 0, "qp_solve": 0}
+    for case, (q, qd, fs) in entry._facade_cases().items():
+        tag = f"facade flagship case {case}"
+        got, n = count_launches(lambda: osf_tick(rd, flags, q, qd, fs))
+        for k in osf_launches:
+            osf_launches[k] += n[k]
+        print(f"{tag}: OSF-HQP tick launches {n}, statuses {got['status']}, "
+              f"qp_error {got['qp_error']}")
+        # psd_inverse on A (n = 39) and W + V2ᵀV2 (33); qp_solve on the two
+        # level QPs (12, 86), (9, 86) and the redistribution QP (6, 86)
+        assert n == {"psd_inverse": 2, "qp_solve": 3}, n
+        assert got["status"] == [1, 1, 1] and got["qp_error"] == 0
+        f64, f32 = osf_tick(r64, flags, q, qd, fs), osf_tick(r32, flags, q, qd, fs)
+        truth_guard(f"{tag} OSF-HQP", got, f32, f64)
+        own_guard(f"{tag} OSF-HQP", got, f32, f64,
+                  ["torque_task"] + [k for k in got if k.startswith("x ")])
+
+        got, n = count_launches(lambda: reduced_chain(rd))
+        print(f"{tag}: Reduced* chain launches {n} (after the OSF-HQP tick's "
+              f"UpdateKinematics), statuses {got['status']}")
+        # psd_inverse on A_R (24), the reduced W + V2ᵀV2 (18) and the full
+        # W + V2ᵀV2 (33); qp_solve on the pelvis level, the nc resultant and
+        # the redistribution QP
+        assert n == {"psd_inverse": 3, "qp_solve": 3}, n
+        assert got["status"] == [1, 1, 1]
+        f64, f32 = reduced_chain(r64), reduced_chain(r32)
+        truth_guard(f"{tag} Reduced*", got, f32, f64)
+        own_guard(f"{tag} Reduced*", got, f32, f64,
+                  ["torque_task"] + [k for k in got if k.startswith("x ")])
+
+        shapes = []
+        plain = {m: m.solve_qp for m in (lqp, robot_mod)}
+
+        def recorded(fn, where):
+            def run(H, g, A, lb, ub, Aeq=None, *a, **kw):
+                shapes.append((where, H.shape[-1], A.shape[-2], 0 if Aeq is None else
+                               Aeq.shape[-2]))
+                return fn(H, g, A, lb, ub, Aeq, *a, **kw)
+            return run
+
+        lqp.solve_qp = recorded(plain[lqp], "LQP level")
+        robot_mod.solve_qp = recorded(plain[robot_mod], "JACC")
+        try:
+            (got, seen), n = count_launches(lambda: capture_calls(lambda: accel_methods(rd)))
+        finally:
+            lqp.solve_qp, robot_mod.solve_qp = plain[lqp], plain[robot_mod]
+        takes = [qp_cuda.kernel_takes(nv, m, 0) and p == 0 for _, nv, m, p in shapes]
+        print(f"{tag}: LQP / JACC / _R / _R_NC launches {n}; their QPs (n, m, equality rows; "
+              "* where qp_solve takes it — the others have equality rows or n > 24): "
+              + ", ".join(f"{w} ({nv}, {m}, {p}){'*' if t else ''}"
+                          for (w, nv, m, p), t in zip(shapes, takes)))
+        # psd_inverse on the reduced dynamics' A_R and both W + V2ᵀV2;
+        # qp_solve on each QP the routing rule takes (the reduced cascade's
+        # (18, 92) level), none of the others
+        assert n == {"psd_inverse": 3, "qp_solve": sum(takes)} and sum(takes) == 1, (n, shapes)
+        assert [tuple(p["C"].shape) for p in seen["qp_solve"]] == [(1, 92, 18)], shapes
+        facade_qp_vs_plain(f"{tag} LQP_R level (18, 92)", seen["qp_solve"][0])
+        # the cascade's y as the path gave it, against the same facade on
+        # the card with the plain version in the kernel's place: within
+        # FACADE_OWN × how far that y moves when the plain version solves
+        # the (18, 92) level in float64 (its face is flat along the feet's
+        # internal force, which the cascade leaves free)
+        y_k = rd.lqp_r_result.y.clone()
+        y_p = lqp_r_y(rd, qp_solve_plain)
+        y_64 = lqp_r_y(rd, plain64_solve)
+        r = rd._ridx.reduced_system_dof
+        y_rows = {}
+        for part, sl in (("q̈", slice(0, r)), ("f_c", slice(r, None))):
+            e, own = maxerr(y_k[sl], y_p[sl]), maxerr(y_p[sl], y_64[sl])
+            y_rows[part] = (e, max(FACADE_OWN * own, QP_SOLVE_TOL["x"]), own)
+        # and the cascade's objectives at y, which a face of solutions
+        # shares (relative to 1 + |objective|; floor: float32 roundoff)
+        o_k, o_p, o_64 = (cascade_objectives(rd._lqp_r_levels, y) for y in (y_k, y_p, y_64))
+        e = float(((o_k - o_p).abs() / (1.0 + o_p.abs())).max())
+        own = float(((o_64 - o_p).abs() / (1.0 + o_p.abs())).max())
+        y_rows["objectives"] = (e, max(FACADE_OWN * own, 16 * EPS32), own)
+        print(f"{tag}: LQP_R's y (the path's) vs the facade with plain qp_solve on the card (max "
+              f"abs err, objectives relative; <= {FACADE_OWN:g} × its move under a float64 solve of "
+              "the (18, 92) level): " + "  ".join(f"{k} {e:.3e} <= {lim:.3e} [own {own:.3e}]"
+                                                  for k, (e, lim, own) in y_rows.items()))
+        for k, (e, lim, _) in y_rows.items():
+            assert e <= lim, (tag, k, e, lim)
+        f64, f32 = accel_methods(r64), accel_methods(r32)
+        own_guard(f"{tag} acceleration methods (torques)", got, f32, f64, list(got))
+
+    # surgery on the card: the right wrist's joint fixed, then a tick
+    q, qd, fs = entry._facade_cases()[1]
+    outs = {}
+    for key, (dt, dv, bk) in {"card": (torch.float32, None, "cuda"),
+                              "f32": (torch.float32, "cpu", "torch"),
+                              "f64": (torch.float64, "cpu", "torch")}.items():
+        rs, fl = entry._facade(dt, dv, bk)
+        j = int(rs.model.q_index[33])
+        rs.ChangeLinkToFixedJoint(33)
+        rs.SetTorqueLimit(np.full(rs.model_dof_, 300.0))   # the limits follow the dofs
+        run = (lambda rs=rs, fl=fl: osf_tick(rs, fl, np.delete(q, j), np.delete(qd, j), fs))
+        if key == "card":
+            (outs[key], seen), n = count_launches(lambda: capture_calls(run))
+            sizes = [A.shape[-1] for A, _ in seen["psd_inverse"]]
+            print(f"facade after ChangeLinkToFixedJoint(33): {rs.model.ndof} dofs, launches {n}, "
+                  f"psd_inverse at n = {sizes}")
+            assert sizes == [38, 32] and n == {"psd_inverse": 2, "qp_solve": 3}, (sizes, n)
+            assert outs[key]["status"] == [1, 1, 1] and outs[key]["qp_error"] == 0
+        else:
+            outs[key] = run()
+    truth_guard("facade after ChangeLinkToFixedJoint(33)", outs["card"], outs["f32"], outs["f64"])
+
+    # config 3 through the facade
+    r3, flags3 = entry._facade(swing=True)
+    r3_64, _ = entry._facade(torch.float64, "cpu", "torch", swing=True)
+    r3_32, _ = entry._facade(torch.float32, "cpu", "torch", swing=True)
+    for case, (q, qd, fs) in entry._facade_cases(swing=True).items():
+        tag = f"facade config 3 case {case}"
+        got, n = count_launches(lambda: osf_tick(r3, flags3, q, qd, fs))
+        print(f"{tag}: OSF-HQP tick launches {n}, statuses {got['status']}, "
+              f"qp_error {got['qp_error']}; by the routing rules: psd_inverse on A (39) and "
+              "on W (33: one 6D contact, no V2), Λ_c (6) below n = 16; qp_solve on the three "
+              "level QPs (6, 76), (3, 76), (6, 76) with 33 mirrored pairs; no free contact "
+              "space, so no redistribution QP")
+        assert n == {"psd_inverse": 2, "qp_solve": 3}, n
+        assert got["status"] == [1, 1, 1] and got["qp_error"] == 0
+        f64, f32 = osf_tick(r3_64, flags3, q, qd, fs), osf_tick(r3_32, flags3, q, qd, fs)
+        truth_guard(f"{tag} OSF-HQP", got, f32, f64)
+        own_guard(f"{tag} OSF-HQP", got, f32, f64,
+                  ["torque_task"] + [k for k in got if k.startswith("x ")])
+    return osf_launches
+
+
+def median_ms(fn, reps):
+    """Median ms of fn over reps calls, each synced, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def once_ms(fn):
+    """ms of one synced call of fn."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def facade_times(dev, card, times):
+    """Phase 27: ms per facade method and per OSF-HQP tick on the flagship
+    and config 3 (median of FACADE_REPS synced calls after a warm-up; the
+    LQP and JACC methods, 0.1-2 s a call on the plain IPM, one synced call
+    each), the tick against the 1 ms bar (printed, not held), its
+    device-busy share by torch.profiler with qp_solve's and psd_inverse's
+    shares, and each kernel at the flagship facade's shapes at B = 1: as
+    the tick launched it against its plain version (psd_inverse relative
+    to max |A⁻¹| within PSD_INV_RTOL, qp_solve by facade_qp_vs_plain), and
+    timed against its plain version on the card (psd_inverse also against
+    torch.linalg.inv).  Returns the kernels' errors against their plain
+    versions, torch.linalg.inv's time and the captured shapes."""
+    from libdwbc_tpu_torch import entry
+    from libdwbc_tpu_torch.ops import _build, linalg_cuda, qp_cuda
+    from libdwbc_tpu_torch.ops.linalg_cuda import PSD_INV_RTOL, psd_inverse_plain
+    from libdwbc_tpu_torch.ops.qp_cuda import qp_solve_plain
+    from libdwbc_tpu_torch.profile_tick import tick_split
+
+    for swing in (False, True):
+        name = "config 3" if swing else "flagship"
+        rd, fl = entry._facade(swing=swing)
+        q, qd, fs = entry._facade_cases(swing=swing)[1]
+        osf_tick(rd, fl, q, qd, fs)
+        tc0 = rd.torque_contact_
+
+        def redistribute():
+            rd.torque_contact_ = tc0
+            rd.CalcContactRedistribute()
+
+        rows = {"UpdateKinematics": lambda: rd.UpdateKinematics(q, qd),
+                "CalcContactConstraint": rd.CalcContactConstraint,
+                "CalcGravCompensation": rd.CalcGravCompensation,
+                "CalcTaskSpace": rd.CalcTaskSpace,
+                "CalcTaskControlTorque": lambda: rd.CalcTaskControlTorque(
+                    update_task_space=False),
+                "CalcContactRedistribute": redistribute,
+                "OSF-HQP tick": lambda: osf_tick(rd, fl, q, qd, fs),
+                "Reduced* chain": lambda: reduced_chain(rd)}
+        ms = {k: median_ms(fn, FACADE_REPS) for k, fn in rows.items()}
+        if not swing:
+            rr = rd._ridx.reduced_system_dof
+
+            def lqp_r_nc():
+                rd.ConfigureLQP_R_NC(rd.lqp_r_result.y[:rr])
+                rd.CalcControlTorqueLQP_R_NC()
+
+            acc = {"LQP": lambda: (rd.ConfigureLQP(), rd.CalcControlTorqueLQP()),
+                   "JACC": rd.CalcTaskControlTorqueJACC,
+                   "JACC_R": rd.CalcTaskControlTorqueJACC_R,
+                   "JACC_R_NC": rd.CalcTaskControlTorqueJACC_R_NC,
+                   "LQP_R": lambda: (rd.ConfigureLQP_R(), rd.CalcControlTorqueLQP_R()),
+                   "LQP_R_NC": lqp_r_nc}
+            accel_methods(rd)
+            ms.update({k: once_ms(fn) for k, fn in acc.items()})
+        print(f"time facade {name} (ms per call, median of {FACADE_REPS} synced calls; LQP and "
+              "JACC one synced call each): " + "  ".join(f"{k} {v:.3f}" for k, v in ms.items())
+              + f"  [{card}]")
+        print(f"time facade {name}: OSF-HQP tick {ms['OSF-HQP tick']:.3f} ms against the "
+              f"single-lane bar of 1 ms (printed, not held)  [{card}]")
+        n_t = K_SPLIT
+        split = tick_split(lambda: [osf_tick(rd, fl, q, qd, fs) for _ in range(n_t)], n_t,
+                           _build.library())
+        psd_prof = sum(e.time_range.end - e.time_range.start for e in split["kernels"]
+                       if "psd_inverse_kernel" in e.name) / 1e3 / n_t
+        wall = ms["OSF-HQP tick"]
+        print(f"facade {name} OSF-HQP tick under torch.profiler, per tick: device busy "
+              f"{split['busy']:.3f} ms of {wall:.3f} ms (busy share {split['busy'] / wall:.3f}); "
+              f"qp_solve {split['qp_prof']:.3f} ms ({split['qp_launches']:g} launches, share "
+              f"{split['qp_prof'] / wall:.3f}), psd_inverse {psd_prof:.3f} ms (share "
+              f"{psd_prof / wall:.3f}), the other kernels "
+              f"{split['busy'] - split['qp_prof'] - psd_prof:.3f} ms "
+              f"({len(split['kernels']) / n_t:.0f} device kernels per tick)  [{card}]")
+
+    # each kernel at the flagship facade's shapes, B = 1
+    rd, fl = entry._facade()
+    q, qd, fs = entry._facade_cases()[1]
+    _, seen = capture_calls(lambda: osf_tick(rd, fl, q, qd, fs))
+    out = {"psd_err": 0.0, "qp_err": 0.0, "lib_ms": None}
+    for A, got in seen["psd_inverse"]:
+        n = A.shape[-1]
+        ref = psd_inverse_plain(A.cpu().double())
+        e = maxerr(got, ref)
+        scale = float(ref.abs().max())
+        assert torch.isfinite(got).all() and e / scale <= PSD_INV_RTOL[n], (n, e / scale)
+        out["psd_err"] = max(out["psd_err"], e)
+        key = ("psd_inverse_facade", n, 1)
+        times[key] = interleaved(lambda: psd_inverse_plain(A), lambda: linalg_cuda.psd_inverse(A),
+                                 5, 20)
+        lib = cuda_time(lambda: torch.linalg.inv(A), 20)
+        if n == 39:
+            out["lib_ms"] = lib
+        p_, k_, g_ = times[key]
+        print(f"time psd_inverse facade n {n} batch 1: kernel {k_:.3f} ms (graph replay {g_:.3f} "
+              f"ms)  plain (torch on the card) {p_:.3f} ms  torch.linalg.inv {lib:.3f} ms; max "
+              f"abs err vs plain float64 {e:.3e} (max |A⁻¹| {scale:.3e}; relative {e / scale:.3e} "
+              f"<= {PSD_INV_RTOL[n]:g})  [{card}]")
+    for name, p in zip(QP_NAMES, seen["qp_solve"]):
+        out["qp_err"] = max(out["qp_err"], facade_qp_vs_plain(f"facade flagship {name}", p)["x"])
+        kw = dict(iters=p["iters"], ridge=p["ridge"], mirror=p["mirror"])
+        a = [p[k] for k in ("H", "g", "C", "d", "x0", "lam0")]
+        times[("qp_solve_facade", name, 1)] = interleaved(
+            lambda: qp_solve_plain(*a, **kw), lambda: qp_cuda.qp_solve(*a, **kw), 2, 20)
+        p_, k_, g_ = times[("qp_solve_facade", name, 1)]
+        print(f"time qp_solve facade {name} (n {p['H'].shape[-1]}, m {p['C'].shape[-2]}, mirror "
+              f"{p['mirror']}; {'warm' if p['x0'] is not None else 'cold'}, {p['iters']} "
+              f"iterations) batch 1: kernel {k_:.3f} ms (graph replay {g_:.3f} ms)  plain (torch "
+              f"on the card) {p_:.3f} ms  [{card}]")
+    out["seen"] = seen
+    return out
+
+
+def bridge_inputs(model, n, seed):
+    """MuJoCo-layout qpos (x y z, qw qx qy qz, joints), qvel, qacc and the
+    two f* of n perturbed standing robots, numpy float32."""
+    from libdwbc_tpu_torch import entry
+
+    q, _, fs = entry._example_inputs(model, np.float64)
+    rng = np.random.default_rng(seed)
+    qpos = np.tile(np.concatenate([q[0:3], [q[39]], q[3:6], q[6:39]]), (n, 1))
+    qpos[:, 7:] += 0.02 * rng.standard_normal((n, 33))
+    qvel = 0.05 * rng.standard_normal((n, 39))
+    f = [np.tile(x, (n, 1)) + 0.05 * rng.standard_normal((n, x.shape[0])) for x in fs]
+    return tuple(a.astype(np.float32) for a in (qpos, qvel, np.zeros((n, 39)), f[0], f[1]))
+
+
+def bridges_phase(dev, card):
+    """Phase 28: RlWBCBridge on the card for K_RL ticks (2 + 3 launches a
+    tick); BatchedRlWBCBridge at N = B_BRIDGE on CompiledTick(cuda) (2 + 3
+    per solve, no lane with qp_error, the truth guard on 4 lanes against
+    the port's RlWBCBridge in float64 on the CPU, solves/s); the hypothesis
+    sweep at B = B_BRIDGE over the two feet's three modes (each mode's
+    CompiledTick(cuda) launching its kernels; 2 lanes per mode against the
+    port's sweep in float64 on the CPU: τ within 0.05 Nm, the same argmin
+    over those lanes; solves/s)."""
+    from libdwbc_tpu_torch import bridge, entry
+    from libdwbc_tpu_torch.parallel import hypotheses as H
+    from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
+
+    rl = bridge.RlWBCBridge()
+    assert rl.rd_.backend == "cuda" and rl.rd_.device.type == "cuda"
+    qpos, qvel, qacc, f0, f1 = bridge_inputs(rl.rd_.model, K_RL, 0)
+
+    def rl_tick(k):
+        rl.UpdateKinematics(qpos[k], qvel[k], qacc[k])
+        rl.SetContact(True, True)
+        rl.SetTaskSpace(0, f0[k])
+        rl.SetTaskSpace(1, f1[k])
+        rl.CalcTorque()
+        return rl.getTorqueCommand(), rl.rd_.qp_error_
+
+    outs, n = count_launches(lambda: [rl_tick(k) for k in range(K_RL)])
+    assert n == {"psd_inverse": 2 * K_RL, "qp_solve": 3 * K_RL}, n
+    assert all(np.isfinite(t).all() and len(t) == 33 and e == 0 for t, e in outs)
+    rl_ms = median_ms(lambda: rl_tick(0), K_RL)
+    print(f"RlWBCBridge on the card: {K_RL} ticks, launches {n}; {rl_ms:.3f} ms a tick (median "
+          f"of {K_RL})  [{card}]")
+
+    br = bridge.BatchedRlWBCBridge(B_BRIDGE)
+    assert br.tick.backend == "cuda" and br.tick.device.type == "cuda"
+    qpos, qvel, qacc, f0, f1 = bridge_inputs(br.model, B_BRIDGE, 1)
+    tau, n = count_launches(lambda: br.solve(qpos, qvel, qacc, f0, f1))
+    print(f"BatchedRlWBCBridge({B_BRIDGE}) on CompiledTick(cuda): one solve, launches {n}")
+    assert n == {"psd_inverse": 2, "qp_solve": 3}, n
+    assert tau.shape == (B_BRIDGE, 33) and np.isfinite(tau).all()
+    m = br.model
+    qs = bridge.mujoco_to_dwbc_q(qpos, m.ndof, m.model_dof, np.float32)
+    res = br.tick._tick_impl(qs, qvel, (f0, f1))
+    print(f"BatchedRlWBCBridge({B_BRIDGE}): lanes with qp_error {int(res.qp_error.sum())}; the "
+          f"bridge's τ_cmd vs its tick's on the same inputs {maxerr(res.torque_cmd, torch.as_tensor(tau)):.3e}")
+    assert not bool(res.qp_error.any())
+    ref = bridge.RlWBCBridge(dtype=torch.float64, device="cpu", backend="torch")
+    ref.rd_.qp_iters = 12                   # the batched bridge's budget
+    d_grav = d_cmd = 0.0
+    for i in range(4):
+        ref.UpdateKinematics(qpos[i], qvel[i], qacc[i])
+        ref.SetContact(True, True)
+        ref.SetTaskSpace(0, f0[i])
+        ref.SetTaskSpace(1, f1[i])
+        ref.CalcTorque()
+        d_grav = max(d_grav, maxerr(res.torque_grav[i], ref.rd_.torque_grav_))
+        d_cmd = max(d_cmd, maxerr(torch.as_tensor(tau[i]), torch.as_tensor(
+            ref.rd_.GetControlTorque())))
+    print(f"BatchedRlWBCBridge truth guard (4 lanes) vs the port's RlWBCBridge in float64 on "
+          f"the CPU: τ_grav {d_grav:.3e} τ_cmd {d_cmd:.3e} (Nm, <= {TAU_GRAV_TOL:g})")
+    assert max(d_grav, d_cmd) <= TAU_GRAV_TOL
+    solve_ms = median_ms(lambda: br.solve(qpos, qvel, qacc, f0, f1), 10)
+    print(f"BatchedRlWBCBridge({B_BRIDGE}): {solve_ms:.3f} ms a solve (median of 10, inputs from "
+          f"and torques to host numpy) -> {B_BRIDGE / solve_ms * 1e3:.1f} solves/s  [{card}]")
+
+    cfg = standard_tocabi_config(m, qp_iters=12)
+    modes, ticks = H.contact_mode_ticks(m, cfg.contacts, cfg.task_specs, cfg.torque_limit)
+    assert all(t.backend == "cuda" for t in ticks)
+    q, qd, fs = entry._swing_inputs(m, B_BRIDGE, seed=4)
+    fs = fs[:2]
+    mode_idx = np.arange(B_BRIDGE) % len(modes)
+    (tau_s, cost, best), n = count_launches(
+        lambda: H.hypothesis_sweep(m, modes, ticks, mode_idx, q, qd, fs))
+    print(f"hypothesis_sweep over modes {modes} at B = {B_BRIDGE}: launches {n}; best lane "
+          f"{int(best)} (mode {modes[int(mode_idx[int(best)])]})")
+    # each mode's tick once: A and W + V2ᵀV2 (both feet) or W (one foot) on
+    # psd_inverse; both feet's two level QPs and redistribution QP, each
+    # single-support mode's two level QPs on qp_solve
+    assert n == {"psd_inverse": 6, "qp_solve": 7}, n
+    assert torch.isfinite(tau_s).all() and torch.isfinite(cost).all()
+    lanes = np.array([0, 3, 1, 4, 2, 5])
+    m64, t64 = H.contact_mode_ticks(m, cfg.contacts, cfg.task_specs, cfg.torque_limit,
+                                    dtype=torch.float64, device="cpu", backend="torch")
+    tau64, cost64, best64 = H.hypothesis_sweep(m, m64, t64, mode_idx[lanes], q[lanes].astype(
+        np.float64), qd[lanes].astype(np.float64), tuple(f[lanes].astype(np.float64) for f in fs))
+    d_tau = maxerr(tau_s[lanes], tau64)
+    best_here = int(torch.argmin(cost[lanes].cpu()))
+    print(f"hypothesis_sweep truth guard (2 lanes per mode) vs the port's sweep in float64 on "
+          f"the CPU: τ {d_tau:.3e} Nm (<= {TAU_GRAV_TOL:g}); argmin over those lanes {best_here} "
+          f"(float64 {int(best64)})")
+    assert d_tau <= TAU_GRAV_TOL and best_here == int(best64)
+    sweep_ms = median_ms(lambda: H.hypothesis_sweep(m, modes, ticks, mode_idx, q, qd, fs), 5)
+    print(f"hypothesis_sweep at B = {B_BRIDGE}: {sweep_ms:.3f} ms a sweep (median of 5) -> "
+          f"{B_BRIDGE / sweep_ms * 1e3:.1f} solves/s  [{card}]")
+
+
 def main():
+    t_start = time.perf_counter()
     # ------------------------------------------------------ 1. environment
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2291,6 +2964,11 @@ def main():
                                                              rq, rqd, rfs, card)
         red_lib[tag] = reduced_kernel_times(red_seen[tag], tag, times, card)
 
+    # --------------- 26. the facade on the card, 27. its times, 28. bridges and sweep
+    fac_launches = facade_phase(dev, card)
+    fac = facade_times(dev, card, times)
+    bridges_phase(dev, card)
+
     # bounds at batch B (B_M masked): bytes of each kernel's inputs and
     # outputs, and its operations on this run's shapes, every tick kernel's
     # counted by tick_flops on the plan as run
@@ -2343,8 +3021,18 @@ def main():
         bounds["qp_solve" + suffix] = bound(
             4 * B * (nv_r * nv_r + nv_r + me_r * nv_r + m_r + (nv_r + m_r) + (nv_r + 2 * m_r)),
             qp_cuda.qp_solve_flops(nv_r, m_r, pr["mirror"], WARM_ITERS) * B)
+    # the facade's kernels at batch 1: A (n = 39), and the first level QP
+    # cold at the facade's iteration budget (no warm start read)
+    bounds["psd_inverse_facade"] = bound(4 * (39 * 40 // 2 + 39 * 39),
+                                         linalg_cuda.psd_inverse_flops(39))
+    pf = fac["seen"]["qp_solve"][0]
+    _, m_f, nv_f = pf["C"].shape
+    bounds["qp_solve_facade"] = bound(
+        4 * (nv_f * nv_f + nv_f + (m_f - pf["mirror"]) * nv_f + m_f + (nv_f + 2 * m_f)),
+        qp_cuda.qp_solve_flops(nv_f, m_f, pf["mirror"], pf["iters"]))
     for name, (ms, by) in bounds.items():
-        print(f"bound {name} at batch {B_M if name.endswith('masked') else B}: "
+        nb = B_M if name.endswith("masked") else 1 if name.endswith("facade") else B
+        print(f"bound {name} at batch {nb}: "
               f"{ms:.6f} ms ({by})")
 
     # each kernel's resources at the launch shape of its record: registers
@@ -2439,7 +3127,13 @@ def main():
                    max(e["x"] for e in red_qp[tag].values()),
                    ("qp_solve", tag, REDUCED_QP_NAMES[tag][0], B), None,
                    "libdwbc_tpu/ops/pallas_qp.py:302"))
+    ] + [
+        entry_("psd_inverse_facade", fac_launches["psd_inverse"], fac["psd_err"],
+               ("psd_inverse_facade", 39, 1), fac["lib_ms"], "libdwbc_tpu/ops/pallas_linalg.py:145"),
+        entry_("qp_solve_facade", fac_launches["qp_solve"], fac["qp_err"],
+               ("qp_solve_facade", QP_NAMES[0], 1), None, "libdwbc_tpu/ops/pallas_qp.py:302"),
     ]}
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

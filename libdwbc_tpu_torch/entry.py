@@ -32,6 +32,11 @@ contacts on the hands, links 23 and 31 — a humanoid bracing on a table or
 a rail (``_hands_feet_config``).  Its inputs: ``_hands_feet_inputs`` (the
 standing state with joint noise) and ``_hands_masked_inputs`` (the four
 contacts as candidates, a support hypothesis per scenario).
+
+The controller facade (``wbc/robot.py::RobotData``) serves the flagship and
+config 3 one robot at a time: ``_facade`` builds it, ``_facade_cases``
+gives the reference unit tests' two standing cases and ``_facade_set``
+feeds one into it.
 """
 
 from __future__ import annotations
@@ -270,3 +275,54 @@ def _tracking_inputs(model, B=1024, step=0.01, tf=0.12, dtype=np.float32):
                        dtype=tdt)
     return (q.astype(dtype), qd.astype(dtype), tuple(f.astype(dtype) for f in fs),
             ((pelvis,), (torso,)), target.numpy())
+
+
+# The reference unit tests' standing cases (tests/dwbc_test.cpp:29-260),
+# the joints and f* per level that the facade's tests drive.
+FACADE_JOINTS = {
+    1: [0, 0, -0.24, 0.6, -0.36, 0] * 2 + [0, 0, 0] + [0.3, 0.3, 1.5, -1.27, -1, 0, -1, 0]
+       + [0, 0] + [-0.3, -0.3, -1.5, 1.27, 1, 0, 1, 0],
+    2: [0.1, 0, -0.24, 0.5, -0.6, 0] + [0.05, 0, -0.21, 0.7, -0.31, 0] + [0, 0, 0]
+       + [0.2, 0.5, 1.5, -1.27, -1.2, 0, -1, 0] + [0, 0]
+       + [-0.3, -0.3, -1.5, 1.27, 1.3, 0.1, 1.3, 0],
+}
+FACADE_FSTAR = {
+    1: ([0.1, 4.0, 0.1, 0.1, -0.1, 0.1], [0.1, -0.1, 0.1]),
+    2: ([0.4, 2.0, 0.1, 0.3, -0.1, 0.1], [0.1, 0.1, 0.1]),
+}
+# config 3's swing-foot f* in the facade's cases (the facade tests' seeded one)
+SWING_FSTAR = np.random.default_rng(9).uniform(-0.2, 0.2, 6)
+
+
+def _facade_cases(swing=False):
+    """{case: (q (40,), q̇ (39,), f* per level)} of the facade's standing
+    cases, numpy float64: the pelvis at height 0.92983, zero q̇; config 3
+    (``swing``) adds the swing-foot f*."""
+    out = {}
+    for case, joints in FACADE_JOINTS.items():
+        q = np.zeros(40)
+        q[2], q[39] = 0.92983, 1.0
+        q[6:39] = joints
+        fs = tuple(np.array(f, np.float64) for f in FACADE_FSTAR[case])
+        out[case] = (q, np.zeros(39), fs + ((SWING_FSTAR,) if swing else ()))
+    return out
+
+
+def _facade(dtype=torch.float32, device=None, backend="cuda", swing=False):
+    """(RobotData, contact flags) in the flagship's configuration
+    (``bridge._standard_robot``), or config 3's: the left foot down and a 6D
+    task on the right foot as the third level."""
+    from .bridge import _standard_robot
+
+    rd = _standard_robot(dtype=dtype, device=device, backend=backend)
+    if swing:
+        rd.AddTaskSpace(2, T.TASK_LINK_6D, 12, np.zeros(3))
+    return rd, (True, not swing)
+
+
+def _facade_set(rd, flags, q, qd, fstars):
+    """One tick's inputs into a facade: the state, the contacts, f* per level."""
+    rd.UpdateKinematics(q, qd)
+    rd.SetContact(*flags)
+    for h, f in enumerate(fstars):
+        rd.SetTaskSpace(h, f)

@@ -41,7 +41,13 @@ class QPSolution(NamedTuple):
 
 
 def _chol(K):
-    return sm.chol(K) if K.shape[-1] <= _UNROLL_LIMIT else torch.linalg.cholesky(K)
+    if K.shape[-1] <= _UNROLL_LIMIT:
+        return sm.chol(K)
+    # a factorization that fails is NaN, as jnp.linalg.cholesky gives it:
+    # the step guard skips such a step and the polish's finite check
+    # rejects such a polish
+    L, info = torch.linalg.cholesky_ex(K)
+    return torch.where((info == 0)[..., None, None], L, torch.full_like(L, float("nan")))
 
 
 def _cho_solve(L, b):

@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from ..ops.tick_kernel import SERVO_ELEM_SHAPES, TickProgram
-from .pipeline import TickResult, qp_error_flag
+from .pipeline import TickResult, card_setup, qp_error_flag
 
 
 class FusedTick(nn.Module):
@@ -29,17 +29,7 @@ class FusedTick(nn.Module):
     def __init__(self, model, cfg, device, dtype=torch.float32, backend="cuda",
                  masked=False):
         super().__init__()
-        device = torch.device(device)
-        if backend not in ("torch", "cuda"):
-            raise ValueError(f"backend must be 'torch' or 'cuda', got {backend!r}")
-        if backend == "cuda":
-            if not torch.cuda.is_available() or device.type != "cuda":
-                raise RuntimeError("FusedTick(backend='cuda') needs a CUDA device")
-            if dtype != torch.float32:
-                raise TypeError("the CUDA tick kernels are float32")
-            # exact float32 products on the card (no TF32 rounding)
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        device = card_setup("FusedTick", device, dtype, backend)
         self.model = model
         self.cfg = cfg
         self.dtype = dtype

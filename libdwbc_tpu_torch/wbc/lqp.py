@@ -13,11 +13,14 @@ inequalities, those with their slacks frozen.
 * The depth and every block's shape are static; the null bases come from
   SVDs with statically known ranks (the equality stacks have full row rank
   by construction) instead of a rank-revealing COD.
-* Each level's QP goes to ``ops/qp.py::solve_qp``'s torch loop on any
-  device (its n is beyond the ``qp_solve`` kernel's 24; the JAX router
-  sends such QPs to XLA).  The SVD null basis is unique only up to a
-  rotation within the null space, so y and τ are what two implementations
-  share, not Z.
+* Each level's QP goes to ``ops/qp.py::solve_qp``, with the caller's
+  ``backend``: under ``backend="cuda"`` a CUDA float32 level that
+  ``qp_cuda.kernel_takes`` accepts runs the ``qp_solve`` kernel (the
+  facade's reduced cascade has one, 18 variables and 92 rows on the
+  flagship); the wider ones (up to 131 variables) take the torch loop, as
+  the JAX router sends them to XLA.  The SVD null basis is unique only up
+  to a rotation within the null space, so y and τ are what two
+  implementations share, not Z.
 """
 
 from __future__ import annotations
@@ -69,7 +72,8 @@ def _sync(t):
 
 
 def solve_cascade(levels: Sequence[LQPLevel], y0, solve_level0: bool = False,
-                  qp_iters: int = 25, timers: list | None = None) -> LQPResult:
+                  qp_iters: int = 25, timers: list | None = None,
+                  backend: str = "torch") -> LQPResult:
     """Run the lexicographic cascade.
 
     y0: a seed satisfying level 0's equality (the reference seeds
@@ -80,7 +84,8 @@ def solve_cascade(levels: Sequence[LQPLevel], y0, solve_level0: bool = False,
     "update_us", "solve_us"}``, the host's wall times of its QP assembly
     and solve (the reference's per-hierarchy qp_update_time_step_ /
     qp_solve_time_step_, include/dwbc_hqp.h:98-102); the card is
-    synchronised around each only then."""
+    synchronised around each only then.  backend: solve_qp's routing
+    ("cuda": eligible levels on the ``qp_solve`` kernel)."""
     nv = y0.shape[-1]
     dtype, dev = y0.dtype, y0.device
     batch = y0.shape[:-1]
@@ -146,7 +151,7 @@ def solve_cascade(levels: Sequence[LQPLevel], y0, solve_level0: bool = False,
             if timers is not None:
                 _sync(Am)
                 t_upd = time.perf_counter()
-            sol = solve_qp(H, g, Am, None, ub, iters=qp_iters)
+            sol = solve_qp(H, g, Am, None, ub, iters=qp_iters, backend=backend)
             x = sol.x
             if timers is not None:
                 _sync(x)

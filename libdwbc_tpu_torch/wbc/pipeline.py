@@ -357,6 +357,24 @@ def _level_dims(model, cfg):
     return dims
 
 
+def card_setup(name: str, device, dtype, backend: str) -> torch.device:
+    """The device of a module that routes work to the CUDA kernels:
+    ``backend="cuda"`` needs a CUDA device and float32; float32 products on
+    the card are pinned exact (no TF32 rounding)."""
+    device = torch.device(device)
+    if backend not in ("torch", "cuda"):
+        raise ValueError(f"backend must be 'torch' or 'cuda', got {backend!r}")
+    if backend == "cuda":
+        if not torch.cuda.is_available() or device.type != "cuda":
+            raise RuntimeError(f"{name}(backend='cuda') needs a CUDA device")
+        if dtype != torch.float32:
+            raise TypeError(f"the CUDA kernels of {name} are float32")
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
 class CompiledTick(nn.Module):
     """One WBC tick for a fixed configuration, batched over leading dims of
     (q, q̇, f*) — the same serving contract as ``FusedTick``
@@ -364,18 +382,7 @@ class CompiledTick(nn.Module):
 
     def __init__(self, model, cfg, device, dtype=torch.float32, backend="cuda"):
         super().__init__()
-        device = torch.device(device)
-        if backend not in ("torch", "cuda"):
-            raise ValueError(f"backend must be 'torch' or 'cuda', got {backend!r}")
-        if backend == "cuda":
-            if not torch.cuda.is_available() or device.type != "cuda":
-                raise RuntimeError("CompiledTick(backend='cuda') needs a CUDA device")
-            if dtype != torch.float32:
-                raise TypeError("the CUDA kernels of CompiledTick are float32")
-        if device.type == "cuda":
-            # exact float32 products on the card (no TF32 rounding)
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        device = card_setup("CompiledTick", device, dtype, backend)
         self.model = model
         self.cfg = cfg
         self.dtype = dtype

@@ -40,7 +40,7 @@ from . import dynamics as dyn
 from .hqp import contact_constraint_blocks, solve_contact_redistribution_qp, solve_task_level_qp
 from .pipeline import (
     _SIX_MODES, TickResult, _apply_servos, _plan_jacobians, _resolve_task_jacobian,
-    qp_error_flag, servos_to,
+    card_setup, qp_error_flag, servos_to,
 )
 from .reduced import classify_chains, reduced_contact_space, reduced_dynamics
 
@@ -59,18 +59,7 @@ class ReducedTick(nn.Module):
     def __init__(self, model, cfg, device, dtype=torch.float32, backend="cuda",
                  tangential_weight=True):
         super().__init__()
-        device = torch.device(device)
-        if backend not in ("torch", "cuda"):
-            raise ValueError(f"backend must be 'torch' or 'cuda', got {backend!r}")
-        if backend == "cuda":
-            if not torch.cuda.is_available() or device.type != "cuda":
-                raise RuntimeError("ReducedTick(backend='cuda') needs a CUDA device")
-            if dtype != torch.float32:
-                raise TypeError("the CUDA kernels of ReducedTick are float32")
-        if device.type == "cuda":
-            # exact float32 products on the card (no TF32 rounding)
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        device = card_setup("ReducedTick", device, dtype, backend)
         self.model = model
         self.cfg = cfg
         self.dtype = dtype

@@ -1017,3 +1017,112 @@ def test_reduced_tick_cuda_refuses_a_cpu_device_and_float64(case, dev):
         ReducedTick(m, case["cfg"], "cpu", backend="cuda")
     with pytest.raises(TypeError, match="float32"):
         ReducedTick(m, case["cfg"], dev, torch.float64, backend="cuda")
+
+
+def _facade_tick(rd, flags, q, qd, fs):
+    """One OSF-HQP tick through the facade: its torques and each QP's x."""
+    from libdwbc_tpu_torch import entry
+
+    entry._facade_set(rd, flags, q, qd, fs)
+    assert rd.CalcContactConstraint() == 1
+    rd.CalcGravCompensation()
+    assert rd.CalcTaskControlTorque() == 1 and rd.CalcContactRedistribute() == 1
+    out = {"torque_grav": rd.torque_grav_, "torque_task": rd.torque_task_,
+           "torque_contact": rd.torque_contact_,
+           "torque_cmd": torch.as_tensor(rd.GetControlTorque())}
+    out.update({f"x{h}": r.x for h, r in enumerate(rd.qp_results)})
+    out["x_redist"] = rd.cf_redis_qp_
+    return {k: v.detach().cpu().double() for k, v in out.items()}
+
+
+@pytest.mark.parametrize("case_id", [1, 2])
+def test_facade_cuda_matches_plain_float32(dev, case_id):
+    """RobotData() on the card (the kernels) against the same facade's plain
+    float32 on the CPU, per field: each within 4× the plain float32
+    facade's own distance from float64 (at least 1e-4; τ_grav 1e-3)."""
+    from libdwbc_tpu_torch import entry
+
+    q, qd, fs = entry._facade_cases()[case_id]
+    card, flags = entry._facade()
+    out = {tag: _facade_tick(rd, flags, q, qd, fs) for tag, rd in (
+        ("card", card), ("f32", entry._facade(torch.float32, "cpu", "torch")[0]),
+        ("f64", entry._facade(torch.float64, "cpu", "torch")[0]))}
+    assert card.qp_error_ == 0
+    for k, v in out["card"].items():
+        assert torch.isfinite(v).all(), k
+        err = float((v - out["f32"][k]).abs().max())
+        own = float((out["f32"][k] - out["f64"][k]).abs().max())
+        lim = 1e-3 if k == "torque_grav" else max(4.0 * own, 1e-4)
+        print(f"facade case {case_id} {k}: card vs plain float32 {err:.3e} <= {lim:.3e}")
+        assert err <= lim, (k, err, lim)
+
+
+def test_facade_cuda_launch_counters(dev):
+    """2 psd_inverse + 3 qp_solve per OSF-HQP tick (A in UpdateKinematics
+    included), 3 + 3 per Reduced* chain after it: nothing routed to a plain
+    version."""
+    from libdwbc_tpu_torch import entry
+    from libdwbc_tpu_torch.ops import linalg_cuda, qp_cuda
+
+    rd, flags = entry._facade()
+    q, qd, fs = entry._facade_cases()[1]
+
+    def counted(fn):
+        n0 = (linalg_cuda.launches["psd_inverse"], qp_cuda.launches["qp_solve"])
+        fn()
+        torch.cuda.synchronize()
+        return (linalg_cuda.launches["psd_inverse"] - n0[0],
+                qp_cuda.launches["qp_solve"] - n0[1])
+
+    assert counted(lambda: _facade_tick(rd, flags, q, qd, fs)) == (2, 3)
+
+    def reduced():
+        rd.ReducedDynamicsCalculate()
+        rd.ReducedCalcContactConstraint()
+        rd.ReducedCalcGravCompensation()
+        rd.ReducedCalcTaskControlTorque()
+        rd.ReducedCalcContactRedistribute()
+
+    assert counted(reduced) == (3, 3)
+    assert bool(torch.isfinite(rd.torque_task_).all())
+
+
+def test_facade_and_bridges_refuse_a_cpu_device_and_float64(dev):
+    from libdwbc_tpu_torch import bridge
+    from libdwbc_tpu_torch.wbc.robot import RobotData
+
+    assert RobotData().device.type == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RobotData(torch.float32, "cpu", "cuda")
+    with pytest.raises(TypeError, match="float32"):
+        RobotData(torch.float64, dev, "cuda")
+    with pytest.raises(TypeError, match="float32"):
+        bridge.RlWBCBridge(dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        bridge.BatchedRlWBCBridge(2, dtype=torch.float64)
+
+
+def test_batched_bridge_cuda_matches_float64_bridge(dev):
+    """BatchedRlWBCBridge on CompiledTick(cuda) against the port's float64
+    bridge on the CPU: τ_cmd within 0.05 Nm on every env (phase 6's truth
+    guard), the launches 2 + 3 per solve."""
+    from libdwbc_tpu_torch import bridge, entry
+    from libdwbc_tpu_torch.ops import linalg_cuda, qp_cuda
+
+    n = 64
+    br = bridge.BatchedRlWBCBridge(n)
+    ref = bridge.BatchedRlWBCBridge(n, dtype=torch.float64, device="cpu", backend="torch")
+    q, _, fs = entry._example_inputs(br.model, np.float64)
+    rng = np.random.default_rng(3)
+    qpos = np.tile(np.concatenate([q[0:3], [q[39]], q[3:6], q[6:39]]), (n, 1))
+    qpos[:, 7:] += 0.02 * rng.standard_normal((n, 33))
+    qvel = 0.05 * rng.standard_normal((n, 39))
+    f = [np.tile(x, (n, 1)) + 0.05 * rng.standard_normal((n, x.shape[0])) for x in fs]
+    n0 = (linalg_cuda.launches["psd_inverse"], qp_cuda.launches["qp_solve"])
+    got = br.solve(qpos, qvel, qvel, f[0], f[1])
+    torch.cuda.synchronize()
+    assert (linalg_cuda.launches["psd_inverse"] - n0[0],
+            qp_cuda.launches["qp_solve"] - n0[1]) == (2, 3)
+    want = ref.solve(qpos, qvel, qvel, f[0], f[1])
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 0.05

@@ -30,11 +30,14 @@ MODULES = ("libdwbc_tpu_torch", "libdwbc_tpu_torch.convert", "libdwbc_tpu_torch.
            "libdwbc_tpu_torch.model.urdf", "libdwbc_tpu_torch.model.rotations_np",
            "libdwbc_tpu_torch.model.surgery", "libdwbc_tpu_torch.kin.centroidal",
            "libdwbc_tpu_torch.wbc.reduced", "libdwbc_tpu_torch.wbc.reduced_tick",
-           "libdwbc_tpu_torch.wbc.lqp")
+           "libdwbc_tpu_torch.wbc.lqp", "libdwbc_tpu_torch.wbc.robot",
+           "libdwbc_tpu_torch.bridge", "libdwbc_tpu_torch.utils.golden",
+           "libdwbc_tpu_torch.parallel.hypotheses")
 
 
 def test_port_imports_no_jax():
     code = (f"import sys; sys.path.insert(0, {ROOT!r})\n"
+            "import numpy as np\n"
             f"import importlib\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
             "from libdwbc_tpu_torch import entry\n"
@@ -56,6 +59,27 @@ def test_port_imports_no_jax():
             "FusedTick(model, cfg3, 'cpu', backend='torch')._tick_impl(q, qd, fs)\n"
             "model, tick = entry._model_and_tick('cpu', backend='torch', reduced=True, swing=True)\n"
             "tick._tick_impl(q, qd, fs, warm=tick.init_warm((2,)))\n"
+            "import torch\n"
+            "from libdwbc_tpu_torch import bridge\n"
+            "rl = bridge.RlWBCBridge(dtype=torch.float64, device='cpu', backend='torch')\n"
+            "q, qd, fs = entry._example_inputs(model, np.float64)\n"
+            "qpos = np.concatenate([q[0:3], [q[39]], q[3:6], q[6:39]])\n"
+            "rl.UpdateKinematics(qpos, qd, qd)\n"
+            "rl.SetContact(True, True)\n"
+            "rl.SetTaskSpace(0, fs[0]); rl.SetTaskSpace(1, fs[1])\n"
+            "rl.CalcTorque(); assert len(rl.getTorqueCommand()) == 33\n"
+            "br = bridge.BatchedRlWBCBridge(2, device='cpu', backend='torch')\n"
+            "t2 = br.solve(np.tile(qpos, (2, 1)), np.tile(qd, (2, 1)), np.tile(qd, (2, 1)),\n"
+            "              np.tile(fs[0], (2, 1)), np.tile(fs[1], (2, 1)))\n"
+            "assert t2.shape == (2, 33) and np.isfinite(t2).all()\n"
+            "from libdwbc_tpu_torch.parallel import hypotheses as H\n"
+            "cfg = standard_tocabi_config(model, qp_iters=12)\n"
+            "modes, ticks = H.contact_mode_ticks(model, cfg.contacts, cfg.task_specs,\n"
+            "    cfg.torque_limit, device='cpu', backend='torch')\n"
+            "q3, qd3, fs3 = entry._swing_inputs(model, 3)\n"
+            "tau, cost, best = H.hypothesis_sweep(model, modes, ticks, np.arange(3), q3, qd3,\n"
+            "                                     fs3[:2])\n"
+            "assert tau.shape == (3, 33) and torch.isfinite(cost).all()\n"
             "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
             "assert not any(k.startswith('libdwbc_tpu.') or k == 'libdwbc_tpu' for k in sys.modules)\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
