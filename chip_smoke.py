@@ -88,12 +88,13 @@ Phases, each fatal on failure (nothing is caught):
    held, then one unbatched robot (the 1 kHz lane): every output finite,
    launches exactly 2 × (K + refined ticks) of the tick kernels and K of
    psd_inverse, on every lane the final pelvis error below half the initial
-   one; the lane-ticks flagged with qp_error no more than those of the same
-   loop through the plain float32 tick on the card (within the spread of
-   two rollouts) and no more, at no larger primal residual, than through
-   the plain float32 tick on the JAX package's IPM recurrence (beside them
-   the same loop in float64 on the card, recorded); the peak device memory
-   and the per-tick split into ticks and transition;
+   one; over its first K_CMP ticks, the lane-ticks flagged with qp_error no
+   more than those of the same loop run for K_CMP ticks through the plain
+   float32 tick on the card (within the spread of two rollouts) and no
+   more, at no larger primal residual, than through the plain float32 tick
+   on the JAX package's IPM recurrence (beside them the same K_CMP ticks in
+   float64 on the card, recorded); the peak device memory and the per-tick
+   split into ticks and transition;
 14. the truth guard on 4 servo'd lanes: FusedTick(cuda) tick 0 vs the plain
    servo'd fused tick and vs CompiledTick(servos=), both float64 on the CPU;
    τ_grav within 0.05 Nm, τ_cmd per lane within 0.05 Nm, or twice the plain
@@ -134,9 +135,10 @@ Phases, each fatal on failure (nothing is caught):
    gap_fallback 1e-3), its launch counts set to 0 just before and read
    just after; on every lane swing progress > 0.5, the foot's |Δx|, |Δy| <
    0.05 m and the pelvis height within 0.03 m; launches exactly 2 × (K +
-   refined ticks) of the tick kernels and K of psd_inverse; flagged
-   lane-ticks no more than through the plain float32 tick on the card, the
-   float64 loop beside it; the time per tick split into ticks and
+   refined ticks) of the tick kernels and K of psd_inverse; over its first
+   K_CMP ticks, flagged lane-ticks no more than through the plain float32
+   tick on the card for K_CMP ticks (its foot and pelvis held the same
+   way), the float64 loop beside it; the time per tick split into ticks and
    transition;
 20. the kernels of the plans taken last against their plain versions at
    batch 1024 (new_plan_kernels, general_kernels' checks): the
@@ -233,7 +235,33 @@ Phases, each fatal on failure (nothing is caught):
    hypothesis_sweep at B_BRIDGE over the two feet's three modes (6 + 7
    launches: each mode's CompiledTick(cuda); 2 lanes per mode against the
    port's sweep in float64 on the CPU, τ within 0.05 Nm and the same
-   argmin over those lanes; solves/s).
+   argmin over those lanes; solves/s);
+29. the scenario mesh on the card (mesh_phase): an NCCL process group of
+   one rank (tcp://127.0.0.1, a free port), a 1 × 1 ('hyp', 'roll') mesh,
+   and parallel/mesh.py::sharded_batch_solver over FusedTick(backend="cuda")
+   on a 32 × 32 grid of the flagship (entry._grid_inputs: the standing
+   state with 0.01·N(0,1) on the joints, seed 0), static and then masked
+   (both feet, left, right cycled over the lanes): a cold step at 12
+   iterations and 15 warm steps at 7, the launch counts set to 0 just
+   before and read just after (exactly 2 per step); every lane's τ_cmd bit
+   for bit one unsharded _tick_impl of the same chain on the flattened
+   batch and each step's best its argmin, the cold step within TAU_CMD_TOL
+   of the plain float32 tick; the warm steps' solves/s beside the
+   unsharded chain's;
+30. the native host runtime (native_phase): the library built with g++
+   from native/, a golden round trip (< 1e-15), and native.run_rt_loop for
+   10,000 producer ticks at 500 µs, its consumer serving
+   FusedTick(backend="cuda") unbatched through native.TickConsumer (cold
+   at 12 iterations, then warm at 7, (x, λ) carried), the launch counts
+   set to 0 just before and read just after (exactly 2 per consumed tick):
+   no torn read, every τ finite, no qp_error, no exception stored by a
+   callback, every τ_cmd bit for bit the same chain called directly on
+   the consumed states, the first within TAU_CMD_TOL of the plain float32
+   tick; consumed ticks, missed deadlines and the consumer's latency
+   against the 1 ms bar printed (python -m libdwbc_tpu_torch.profile_rt
+   runs the same loop at other GIL switch intervals).
+
+Each phase's time is printed as it ends.
 
 Then each kernel's resources (registers and local bytes per thread, shared
 bytes and threads per block, resident blocks per SM, ptxas's spill bytes;
@@ -242,7 +270,9 @@ QP shapes).
 The last lines are the kernels' JSON record (with each kernel's bound: the
 larger of its bytes over the card's memory rate and its operations over the
 float32 rate, a tick kernel's operations counted by tick_flops on the plan
-as run; its graph-replay time and its resources), the card's name and
+as run; its graph-replay time and its resources; the flagship's static and
+masked rows also carry the launches of phase 29's mesh steps as
+launches_mesh, the static rows phase 30's as launches_rt), the card's name and
 power limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
 """
 
@@ -270,6 +300,10 @@ TAU_CMD_TOL = 5e-2         # the repo's bar for τ_cmd across solvers (Nm)
 # |contact force| ≤ 571)
 CHAIN_TOL = {"torque_task": 1e-2, "torque_cmd": 1e-2, "contact_force": 7e-2}
 QP_FAIL = 1e-3             # PipelineConfig.qp_fail_gap / qp_fail_pres
+# ticks of the host-paced comparison loops of phases 13 and 19 (the plain
+# float32 tick, the JAX recurrence, float64), held against the same first
+# K_CMP ticks of the kernels' own K = 150 loop
+K_CMP = 40
 # The least time the card could take for a kernel's work: the larger of its
 # bytes (each input read once, each output written once) over the memory
 # rate and its operations over the float32 rate outside the tensor cores
@@ -756,7 +790,7 @@ def swing_loop(dev, model, cfg3, card):
                                                        backend="torch"))
     kin = Kinematics(model)
 
-    def run(tk, label, trans, count=False, ev=None):
+    def run(tk, label, trans, count=False, ev=None, K_SWING=K_SWING):
         dt_ = tk.dtype
         args = (torch.as_tensor(q, device=dev, dtype=dt_),
                 torch.as_tensor(qd, device=dev, dtype=dt_),
@@ -796,7 +830,8 @@ def swing_loop(dev, model, cfg3, card):
         out = dict(wall=wall, progress=(foot[:, 2] - foot0[:, 2]) / LIFT,
                    dxy=np.abs(foot[:, :2] - foot0[:, :2]).max(1),
                    dz=np.abs(pelvis[:, 2] - pelvis0[:, 2]),
-                   n_err=int(lr.qp_error.sum()), pres=float(lr.qp_primal_res.max()))
+                   n_err=int(lr.qp_error.sum()), pres=float(lr.qp_primal_res.max()),
+                   n_err_cmp=int(lr.qp_error.reshape(K_SWING, -1)[:K_CMP].sum()))
         print(f"config 3 servo'd loop ({label}): {K_SWING} ticks at batch {B}, refined ticks "
               f"{lr.refined_ticks}, {wall * 1e3:.3f} ms; swing progress min "
               f"{out['progress'].min():.4f} mean {out['progress'].mean():.4f}, foot |Δx|,|Δy| "
@@ -815,17 +850,21 @@ def swing_loop(dev, model, cfg3, card):
 
     tick = FusedTick(model, cfg3, dev, backend="cuda")
     kern = run(tick, "kernels", trans32, count=True)
+    # the comparison loops run the kernels' first K_CMP ticks (phase 13)
     plain = run(FusedTick(model, cfg3, dev, torch.float32, backend="torch"),
-                "plain float32 tick on the card", trans32)
+                "plain float32 tick on the card", trans32, K_SWING=K_CMP)
     f64 = run(FusedTick(model, cfg3, dev, torch.float64, backend="torch"),
-              "plain float64 tick and transition on the card", trans64)
+              "plain float64 tick and transition on the card", trans64, K_SWING=K_CMP)
+    assert (kern["progress"] > 0.5).all(), float(kern["progress"].min())
     for r in (kern, plain, f64):
-        assert (r["progress"] > 0.5).all(), float(r["progress"].min())
         assert (r["dxy"] < 0.05).all() and (r["dz"] < 0.03).all()
-    # flagged lane-ticks: no more than through the plain float32 tick, within
-    # the spread of two rollouts that part on roundoff (phase 13's rule)
-    assert kern["n_err"] <= 1.25 * plain["n_err"] + 1e-3 * K_SWING * B, (kern["n_err"],
-                                                                           plain["n_err"])
+    # flagged lane-ticks over the same K_CMP ticks and lanes: no more than
+    # through the plain float32 tick, within the spread of two rollouts that
+    # part on roundoff (phase 13's rule)
+    print(f"config 3 servo'd loop: the kernels' first {K_CMP} ticks flag {kern['n_err_cmp']} "
+          f"lane-ticks, the plain float32 tick {plain['n_err']}, float64 {f64['n_err']}")
+    assert kern["n_err_cmp"] <= 1.25 * plain["n_err"] + 1e-3 * K_CMP * B, (kern["n_err_cmp"],
+                                                                            plain["n_err"])
     ev = {"tick": [], "transition": []}
     split = run(tick, "kernels, timed per call", trans32, ev=ev)
     t_tick, t_tr = (sum(a.elapsed_time(b) for a, b in ev[k]) / K_SWING
@@ -2009,8 +2048,213 @@ def bridges_phase(dev, card):
           f"{B_BRIDGE / sweep_ms * 1e3:.1f} solves/s  [{card}]")
 
 
+MESH_GRID = 32             # phase 29: the mesh step's (H, R) grid, B = MESH_GRID²
+MESH_MASKS = np.array([[1, 1], [1, 0], [0, 1]], np.float32)   # both, left, right; lane % 3
+RT_TICKS, RT_PERIOD_US = 10_000, 500   # phase 30: producer ticks and period
+RT_BAR_US = 1000.0                     # the 1 kHz loop's bar (printed, not held)
+
+
+def mesh_phase(dev, model, card):
+    """Phase 29: the scenario mesh on the card — an NCCL process group of one
+    rank on tcp://127.0.0.1, a 1 × 1 ('hyp', 'roll') mesh, and
+    sharded_batch_solver over FusedTick(backend="cuda") on a MESH_GRID² grid
+    of the flagship (entry._grid_inputs, seed 0), static and then masked
+    (MESH_MASKS cycled over the lanes): a cold step at COLD_ITERS and K − 1
+    warm steps at WARM_ITERS carrying (x, λ), the launch counts set to 0
+    just before and read just after (exactly 2 per step); every lane's τ_cmd
+    bit for bit one unsharded _tick_impl of the same chain on the flattened
+    batch, and each step's best its argmin; the cold step's τ_cmd within
+    TAU_CMD_TOL of the plain float32 tick on the card; the warm steps'
+    solves/s beside the unsharded chain's.  Returns {tag: launches}."""
+    import torch.distributed as dist
+
+    from libdwbc_tpu_torch import entry
+    from libdwbc_tpu_torch.parallel.mesh import (free_port, init_distributed, make_mesh,
+                                                 shard_scenarios, sharded_batch_solver)
+    from libdwbc_tpu_torch.wbc.fused import FusedTick
+    from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
+
+    G, nb = MESH_GRID, MESH_GRID * MESH_GRID
+    t0 = time.perf_counter()
+    assert init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0)
+    out = {}
+    try:
+        assert dist.get_backend() == "nccl", dist.get_backend()
+        mesh = make_mesh()
+        assert mesh.shape == {"hyp": 1, "roll": 1} and mesh.device_mesh is not None
+        print(f"mesh: NCCL process group of {dist.get_world_size()} rank up in "
+              f"{time.perf_counter() - t0:.1f} s, mesh {mesh.shape}")
+        q, qd, fs = entry._grid_inputs(model, G, G)
+        masks = MESH_MASKS[np.arange(nb) % 3].reshape(G, G, 2)
+        cfg = standard_tocabi_config(model, qp_iters=COLD_ITERS)
+        for tag, masked in (("static", False), ("masked", True)):
+            tick = FusedTick(model, cfg, dev, backend="cuda", masked=masked)
+            step, block_of = sharded_batch_solver(tick._tick_impl, mesh)
+            assert block_of((G, G)) == (slice(0, G), slice(0, G))
+            extra = (masks,) if masked else ()
+            blk = shard_scenarios(mesh, q, qd, fs, *extra)
+            flat = tuple(torch.as_tensor(a.reshape(nb, -1), device=dev) for a in (q, qd))
+            flat_fs = tuple(torch.as_tensor(f.reshape(nb, -1), device=dev) for f in fs)
+            flat_x = tuple(torch.as_tensor(a.reshape(nb, -1), device=dev) for a in extra)
+
+            def sharded():
+                """The chain through the mesh step: τ_cmd and best per step,
+                and the warm steps' time (synced before and after only)."""
+                warm, taus, bests = tick.init_warm((nb,)), [], []
+                for k in range(K):
+                    if k == 1:
+                        torch.cuda.synchronize()
+                        t_ = time.perf_counter()
+                    (res, warm), best, _ = step(*blk, warm=warm, qp_iters=WARM_ITERS if k
+                                                else COLD_ITERS)
+                    taus.append(res.torque_cmd.reshape(nb, -1))
+                    bests.append(best)
+                torch.cuda.synchronize()
+                return taus, bests, time.perf_counter() - t_
+
+            def unsharded():
+                """The same chain through one _tick_impl on the flat batch: each
+                step's result and the warm steps' time."""
+                warm, results = tick.init_warm((nb,)), []
+                for k in range(K):
+                    if k == 1:
+                        torch.cuda.synchronize()
+                        t_ = time.perf_counter()
+                    res, warm = tick._tick_impl(*flat, flat_fs, *flat_x, warm=warm,
+                                                qp_iters=WARM_ITERS if k else COLD_ITERS)
+                    results.append(res)
+                torch.cuda.synchronize()
+                return results, time.perf_counter() - t_
+
+            for k_ in tick.kernels.launches:
+                tick.kernels.launches[k_] = 0
+            taus, bests, t_sh = sharded()
+            launches = dict(tick.kernels.launches)
+            print(f"mesh ({tag}): {K} steps of the {G}x{G} grid, launches {launches}")
+            assert launches == {"tick_prestage": K, "tick_qpchain": K}, launches
+            refs, t_un = unsharded()
+            for k, ref in enumerate(refs):
+                cost = (ref.torque_cmd ** 2).sum(-1) + 1e6 * ref.qp_primal_res
+                assert torch.equal(taus[k], ref.torque_cmd), (tag, k, maxerr(taus[k],
+                                                                             ref.torque_cmd))
+                assert int(bests[k]) == int(torch.argmin(cost)), (tag, k)
+                assert torch.isfinite(taus[k]).all()
+            n_err = sum(int(ref.qp_error.sum()) for ref in refs)
+            plain = FusedTick(model, cfg, dev, torch.float32, backend="torch", masked=masked)
+            err = maxerr(taus[0], plain._tick_impl(*flat, flat_fs, *flat_x,
+                                                   qp_iters=COLD_ITERS).torque_cmd)
+            # the timed pair again, in the other order
+            t_un2, t_sh2 = unsharded()[1], sharded()[2]
+            solves = (K - 1) * nb
+            print(f"mesh ({tag}): every step's τ_cmd bit for bit the unsharded chain's, best "
+                  f"its argmin (last step: {int(bests[-1])}); qp_error lane-steps {n_err} "
+                  f"(recorded); cold τ_cmd vs the plain float32 tick on the card {err:.3e} Nm "
+                  f"(<= {TAU_CMD_TOL:g})")
+            assert err <= TAU_CMD_TOL, (tag, err)
+            print(f"mesh ({tag}): warm steps {solves / t_sh:.1f} and {solves / t_sh2:.1f} "
+                  f"solves/s sharded, the unsharded chain {solves / t_un:.1f} and "
+                  f"{solves / t_un2:.1f} (host clock, synced before and after the {K - 1} "
+                  f"warm steps)  [{card}]")
+            out[tag] = launches
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def native_phase(dev, model, card):
+    """Phase 30: the native host runtime — the library built with g++ from
+    native/, a golden round trip (the port's write_golden read back by the
+    native reader, < 1e-15), then run_rt_loop for RT_TICKS producer ticks of
+    RT_PERIOD_US: the producer writes a standing q moved by a smooth function
+    of its tick, q̇ and f* alike, and the tick number; the consumer thread
+    serves FusedTick(backend="cuda") unbatched through native.TickConsumer
+    (cold at COLD_ITERS, then warm at WARM_ITERS, (x, λ) carried, τ_cmd
+    written out), its launch counts set to 0 just before and read just
+    after (exactly 2 per consumed tick).  Held: no torn read (every consumed
+    state the producer's state of its own tick number, exactly), every τ
+    finite and no qp_error, no exception stored by a callback, every τ_cmd
+    bit for bit the same chain called directly on the consumed states, and
+    the first within TAU_CMD_TOL of the plain float32 tick on the card.
+    Printed: consumed ticks, missed deadlines, the consumer's latency
+    against the 1 ms bar.  Returns the launches."""
+    import tempfile
+
+    from libdwbc_tpu_torch import entry, native
+    from libdwbc_tpu_torch.utils.golden import write_golden
+    from libdwbc_tpu_torch.wbc.fused import FusedTick
+
+    t0 = time.perf_counter()
+    so = native.build_native()
+    native.get_lib()
+    print(f"native: {so.name} built with g++ in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        M = np.random.default_rng(0).standard_normal((7, 5))
+        write_golden(f"{tmp}/mat.bin", M)
+        d = native.golden_diff_native(f"{tmp}/mat.bin", M)
+    print(f"native: golden round trip {d:.3e}")
+    assert d < 1e-15, d
+
+    _, tick = entry._model_and_tick(dev, qp_iters=COLD_ITERS)
+    assert isinstance(tick, FusedTick) and tick.backend == "cuda"
+    assert native.WARM_ITERS == WARM_ITERS
+    state_at = entry._rt_state(model, RT_PERIOD_US)
+    cons = native.TickConsumer(tick)
+    assert cons.state_dim == state_at(0).shape[0]
+    outs = []
+
+    def producer(state, t):
+        state[:] = state_at(t)
+
+    def consumer(state, out_):
+        cons(state, out_)
+        outs.append(out_.copy())
+
+    for k in tick.kernels.launches:
+        tick.kernels.launches[k] = 0
+    stats = native.run_rt_loop(RT_PERIOD_US, RT_TICKS, cons.state_dim, cons.out_dim,
+                               producer, consumer)
+    torch.cuda.synchronize()
+    launches = dict(tick.kernels.launches)
+    n = stats["ticks"]
+    torn = sum(not np.array_equal(s, state_at(int(s[-1]))) for s in cons.states)
+    print(f"rt loop: {RT_TICKS} producer ticks at {RT_PERIOD_US} us, {n} consumed (ticks "
+          f"{int(cons.states[0][-1])} to {int(cons.states[-1][-1])}), {torn} torn reads, "
+          f"{stats['missed_deadlines']} missed producer deadlines (the Python producer shares "
+          f"the GIL with the consumer), no exception stored by a callback; launches {launches}")
+    print(f"rt loop: consumer latency avg {stats['avg_us']:.1f} min {stats['min_us']:.1f} max "
+          f"{stats['max_us']:.1f} p99 {stats['p99_us']:.1f} us against the {RT_BAR_US:.0f} us "
+          f"bar (printed, not held)  [{card}]")
+    assert n == len(cons.states) == len(outs) > 0
+    assert torn == 0, torn
+    assert launches == {"tick_prestage": n, "tick_qpchain": n}, launches
+    assert all(np.isfinite(o).all() for o in outs) and not any(cons.qp_error)
+    warm = tick.init_warm()
+    for k, s in enumerate(cons.states):
+        q, qd, fs = cons.split(s)
+        res, warm = tick._tick_impl(q, qd, fs, warm=warm,
+                                    qp_iters=WARM_ITERS if k else COLD_ITERS)
+        assert np.array_equal(res.torque_cmd.cpu().numpy(), outs[k].astype(np.float32)), k
+    q, qd, fs = cons.split(cons.states[0])
+    plain = FusedTick(model, tick.cfg, dev, torch.float32, backend="torch")
+    err = maxerr(torch.as_tensor(outs[0]),
+                 plain._tick_impl(q, qd, fs, qp_iters=COLD_ITERS).torque_cmd)
+    print(f"rt loop: every τ_cmd bit for bit the directly called chain's; the first vs the "
+          f"plain float32 tick on the card {err:.3e} Nm (<= {TAU_CMD_TOL:g})")
+    assert err <= TAU_CMD_TOL, err
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
+    marks = [("1", t_start)]
+
+    def phase(label):
+        """Print the time of the phase that ends here and start the next."""
+        prev, t_ = marks[-1]
+        now = time.perf_counter()
+        print(f"chip_smoke: phase {prev} took {now - t_:.1f} s")
+        marks.append((label, now))
+
     # ------------------------------------------------------ 1. environment
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2036,6 +2280,7 @@ def main():
     dev = torch.device("cuda", 0)
 
     # ------------------------------------------------------------ 2. build
+    phase("2")
     t0 = time.perf_counter()
     so, log = _build.build(verbose=True)
     _build.library()
@@ -2048,6 +2293,7 @@ def main():
     spills = ptxas_spills(log)
 
     # ----------------------- 3. the fused tick's kernels vs their plain versions
+    phase("3")
     model = RobotModel.load(str(entry.MODEL_PATH))
     cfg = standard_tocabi_config(model, qp_iters=COLD_ITERS)
     q, _, fstars = entry._example_inputs(model)
@@ -2128,6 +2374,7 @@ def main():
         assert chain_err[name] <= tol, (name, chain_err[name], tol)
 
     # -------------------- 4. the compiled tick's kernels vs their plain versions
+    phase("4")
     q_d = torch.as_tensor(qs, device=dev)
     qd_d = torch.zeros((B, model.ndof), device=dev)
     fs_d = tuple(torch.as_tensor(f, device=dev) for f in fs)
@@ -2187,6 +2434,7 @@ def main():
             assert v <= QP_SOLVE_TOL[k], (n, t, k, v, QP_SOLVE_TOL[k])
 
     # ------------------------------------------------ 5. the serving paths
+    phase("5")
     model, tick = entry._model_and_tick(dev, qp_iters=COLD_ITERS)
     assert isinstance(tick, FusedTick) and tick.backend == "cuda"
 
@@ -2255,6 +2503,7 @@ def main():
     assert c_err == 0 and cgap <= QP_FAIL and cpres <= QP_FAIL
 
     # ------------------------------------------------------ 6. truth guard
+    phase("6")
     # tick 0 on four lanes against float64 CPU ticks: the plain fused tick,
     # and the port's CompiledTick (the independent formulation) for both
     lanes = (qs[:4].astype(np.float64), np.zeros((4, model.ndof)),
@@ -2274,6 +2523,7 @@ def main():
         assert d_grav <= TAU_GRAV_TOL and d_cmd <= TAU_CMD_TOL, (label, d_grav, d_cmd)
 
     # ------------------------------------------------------------ 7. times
+    phase("7")
     plain_dev = TickProgram(model, cfg, dev, torch.float32)
     times = {}
     for nb in (B, 1):
@@ -2357,6 +2607,7 @@ def main():
           f"[{card}]")
 
     # --------------------- 8. the masked kernels vs their plain versions
+    phase("8")
     from libdwbc_tpu_torch.ops.tick_cuda import PRE_TOL_MASKED, QP_TOL_MASKED
     from libdwbc_tpu_torch.wbc.loop import make_control_loop
     from libdwbc_tpu_torch.wbc.masked import MaskedTick
@@ -2438,6 +2689,7 @@ def main():
         assert max(v) <= CHAIN_TOL_MASKED[k], (k, v)
 
     # ------------------------------------------ 9. the masked serving path
+    phase("9")
     _, mtick = entry._model_and_tick(dev, qp_iters=COLD_ITERS, masked=True)
     assert isinstance(mtick, FusedTick) and mtick.masked and mtick.backend == "cuda"
     mq_d, mqd_d, mm_d = (torch.as_tensor(a, device=dev) for a in (mq, mqd, mmask))
@@ -2491,6 +2743,7 @@ def main():
           f"qp_primal_res_max {float(nofb_pres):.6e} (recorded, not asserted)")
 
     # ------------------------------------------------ 10. masked truth guard
+    phase("10")
     r0m, _ = mtick._tick_impl(mq_d, mqd_d, mfs_d, mm_d, warm=mtick.init_warm((B_M,)),
                               qp_iters=COLD_ITERS)
     nl = 6
@@ -2510,6 +2763,7 @@ def main():
         assert max(d_grav) <= TAU_GRAV_TOL and max(d_cmd) <= TAU_CMD_TOL, (label, d_grav, d_cmd)
 
     # ------------------------------------------------------ 11. masked times
+    phase("11")
     mplain_dev = TickProgram(model, cfg, dev, torch.float32, masked=True)
     for nb in (B_M, 1):
         qe, ce = mq_el[:, :nb].contiguous().to(dev), mcm_el[:, :nb].contiguous().to(dev)
@@ -2543,6 +2797,7 @@ def main():
           f"{B_M * K_M / chain_s:.1f} solves/s  [{card}]")
 
     # ------------------------------- 12. the servo'd kernels vs their plain versions
+    phase("12")
     from libdwbc_tpu_torch.ops.tick_cuda import SERVO_TOL, SERVO_ELEMS, TASK_STATE
     from libdwbc_tpu_torch.wbc.loop import forward_dynamics_transition
     from libdwbc_tpu_torch.wbc.pipeline import servos_to
@@ -2671,6 +2926,7 @@ def main():
                                      CHAIN_TOL_MASKED, lambda g, w: per_hyp(g, w, N_M))
 
     # ------------------------------------------ 13. the servo'd serving path
+    phase("13")
     K_S, DT = 150, 1e-3
     _, ctrans = entry._model_and_tick(dev, qp_iters=COLD_ITERS, fused=False)
     trans = forward_dynamics_transition(ctrans)
@@ -2692,7 +2948,7 @@ def main():
         pf = entry._link_frames(model, qf.detach().cpu().double().reshape(-1, model.nq))[0].numpy()
         return np.linalg.norm(pf - target, axis=1) / np.linalg.norm(p0_ - target, axis=1)
 
-    def run_loop(tk, nb, label, count, transition=trans):
+    def run_loop(tk, nb, label, count, transition=trans, K_S=K_S):
         """One K_S-tick servo'd loop; with count, the launch counters set to
         0 just before and checked just after."""
         args, sv, tq, target = tracking(nb, tk.dtype)
@@ -2720,7 +2976,9 @@ def main():
               f"pelvis error final / initial max {ratio.max():.4f} mean {ratio.mean():.4f}; "
               f"qp_error ticks×lanes {n_err} on {err_lanes} lanes, qp_primal_res max "
               f"{pres:.3e} (recorded)")
-        out = dict(lr=lr, wall=wall, peak=peak, ratio=ratio, n_err=n_err, pres=pres)
+        out = dict(lr=lr, wall=wall, peak=peak, ratio=ratio, n_err=n_err, pres=pres,
+                   n_err_cmp=int(lr.qp_error.reshape(K_S, -1)[:K_CMP].sum()),
+                   pres_cmp=float(lr.qp_primal_res.reshape(K_S, -1)[:K_CMP].max()))
         if count:
             n_solve = K_S + lr.refined_ticks
             out["launches"] = dict(tk.kernels.launches)
@@ -2735,31 +2993,40 @@ def main():
     serve_b = run_loop(stick, B, "kernels, batch 1024", True)
     serve_1 = run_loop(stick, 1, "kernels, unbatched", True)
     plain_dev32 = FusedTick(model, cfg, dev, torch.float32, backend="torch")
-    serve_plain = run_loop(plain_dev32, B, "plain float32 tick on the card, batch 1024", False)
+    # the comparison loops run the first K_CMP ticks of the kernels' loop
+    # (the loop is causal: its first K_CMP ticks are a K_CMP-tick loop)
+    serve_plain = run_loop(plain_dev32, B, "plain float32 tick on the card, batch 1024", False,
+                           K_S=K_CMP)
     jax_dev32 = FusedTick(model, cfg, dev, torch.float32, backend="torch")
     jax_dev32.prog.hold_lost_pivots = False
     serve_jax = run_loop(jax_dev32, B, "plain float32 tick on the JAX package's IPM "
-                         "recurrence, batch 1024", False)
+                         "recurrence, batch 1024", False, K_S=K_CMP)
     # float64 throughout, tick and transition: what float32 falls short of
     _, ctrans64 = entry._model_and_tick(dev, torch.float64, qp_iters=COLD_ITERS,
                                         backend="torch", fused=False)
     serve_64 = run_loop(FusedTick(model, cfg, dev, torch.float64, backend="torch"), B,
                         "plain float64 tick and transition on the card, batch 1024", False,
-                        forward_dynamics_transition(ctrans64))
-    for run in (serve_b, serve_1, serve_plain, serve_64):
+                        forward_dynamics_transition(ctrans64), K_S=K_CMP)
+    for run in (serve_b, serve_1):
         assert (run["ratio"] < 0.5).all(), (int((run["ratio"] >= 0.5).sum()),
                                             float(run["ratio"].max()))
     # Float32 leaves a few of this loop's QPs unsolved where float64 solves
-    # them all: the kernels may flag no more lane-ticks than the plain
-    # float32 tick, within the spread of two rollouts that part on roundoff
-    # (a quarter, and 0.1% of the lane-ticks), and no more, with no larger
-    # primal residual, than the JAX package's recurrence, which steps from
-    # the clamped factor of a Gram that lost a pivot
-    assert serve_b["n_err"] <= 1.25 * serve_plain["n_err"] + 1e-3 * K_S * B, (
-        serve_b["n_err"], serve_plain["n_err"])
-    assert serve_b["n_err"] <= serve_jax["n_err"], (serve_b["n_err"], serve_jax["n_err"])
-    assert serve_b["pres"] <= max(QP_FAIL, serve_jax["pres"]), (serve_b["pres"],
-                                                                 serve_jax["pres"])
+    # them all: over the same K_CMP ticks and lanes, the kernels may flag no
+    # more lane-ticks than the plain float32 tick, within the spread of two
+    # rollouts that part on roundoff (a quarter, and 0.1% of the
+    # lane-ticks), and no more, with no larger primal residual, than the
+    # JAX package's recurrence, which steps from the clamped factor of a
+    # Gram that lost a pivot
+    print(f"servo'd serving path: the kernels' first {K_CMP} ticks flag "
+          f"{serve_b['n_err_cmp']} lane-ticks (qp_primal_res max {serve_b['pres_cmp']:.3e}), "
+          f"the plain float32 tick {serve_plain['n_err']}, the JAX recurrence "
+          f"{serve_jax['n_err']}, float64 {serve_64['n_err']}")
+    assert serve_b["n_err_cmp"] <= 1.25 * serve_plain["n_err"] + 1e-3 * K_CMP * B, (
+        serve_b["n_err_cmp"], serve_plain["n_err"])
+    assert serve_b["n_err_cmp"] <= serve_jax["n_err"], (serve_b["n_err_cmp"],
+                                                        serve_jax["n_err"])
+    assert serve_b["pres_cmp"] <= max(QP_FAIL, serve_jax["pres"]), (serve_b["pres_cmp"],
+                                                                     serve_jax["pres"])
 
     def split_times(tk, nb):
         """The loop again with CUDA events around every tick call and every
@@ -2802,6 +3069,7 @@ def main():
           f"unbatched  [{card}]")
 
     # ------------------------------------------------ 14. servo'd truth guard
+    phase("14")
     gq, gqd, gfs, gsv = entry._servo_inputs(model, 4, seed=0)
     rg, _ = stick._tick_impl(gq, gqd, gfs, warm=stick.init_warm((4,)), qp_iters=COLD_ITERS,
                              servos=gsv)
@@ -2831,6 +3099,7 @@ def main():
         assert (d_cmd <= bar).all(), (label, d_cmd, own_cmd)
 
     # ---------------------------------------------------- 15. servo'd times
+    phase("15")
     for nb in (B, 1):
         qe, qde = sq_el[:, :nb].contiguous().to(dev), sqd_el[:, :nb].contiguous().to(dev)
         fe = [f[:, :nb].contiguous().to(dev) for f in sfs_el]
@@ -2852,6 +3121,7 @@ def main():
                   f"plain (torch on the card) {p:.3f} ms  [{card}]")
 
     # --------------------- 16. MaskedTick(cuda) in float32 on the masked sweep
+    phase("16")
     mt32 = MaskedTick(model, cfg, dev, torch.float32, backend="cuda")
     mt64 = MaskedTick(model, cfg, dev, torch.float64, backend="torch")
     real_qp_solve = qp_cuda.qp_solve
@@ -2908,6 +3178,7 @@ def main():
     assert max(dtau_h) <= MASKED_QP_TAU_TOL, (dtau_h, over_h)
 
     # ------------- 17. the general-plan kernels vs their plain versions
+    phase("17")
     from libdwbc_tpu_torch.ops.tick_cuda import GENERAL_TOL
 
     cfg3 = standard_tocabi_config(model, both_feet=False, swing_task=True, qp_iters=COLD_ITERS)
@@ -2927,21 +3198,27 @@ def main():
                                      GENERAL_TOL[tag], split)
 
     # ----------------------------------------- 18. config 3's serving path
+    phase("18")
     launches3, kern3 = swing_serving(dev, model, cfg3, card, times)
 
     # -------------------------------- 19. config 3's servo'd closed loop
+    phase("19")
     swing_loop(dev, model, cfg3, card)
 
     # ---------- 20. the hands-and-feet, LINE-feet and no-limit kernels vs plain
+    phase("20")
     g_err.update(new_plan_kernels(dev, model, q_el, fs_el))
 
     # ------------------------------- 21. the hands-and-feet serving path
+    phase("21")
     launches_h, kern_h = hands_serving(dev, model, card, times)
 
     # ----------------------- 22. the masked four-candidate sweep (hands and feet)
+    phase("22")
     launches_hm, kern_hm = hands_masked_loop(dev, model, card, times)
 
     # ----------------- 23. the kernels at the reduced shapes vs their plain versions
+    phase("23")
     from libdwbc_tpu_torch.wbc.reduced_tick import ReducedTick
 
     q3s, qd3s, fs3s = entry._swing_inputs(model, B, seed=0)
@@ -2958,6 +3235,7 @@ def main():
             tuple(torch.as_tensor(f, device=dev) for f in rfs))
 
     # ----------------------------- 24. the reduced serving path, 25. its times
+    phase("24-25")
     red_launches, red_solves, red_lib = {}, {}, {}
     for tag, (rq, rqd, rfs) in red.items():
         red_launches[tag], red_solves[tag] = reduced_serving(dev, model, tag, red_ticks[tag],
@@ -2965,9 +3243,19 @@ def main():
         red_lib[tag] = reduced_kernel_times(red_seen[tag], tag, times, card)
 
     # --------------- 26. the facade on the card, 27. its times, 28. bridges and sweep
+    phase("26")
     fac_launches = facade_phase(dev, card)
+    phase("27")
     fac = facade_times(dev, card, times)
+    phase("28")
     bridges_phase(dev, card)
+
+    # ------------- 29. the scenario mesh on the card, 30. the native host runtime
+    phase("29")
+    mesh_launches = mesh_phase(dev, model, card)
+    phase("30")
+    rt_launches = native_phase(dev, model, card)
+    phase("bounds, resources and the record")
 
     # bounds at batch B (B_M masked): bytes of each kernel's inputs and
     # outputs, and its operations on this run's shapes, every tick kernel's
@@ -3133,6 +3421,15 @@ def main():
         entry_("qp_solve_facade", fac_launches["qp_solve"], fac["qp_err"],
                ("qp_solve_facade", QP_NAMES[0], 1), None, "libdwbc_tpu/ops/pallas_qp.py:302"),
     ]}
+    # the mesh step (phase 29: static, masked) and the RT loop's consumer
+    # (phase 30) run the flagship's kernels measured above: their launch
+    # counts go on those rows
+    rows = {r["name"]: r for r in record["kernels"]}
+    for name in ("tick_prestage", "tick_qpchain"):
+        rows[name]["launches_mesh"] = mesh_launches["static"][name]
+        rows[name]["launches_rt"] = rt_launches[name]
+        rows[name + "_masked"]["launches_mesh"] = mesh_launches["masked"][name]
+    phase("done")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(gpu_line())

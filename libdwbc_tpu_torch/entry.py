@@ -37,6 +37,10 @@ The controller facade (``wbc/robot.py::RobotData``) serves the flagship and
 config 3 one robot at a time: ``_facade`` builds it, ``_facade_cases``
 gives the reference unit tests' two standing cases and ``_facade_set``
 feeds one into it.
+
+``dryrun_multichip`` (counterpart of ``__graft_entry__.dryrun_multichip``)
+runs one sharded step of the scenario mesh (``parallel/mesh.py``) on n
+ranks: NCCL with a card per rank, or gloo processes with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -326,3 +330,156 @@ def _facade_set(rd, flags, q, qd, fstars):
     rd.SetContact(*flags)
     for h, f in enumerate(fstars):
         rd.SetTaskSpace(h, f)
+
+
+# ---------------------------------------------------------------------------
+# The multi-card dry run (counterpart of __graft_entry__.py:64-208)
+# ---------------------------------------------------------------------------
+
+def _grid_inputs(model, H, R, seed=0, dtype=np.float32):
+    """The dry run's (H, R) scenario grid (numpy, ``dtype``): the standing
+    state with 0.01·N(0,1) on the joints, zero q̇, the example f* on every
+    scenario."""
+    q, _, fstars = _example_inputs(model, np.float64)
+    rng = np.random.default_rng(seed)
+    qs = np.tile(q, (H, R, 1))
+    qs[..., 6:6 + model.model_dof] += 0.01 * rng.standard_normal((H, R, model.model_dof))
+    return (qs.astype(dtype), np.zeros((H, R, model.ndof), dtype),
+            tuple(np.tile(f, (H, R, 1)).astype(dtype) for f in fstars))
+
+
+def _rt_state(model, period_us):
+    """The real-time loop's producer state of tick t, as a function, in
+    ``native.TickConsumer``'s layout: the standing q with each joint moved
+    by 0.02·sin(ωt + j) (one period every 2,000 ticks), its q̇, the example
+    f* moved by 0.05·cos(ωt + level), and t itself."""
+    q0, qd0, fs0 = _example_inputs(model, np.float64)
+    md = model.model_dof
+    phase = np.arange(md)
+    w = 2.0 * np.pi / 2000.0
+
+    def state_at(t):
+        q = q0.copy()
+        q[6:6 + md] += 0.02 * np.sin(w * t + phase)
+        qd = qd0.copy()
+        qd[6:6 + md] = 0.02 * w / (period_us * 1e-6) * np.cos(w * t + phase)
+        return np.concatenate([q, qd] + [f + 0.05 * np.cos(w * t + i) for i, f in
+                                         enumerate(fs0)] + [[float(t)]])
+
+    return state_at
+
+
+def _grid_solve(mesh, grid, dtype=torch.float32, qp_iters=6):
+    """One rank's part of a CompiledTick grid solved by ``sharded_batch_solver``
+    over ``mesh`` (plain on the CPU, ``backend="cuda"`` on the card): the
+    rank makes its block through ``host_local_scenarios`` (held equal to
+    ``shard_scenarios``' cut of the full grid), solves it and gathers the
+    grid's τ_cmd.  grid: the full (q, q̇, f*) in numpy.  Returns (on every
+    rank) τ_cmd (H, R, m) on the CPU, the best scenario, its cost, and the
+    mesh slices each rank's ``make_local`` was handed."""
+    import torch.distributed as dist
+
+    from .parallel.mesh import (gather_grid, host_local_scenarios, shard_scenarios,
+                                sharded_batch_solver)
+
+    dev = mesh.device
+    model, tick = _model_and_tick(dev, dtype, qp_iters=qp_iters, fused=False,
+                                  backend="cuda" if dev.type == "cuda" else "torch")
+    q, qd, fs = grid
+    H, R = q.shape[:2]
+    hb, rb = H // mesh.shape["hyp"], R // mesh.shape["roll"]
+    handed = []
+
+    def make_local(h_sl, r_sl):
+        handed.append((h_sl.start, h_sl.stop, r_sl.start, r_sl.stop))
+        rows, cols = slice(h_sl.start * hb, h_sl.stop * hb), slice(r_sl.start * rb, r_sl.stop * rb)
+        return q[rows, cols], qd[rows, cols], tuple(f[rows, cols] for f in fs)
+
+    block = host_local_scenarios(mesh, make_local)
+    cut = shard_scenarios(mesh, q, qd, fs)
+    assert all(torch.equal(a, b) for a, b in zip((block[0], block[1]) + block[2],
+                                                 (cut[0], cut[1]) + cut[2]))
+    step, _ = sharded_batch_solver(tick._tick_impl, mesh)
+    res, best, best_cost = step(*block)
+    assert res.torque_cmd.shape == (hb, rb, model.model_dof), res.torque_cmd.shape
+    tau = gather_grid(mesh, res.torque_cmd)
+    slices = [handed[0]]
+    if mesh.device_mesh is not None:
+        slices = [None] * dist.get_world_size()
+        dist.all_gather_object(slices, handed[0])
+    return dict(tau=tau.cpu(), best=int(best), best_cost=float(best_cost), slices=slices,
+                mesh=mesh.shape)
+
+
+def _dryrun_rank(mesh):
+    """One rank of ``dryrun_multichip``: the three legs of the JAX dry run
+    (__graft_entry__.py:64-208) — a CompiledTick grid of (2·n_hyp) ×
+    (2·n_roll) through ``sharded_batch_solver``, then the flagship
+    ``FusedTick`` at B = 4·n ranks with its batch cut over both mesh axes
+    (static, then masked with the support hypotheses cycled over the lanes),
+    each held on rank 0 against one unsharded call within 1e-2 Nm.  Plain
+    float32 on the CPU, the kernels on the card; 6 IPM iterations."""
+    from .parallel.mesh import gather_grid, shard_scenarios, sharded_batch_solver
+
+    n_hyp, n_roll = mesh.ranks.shape
+    n = n_hyp * n_roll
+    dev = mesh.device
+    backend = "cuda" if dev.type == "cuda" else "torch"
+    model = RobotModel.load(str(MODEL_PATH))
+    H, R = 2 * n_hyp, 2 * n_roll
+    grid = _grid_solve(mesh, _grid_inputs(model, H, R))
+    assert grid["tau"].shape == (H, R, model.model_dof) and torch.isfinite(grid["tau"]).all()
+
+    # the flagship fused tick, its batch of B = 4·n cut over both axes: the
+    # (n_hyp, 4·n_roll) grid of its lanes in order puts lanes 4k … 4k + 3 on
+    # rank k, and its flat argmin is the batch's
+    B = 4 * n
+    q, qd, fs = _grid_inputs(model, 1, B, seed=1)
+    q, qd, fs = q[0], qd[0], tuple(f[0] for f in fs)
+    masks = np.array([[1, 1], [1, 0], [0, 1]], np.float32)[np.arange(B) % 3]
+    cfg = standard_tocabi_config(model, qp_iters=6)
+
+    def as_grid(a):
+        return a.reshape((n_hyp, 4 * n_roll) + a.shape[1:])
+
+    out = dict(grid_best=grid["best"], grid_best_cost=grid["best_cost"], mesh=mesh.shape,
+               grid=(H, R), batch=B)
+    for name, masked in (("fused", False), ("masked", True)):
+        tick = FusedTick(model, cfg, dev, backend=backend, masked=masked)
+        extra = (masks,) if masked else ()
+        step, _ = sharded_batch_solver(tick._tick_impl, mesh)
+        blk = shard_scenarios(mesh, as_grid(q), as_grid(qd), tuple(as_grid(f) for f in fs),
+                              *(as_grid(a) for a in extra))
+        res, best, _ = step(*blk, qp_iters=6)
+        tau = gather_grid(mesh, res.torque_cmd).reshape(B, -1)
+        assert torch.isfinite(tau).all(), name
+        if mesh.rank == 0:
+            ref = tick._tick_impl(q, qd, fs, *extra, qp_iters=6).torque_cmd
+            out[name] = float((tau - ref).abs().max())
+            assert out[name] < 1e-2, f"sharded {name} tick diverges: {out[name]}"
+            out[name + "_best"] = int(best)
+    return out
+
+
+def dryrun_multichip(n_ranks: int, device=None) -> dict:
+    """One sharded batched WBC step over an n-rank ('hyp', 'roll') mesh, the
+    three legs of the JAX dry run (``_dryrun_rank``): n processes, NCCL with
+    one card each (``device=None``; raises with fewer cards), or gloo on the
+    CPU (``device="cpu"``).  Returns rank 0's record (the parities, the best
+    scenarios) and prints it.  NCCL has run on the four cards of one host
+    (both parities 0.0: a lane's kernels do the same arithmetic at any
+    batch), never across hosts."""
+    import time
+
+    from .parallel.mesh import run_ranks
+
+    t0 = time.perf_counter()
+    out = run_ranks(_dryrun_rank, n_ranks, device)
+    print(f"dryrun_multichip ok in {time.perf_counter() - t0:.1f} s (the ranks' start, the "
+          f"process group, the three legs): mesh {out['mesh']}, grid "
+          f"{out['grid'][0]}x{out['grid'][1]}, best hypothesis {out['grid_best']} cost "
+          f"{out['grid_best_cost']:.3f}")
+    print(f"dryrun_multichip fused ok: batch {out['batch']} sharded over {n_ranks} ranks, "
+          f"fused parity {out['fused']:.2e}, masked parity {out['masked']:.2e}, "
+          f"best {out['fused_best']}")
+    return out

@@ -32,7 +32,8 @@ MODULES = ("libdwbc_tpu_torch", "libdwbc_tpu_torch.convert", "libdwbc_tpu_torch.
            "libdwbc_tpu_torch.wbc.reduced", "libdwbc_tpu_torch.wbc.reduced_tick",
            "libdwbc_tpu_torch.wbc.lqp", "libdwbc_tpu_torch.wbc.robot",
            "libdwbc_tpu_torch.bridge", "libdwbc_tpu_torch.utils.golden",
-           "libdwbc_tpu_torch.parallel.hypotheses")
+           "libdwbc_tpu_torch.parallel.hypotheses", "libdwbc_tpu_torch.parallel.mesh",
+           "libdwbc_tpu_torch.native")
 
 
 def test_port_imports_no_jax():
