@@ -258,8 +258,7 @@ Phases, each fatal on failure (nothing is caught):
    callback, every τ_cmd bit for bit the same chain called directly on
    the consumed states, the first within TAU_CMD_TOL of the plain float32
    tick; consumed ticks, missed deadlines and the consumer's latency
-   against the 1 ms bar printed (python -m libdwbc_tpu_torch.profile_rt
-   runs the same loop at other GIL switch intervals).
+   against the 1 ms bar printed.
 
 Each phase's time is printed as it ends.
 

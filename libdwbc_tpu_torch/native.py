@@ -24,6 +24,7 @@ from pathlib import Path
 
 import numpy as np
 
+from . import tracing
 from .model.compile import GRAVITY, RobotModel
 from .wbc import types as T
 
@@ -254,7 +255,9 @@ class TickConsumer:
     one warm at ``WARM_ITERS`` from the previous (x, λ).  Build it — the tick
     and its warm carry — in the calling thread; the loop's consumer thread
     only calls it.  Each consumed state and its ``qp_error`` are kept for
-    checking."""
+    checking.  A call is the span ``dwbc.consumer`` and its two device reads
+    (τ_cmd, ``qp_error``) ``dwbc.consumer.read``, their request (this
+    consumer, the call's index)."""
 
     def __init__(self, tick):
         self.tick = tick
@@ -265,6 +268,7 @@ class TickConsumer:
         self.out_dim = tick.model.model_dof
         self.warm = tick.init_warm()
         self.states, self.qp_error = [], []
+        self._seq = tracing.sequence()
 
     def split(self, state):
         """(q, q̇, f* per level) of one state vector, as numpy views."""
@@ -277,9 +281,12 @@ class TickConsumer:
         return q, qd, tuple(fs)
 
     def __call__(self, state, out):
-        q, qd, fs = self.split(state)
-        res, self.warm = self.tick._tick_impl(q, qd, fs, warm=self.warm,
-                                              qp_iters=WARM_ITERS if self.states else None)
-        out[:] = res.torque_cmd.cpu().numpy()
-        self.states.append(state.copy())
-        self.qp_error.append(bool(res.qp_error))
+        with tracing.request(self._seq, len(self.states)), tracing.span("dwbc.consumer"):
+            q, qd, fs = self.split(state)
+            res, self.warm = self.tick._tick_impl(q, qd, fs, warm=self.warm,
+                                                  qp_iters=WARM_ITERS if self.states else None)
+            with tracing.span("dwbc.consumer.read"):
+                out[:] = res.torque_cmd.cpu().numpy()
+                error = bool(res.qp_error)
+            self.states.append(state.copy())
+            self.qp_error.append(error)

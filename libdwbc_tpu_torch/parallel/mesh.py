@@ -25,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import functools
+import itertools
 import os
 import socket
 import tempfile
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..wbc.pipeline import TickResult
 
 AXES = ("hyp", "roll")
@@ -166,10 +168,12 @@ def sharded_batch_solver(tick_impl, mesh: Mesh):
       block_of((H, R)) → this rank's (rows, columns) of the grid.
     The scenario cost is command effort plus a constraint-violation
     penalty, Σ τ_cmd² + 1e6 · qp_primal_res, and the best scenario comes
-    from one collective over the whole mesh (``_global_argmin``).
+    from one collective over the whole mesh (``_global_argmin``).  A step is
+    the span ``dwbc.mesh.step``, its request (this solver, the step's index).
     """
     n_hyp, n_roll = mesh.ranks.shape
     indices = {}    # (h_len, r_len, device) → the block's flat grid indices
+    seq, steps = tracing.sequence(), itertools.count()
 
     def block_index(h_len, r_len, device):
         key = (h_len, r_len, device)
@@ -179,7 +183,7 @@ def sharded_batch_solver(tick_impl, mesh: Mesh):
             indices[key] = grid[mesh.block((H, R))].reshape(-1).to(device)
         return indices[key]
 
-    def step(q, qdot, fstars, *args, **kw):
+    def solve(q, qdot, fstars, *args, **kw):
         h_len, r_len = q.shape[:2]
 
         def flat(x):
@@ -193,6 +197,10 @@ def sharded_batch_solver(tick_impl, mesh: Mesh):
         best, best_cost = _global_argmin(mesh, cost, block_index(h_len, r_len, cost.device))
         res = TickResult(*(x.reshape((h_len, r_len) + tuple(x.shape[1:])) for x in res))
         return ((res, w) if warm else res), best, best_cost
+
+    def step(q, qdot, fstars, *args, **kw):
+        with tracing.request(seq, next(steps)), tracing.span("dwbc.mesh.step"):
+            return solve(q, qdot, fstars, *args, **kw)
 
     return step, mesh.block
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .. import tracing
 from ..ops.tick_kernel import SERVO_ELEM_SHAPES, TickProgram
 from .pipeline import TickResult, card_setup, qp_error_flag
 
@@ -94,10 +95,24 @@ class FusedTick(nn.Module):
         state out when warm was given.  servos: CompiledTick's nested per-level
         / per-spec ServoParams; q̇ feeds the servo'd task links' velocities.
         Without servos q̇ is unused: the tick compensates gravity, not
-        Coriolis."""
-        if (contact_mask is not None) != self.masked:
-            raise ValueError("contact_mask goes with FusedTick(masked=True), and only there")
-        iters = self.cfg.qp_iters if qp_iters is None else qp_iters
+        Coriolis.  The three stages are the spans ``dwbc.tick.prep``,
+        ``dwbc.tick.run`` (the launches) and ``dwbc.tick.post``."""
+        with tracing.span("dwbc.tick.prep"):
+            if (contact_mask is not None) != self.masked:
+                raise ValueError("contact_mask goes with FusedTick(masked=True), and only there")
+            batched, q_el, fs_el, kw = self._element_leading(q, qdot, fstars, contact_mask,
+                                                             warm, servos)
+            kw["iters"] = self.cfg.qp_iters if qp_iters is None else qp_iters
+            ticker = self.kernels if self.backend == "cuda" else self.prog
+        with tracing.span("dwbc.tick.run"):
+            out = ticker.tick(q_el, fs_el, **kw)
+        with tracing.span("dwbc.tick.post"):
+            return self._batch_major(out, batched, warm is not None)
+
+    def _element_leading(self, q, qdot, fstars, contact_mask, warm, servos):
+        """(batched, q, f*, the other inputs by keyword) of a call,
+        element-leading and contiguous, as ``TickProgram.tick`` and the
+        kernels take them."""
 
         def as_t(x):
             return torch.as_tensor(x, dtype=self.dtype, device=self.device)
@@ -128,9 +143,11 @@ class FusedTick(nn.Module):
         w_el = None
         if warm is not None:
             w_el = [(as_t(x).T.contiguous(), as_t(l).T.contiguous()) for x, l in warm]
-        ticker = self.kernels if self.backend == "cuda" else self.prog
-        out = ticker.tick(q_el, fs_el, warm=w_el, iters=iters, cmask=cm_el, qdot=qd_el,
-                          servos=sv_el)
+        return batched, q_el, fs_el, dict(warm=w_el, cmask=cm_el, qdot=qd_el, servos=sv_el)
+
+    def _batch_major(self, out, batched, warm_given):
+        """The kernels' element-leading outputs as the TickResult (and the
+        warm state out when warm was given), batch-major."""
 
         def bm(t):
             return t.movedim(-1, 0)
@@ -151,7 +168,7 @@ class FusedTick(nn.Module):
         if not batched:
             result = TickResult(*(r[0] for r in result))
             wout = tuple((x[0], l[0]) for x, l in wout)
-        return (result, wout) if warm is not None else result
+        return (result, wout) if warm_given else result
 
     def forward(self, q, qdot, fstars, contact_mask=None, warm=None, qp_iters=None,
                 servos=None):

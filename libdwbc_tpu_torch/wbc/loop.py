@@ -11,7 +11,9 @@ Here the ticks are a Python loop, and the condition is one read of
 ``trip.any()`` per warm tick: one host sync per warm tick when
 ``gap_fallback`` is set, none otherwise.  The re-solve launches only when
 that read is true; its result and warm state are taken per lane with
-``torch.where``.
+``torch.where``.  The read and each transition are spans of ``tracing``
+(``dwbc.loop.sync``, ``dwbc.loop.transition``), and every tick is a
+request block (loop call, tick) whose spans carry it.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from .. import tracing
 from ..kin.rotations import quat_mul
 from .pipeline import TickResult
 
@@ -136,47 +139,58 @@ def make_control_loop(
             raise ValueError("contact_mask given for a tick that is not masked")
         return tick._tick_impl(q, qdot, fstars, **kw)
 
+    def step(q, qdot, res):
+        with tracing.span("dwbc.loop.transition"):
+            return trans(q, qdot, res, dt)
+
     def stack(rs):
         return (torch.stack([r.torque_cmd for r in rs], 0),
                 torch.stack([r.qp_primal_res for r in rs], 0),
                 torch.stack([r.qp_error for r in rs], 0))
 
     def loop(q0, qdot0, fstars, contact_mask=None, servos=None):
+        seq = tracing.sequence()
         q0, qdot0 = (torch.as_tensor(x, dtype=tick.dtype, device=tick.device)
                      for x in (q0, qdot0))
         if not warm_start:
             q, qdot, rs = q0, qdot0, []
             for k in range(K):
-                res = _tick(q, qdot, fstars, contact_mask,
-                            servos=_advance_servos(servos, k * dt))
-                q, qdot = trans(q, qdot, res, dt)
+                with tracing.request(seq, k):
+                    res = _tick(q, qdot, fstars, contact_mask,
+                                servos=_advance_servos(servos, k * dt))
+                    q, qdot = step(q, qdot, res)
                 rs.append(res)
             return LoopResult(q, qdot, *stack(rs))
 
         full = tick.cfg.qp_iters
         w_iters = warm_iters or max(full // 2, 4)
-        res, warm = _tick(q0, qdot0, fstars, contact_mask,
-                          warm=tick.init_warm(q0.shape[:-1]), qp_iters=full, servos=servos)
-        q, qdot = trans(q0, qdot0, res, dt)
+        with tracing.request(seq, 0):
+            res, warm = _tick(q0, qdot0, fstars, contact_mask,
+                              warm=tick.init_warm(q0.shape[:-1]), qp_iters=full, servos=servos)
+            q, qdot = step(q0, qdot0, res)
         rs, refined = [res], 0
         for k in range(1, K):
-            sv = _advance_servos(servos, k * dt)
-            res, warm = _tick(q, qdot, fstars, contact_mask, warm=warm, qp_iters=w_iters,
-                              servos=sv)
-            if gap_fallback is not None:
-                trip = torch.maximum(res.qp_gap, res.qp_primal_res) > gap_fallback
-                if bool(trip.any()):                 # the loop's one host sync
-                    res2, warm2 = _tick(q, qdot, fstars, contact_mask, warm=warm,
-                                        qp_iters=full, servos=sv)
+            with tracing.request(seq, k):
+                sv = _advance_servos(servos, k * dt)
+                res, warm = _tick(q, qdot, fstars, contact_mask, warm=warm, qp_iters=w_iters,
+                                  servos=sv)
+                if gap_fallback is not None:
+                    trip = torch.maximum(res.qp_gap, res.qp_primal_res) > gap_fallback
+                    with tracing.span("dwbc.loop.sync"):
+                        tripped = bool(trip.any())   # the loop's one host sync
+                    if tripped:
+                        res2, warm2 = _tick(q, qdot, fstars, contact_mask, warm=warm,
+                                            qp_iters=full, servos=sv)
 
-                    def sel(a, b):
-                        return torch.where(trip.reshape(trip.shape + (1,) * (a.ndim - trip.ndim)),
-                                           a, b)
+                        def sel(a, b):
+                            t = trip.reshape(trip.shape + (1,) * (a.ndim - trip.ndim))
+                            return torch.where(t, a, b)
 
-                    res = TickResult(*(sel(a, b) for a, b in zip(res2, res)))
-                    warm = tuple((sel(x2, x), sel(l2, l)) for (x2, l2), (x, l) in zip(warm2, warm))
-                    refined += 1
-            q, qdot = trans(q, qdot, res, dt)
+                        res = TickResult(*(sel(a, b) for a, b in zip(res2, res)))
+                        warm = tuple((sel(x2, x), sel(l2, l))
+                                     for (x2, l2), (x, l) in zip(warm2, warm))
+                        refined += 1
+                q, qdot = step(q, qdot, res)
             rs.append(res)
         return LoopResult(q, qdot, *stack(rs), refined_ticks=refined)
 

@@ -33,7 +33,7 @@ MODULES = ("libdwbc_tpu_torch", "libdwbc_tpu_torch.convert", "libdwbc_tpu_torch.
            "libdwbc_tpu_torch.wbc.lqp", "libdwbc_tpu_torch.wbc.robot",
            "libdwbc_tpu_torch.bridge", "libdwbc_tpu_torch.utils.golden",
            "libdwbc_tpu_torch.parallel.hypotheses", "libdwbc_tpu_torch.parallel.mesh",
-           "libdwbc_tpu_torch.native")
+           "libdwbc_tpu_torch.native", "libdwbc_tpu_torch.tracing")
 
 
 def test_port_imports_no_jax():
