@@ -14,9 +14,11 @@ them.  A packed prestage (``PackedPre``) carries whether it has that
 section; its layout, its packing and the f* the QP chain reads follow from
 that one flag.
 
-Each wrapper adds one to ``launches[name]`` where it launches its kernel.
-Outputs and workspace are allocated here with ``torch.empty``; the kernels
-run on the current stream, allocate nothing and do not synchronise.
+Each wrapper adds one to ``launches[name]`` where it launches its kernel,
+except ``tick_staged``, whose caller (``wbc/tick_graph.py``, which captures
+it into a CUDA graph) counts the kernels that ran.  Outputs and workspace
+are allocated here with ``torch.empty``; the kernels run on the current
+stream, allocate nothing and do not synchronise.
 """
 
 from __future__ import annotations
@@ -567,6 +569,14 @@ class TickKernels(nn.Module):
             fs = torch.cat(list(fstars), 0)
             sv = pack_servos(servos, plan, B)
             self._check("servo buffer", sv, (SERVO_ELEMS * bin(smask).count("1"), B))
+        pre = self._launch_prestage(q, cmask, qdot, fs, sv, smask)
+        self.launches["tick_prestage"] += 1
+        return PackedPre(pre, smask != 0)
+
+    def _launch_prestage(self, q, cmask, qdot, fs, sv, smask):
+        """tick_prestage on checked inputs (f* concatenated) → the prestage
+        buffer; counts nothing."""
+        B = q.shape[-1]
         lib, sz = self._lib_and_sizes()
         pre = torch.empty((sz["pre_servo" if smask else "pre"], B), dtype=torch.float32,
                           device=q.device)
@@ -579,8 +589,7 @@ class TickKernels(nn.Module):
                                     None if not smask else sv.data_ptr(), smask,
                                     pre.data_ptr(), ws.data_ptr(), sz["stride_pre"], B, stream)
         self._raise_on(rc, "tick_prestage")
-        self.launches["tick_prestage"] += 1
-        return PackedPre(pre, smask != 0)
+        return pre
 
     def _check_fstars(self, fstars, B):
         if len(fstars) != len(self.plan.level_tdofs):
@@ -612,6 +621,16 @@ class TickKernels(nn.Module):
                 self._check(f"warm[{h}].x", x, (nv, B))
                 self._check(f"warm[{h}].lam", lam, (m, B))
             win = torch.cat([t for xl in warm for t in xl], 0)
+        out, wout = self._launch_qpchain(buf, fs, win, iters)
+        self.launches["tick_qpchain"] += 1
+        return out, wout
+
+    def _launch_qpchain(self, buf, fs, win, iters):
+        """tick_qpchain on checked inputs (f* and the warm state each
+        concatenated, or None) → (result buffer, warm buffer); counts
+        nothing."""
+        B = buf.shape[-1]
+        lib, sz = self._lib_and_sizes()
         out = torch.empty((sz["out"], B), dtype=torch.float32, device=buf.device)
         wout = torch.empty((sz["warm"], B), dtype=torch.float32, device=buf.device)
         stream = torch.cuda.current_stream(buf.device).cuda_stream
@@ -621,8 +640,26 @@ class TickKernels(nn.Module):
             None if win is None else win.data_ptr(), out.data_ptr(),
             wout.data_ptr(), sz["smem_qp"], B, int(iters), stream)
         self._raise_on(rc, "tick_qpchain")
-        self.launches["tick_qpchain"] += 1
         return out, wout
+
+    def tick_staged(self, q, fs, win, cmask, iters):
+        """Both kernels on the inputs as they reach the kernels: q (nq, B),
+        f* of every level concatenated (T, B), the warm (x, λ) of every QP
+        concatenated (warm_elems, B) or None, the mask (nc, B) or None →
+        (result buffer, warm buffer).  Counts nothing: a caller that
+        captures the launches into a CUDA graph counts the replays."""
+        B = q.shape[-1]
+        plan = self.plan
+        self._check("q", q, (plan.nq, B))
+        if (cmask is not None) != plan.masked:
+            raise ValueError("cmask goes with a masked plan, and only there")
+        if cmask is not None:
+            self._check("cmask", cmask, (len(plan.cfg.contacts), B))
+        self._check("fstars", fs, (sum(plan.level_tdofs), B))
+        if win is not None:
+            self._check("warm", win, (_elems(warm_layout(plan)), B))
+        pre = self._launch_prestage(q, cmask, None, None, None, 0)
+        return self._launch_qpchain(pre, fs, win, iters)
 
     # ---------------------------------- the plain version's interface
     # A servo'd prestage dict also holds "fstars" (the f* of every level)

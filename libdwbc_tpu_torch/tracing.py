@@ -40,8 +40,13 @@ The spans and what they time:
 ``dwbc.loop.sync``          the control loop's host read of ``trip.any()``
 ``dwbc.loop.transition``    the loop's transition between ticks
 ``dwbc.tick.prep``          ``FusedTick``: inputs to element-leading tensors
-``dwbc.tick.run``           ``FusedTick``: the tick's launch (the kernels')
+                            (a graph's: staged into its static buffers)
+``dwbc.tick.run``           ``FusedTick``: the tick's launch (the kernels',
+                            or the graph's replay or capture)
+``dwbc.tick.replay``        inside it: a CUDA graph's replay
+``dwbc.tick.capture``       inside it: a CUDA graph's capture
 ``dwbc.tick.post``          ``FusedTick``: results back to batch-major
+                            (a graph's outputs copied first)
 ``dwbc.consumer``           one ``native.TickConsumer`` call
 ``dwbc.consumer.read``      its reads of τ_cmd and ``qp_error``
 ``dwbc.mesh.step``          one ``sharded_batch_solver`` step on this rank
@@ -61,7 +66,8 @@ import torch
 from torch._C._profiler import _RecordFunctionFast as _Twin
 
 NAMES = ("dwbc.loop.sync", "dwbc.loop.transition", "dwbc.tick.prep", "dwbc.tick.run",
-         "dwbc.tick.post", "dwbc.consumer", "dwbc.consumer.read", "dwbc.mesh.step")
+         "dwbc.tick.post", "dwbc.consumer", "dwbc.consumer.read", "dwbc.mesh.step",
+         "dwbc.tick.replay", "dwbc.tick.capture")
 # over a minute of a B = 1024 control loop, at five spans a tick
 CAPACITY = 1 << 18
 

@@ -8,7 +8,8 @@ under ``backend="cuda"``), fed by q̇.  ``masked=True`` is
 the multi-contact-mode tick: ``cfg.contacts`` is a candidate set and each
 call takes a per-scenario ``contact_mask`` (the ``MaskedTick`` signature, so
 ``make_control_loop`` drives either).  ``backend="cuda"`` runs
-``tick_prestage`` then ``tick_qpchain`` (``ops/tick_cuda.py``);
+``tick_prestage`` then ``tick_qpchain`` (``ops/tick_cuda.py``), a call
+without servos from the CUDA graph of its shape (``wbc/tick_graph.py``);
 ``backend="torch"`` runs the plain element-leading program
 (``ops/tick_kernel.py``) on any device.
 """
@@ -37,10 +38,15 @@ class FusedTick(nn.Module):
         self.backend = backend
         self.masked = masked
         self.prog = TickProgram(model, cfg, device, dtype, masked=masked)
+        # how often a call was served by a captured graph, and how often eagerly
+        self.graph_counts = {"captures": 0, "replays": 0, "eager": 0}
+        self.graphs = None
         if backend == "cuda":
             from ..ops.tick_cuda import TickKernels
+            from .tick_graph import TickGraphs
 
             self.kernels = TickKernels(self.prog)
+            self.graphs = TickGraphs(self, self.graph_counts)
 
     @property
     def device(self):
@@ -95,19 +101,37 @@ class FusedTick(nn.Module):
         state out when warm was given.  servos: CompiledTick's nested per-level
         / per-spec ServoParams; q̇ feeds the servo'd task links' velocities.
         Without servos q̇ is unused: the tick compensates gravity, not
-        Coriolis.  The three stages are the spans ``dwbc.tick.prep``,
-        ``dwbc.tick.run`` (the launches) and ``dwbc.tick.post``."""
+        Coriolis.
+
+        Under ``backend="cuda"`` a call without servos is served by the CUDA
+        graph of its shape (``wbc/tick_graph.py``; ``graph_counts``), any
+        other eagerly.  The three stages are the spans ``dwbc.tick.prep``
+        (the inputs staged, or made element-leading), ``dwbc.tick.run`` (the
+        graph's replay or capture, or the launches) and ``dwbc.tick.post``
+        (the graph's outputs copied; the results batch-major)."""
         with tracing.span("dwbc.tick.prep"):
             if (contact_mask is not None) != self.masked:
                 raise ValueError("contact_mask goes with FusedTick(masked=True), and only there")
-            batched, q_el, fs_el, kw = self._element_leading(q, qdot, fstars, contact_mask,
-                                                             warm, servos)
-            kw["iters"] = self.cfg.qp_iters if qp_iters is None else qp_iters
-            ticker = self.kernels if self.backend == "cuda" else self.prog
+            iters = self.cfg.qp_iters if qp_iters is None else qp_iters
+            graph = None if self.graphs is None else self.graphs.graph(
+                q, fstars, contact_mask, warm, iters, servos)
+            if graph is None:
+                self.graph_counts["eager"] += 1
+                batched, q_el, fs_el, kw = self._element_leading(q, qdot, fstars, contact_mask,
+                                                                 warm, servos)
+                kw["iters"] = iters
+                ticker = self.kernels if self.backend == "cuda" else self.prog
         with tracing.span("dwbc.tick.run"):
-            out = ticker.tick(q_el, fs_el, **kw)
+            if graph is None:
+                out = ticker.tick(q_el, fs_el, **kw)
+            else:
+                graph.run()
         with tracing.span("dwbc.tick.post"):
-            return self._batch_major(out, batched, warm is not None)
+            if graph is None:
+                return self._batch_major(out, batched, warm is not None)
+            out, wout, err = graph.results()
+            return self._batch_major(self.kernels.unpack_result(out, wout), graph.batched,
+                                     warm is not None, err)
 
     def _element_leading(self, q, qdot, fstars, contact_mask, warm, servos):
         """(batched, q, f*, the other inputs by keyword) of a call,
@@ -145,9 +169,10 @@ class FusedTick(nn.Module):
             w_el = [(as_t(x).T.contiguous(), as_t(l).T.contiguous()) for x, l in warm]
         return batched, q_el, fs_el, dict(warm=w_el, cmask=cm_el, qdot=qd_el, servos=sv_el)
 
-    def _batch_major(self, out, batched, warm_given):
+    def _batch_major(self, out, batched, warm_given, qp_error=None):
         """The kernels' element-leading outputs as the TickResult (and the
-        warm state out when warm was given), batch-major."""
+        warm state out when warm was given), batch-major; ``qp_error`` when
+        it was computed already (B,)."""
 
         def bm(t):
             return t.movedim(-1, 0)
@@ -161,8 +186,8 @@ class FusedTick(nn.Module):
             qp_gap=out["qp_gap"],
             qp_primal_res=out["qp_primal_res"],
             contact_rank_health=out["health"],
-            qp_error=qp_error_flag(out["qp_gap"], out["qp_primal_res"],
-                                   bm(out["torque_cmd"]), self.cfg),
+            qp_error=qp_error if qp_error is not None else qp_error_flag(
+                out["qp_gap"], out["qp_primal_res"], bm(out["torque_cmd"]), self.cfg),
         )
         wout = tuple((bm(x), bm(l)) for x, l in out["warm_out"])
         if not batched:

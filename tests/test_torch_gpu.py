@@ -1126,3 +1126,170 @@ def test_batched_bridge_cuda_matches_float64_bridge(dev):
     want = ref.solve(qpos, qvel, qvel, f[0], f[1])
     assert got.dtype == np.float32 and np.isfinite(got).all()
     assert np.abs(got - want).max() <= 0.05
+
+
+# ------------------------------------------------- the tick's CUDA graphs
+def _graph_and_eager(m, cfg, dev, masked=False):
+    """(a FusedTick served from its CUDA graphs, one that runs every call
+    eagerly: its ``graphs`` taken away)."""
+    from libdwbc_tpu_torch.wbc.fused import FusedTick
+
+    graph = FusedTick(m, cfg, dev, backend="cuda", masked=masked)
+    eager = FusedTick(m, cfg, dev, backend="cuda", masked=masked)
+    eager.graphs = None
+    return graph, eager
+
+
+def _assert_bits(a, b):
+    """Two results (tensors, or tuples of them, nested) equal bit for bit."""
+    if isinstance(a, tuple):
+        assert isinstance(b, tuple) and len(a) == len(b)
+        for x, y in zip(a, b):
+            _assert_bits(x, y)
+        return
+    assert a.shape == b.shape and a.dtype == b.dtype
+    if a.dtype == torch.float32:
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+    assert torch.equal(a, b)
+
+
+def _batch_inputs(m, B, seed):
+    """B standing states (device float32) and f* per level."""
+    from libdwbc_tpu_torch.entry import _example_inputs
+
+    rng = np.random.default_rng(seed)
+    q, _, fs = _example_inputs(m)
+    qs = np.tile(q, (B, 1))
+    qs[:, 6:39] += 0.02 * rng.standard_normal((B, 33)).astype(np.float32)
+    fss = tuple(np.tile(f, (B, 1)) + 0.05 * rng.standard_normal((B, f.shape[0])).astype(
+        np.float32) for f in fs)
+    return (torch.as_tensor(qs, device="cuda"),
+            tuple(torch.as_tensor(f, device="cuda") for f in fss))
+
+
+def _moved(q, d):
+    """q with every joint moved by d."""
+    q = q.clone()
+    q[..., 6:39] += d
+    return q
+
+
+def test_graph_lane_tick_matches_eager(case, dev):
+    """The unbatched lane tick, its q and f* float64 numpy as
+    ``native.TickConsumer`` hands them: cold at 12 iterations, then warm at
+    7, bit for bit the eager tick's, the warm state carried; one capture a
+    budget, replays after."""
+    from libdwbc_tpu_torch.entry import _example_inputs
+
+    g, e = _graph_and_eager(case["model"], case["cfg"], dev)
+    q0, qd, fs0 = _example_inputs(case["model"], np.float64)
+    rng = np.random.default_rng(17)
+    wg, we = g.init_warm(), e.init_warm()
+    for k in range(6):
+        q = q0.copy()
+        q[6:39] += 0.02 * rng.standard_normal(33)
+        fs = tuple(f + 0.05 * rng.standard_normal(f.shape) for f in fs0)
+        iters = None if k == 0 else 7
+        rg, wg = g._tick_impl(q, qd, fs, warm=wg, qp_iters=iters)
+        re, we = e._tick_impl(q, qd, fs, warm=we, qp_iters=iters)
+        _assert_bits((tuple(rg), wg), (tuple(re), we))
+        assert rg.torque_cmd.shape == (33,) and rg.qp_error.shape == ()
+    assert not bool(rg.qp_error)
+    assert g.graph_counts == {"captures": 2, "replays": 4, "eager": 0}
+    assert e.graph_counts["eager"] == 6
+
+
+@pytest.mark.parametrize("mask", [None, "1d", "2d"])
+def test_graph_batch_tick_matches_eager(case, dev, mask):
+    """B = 1024 on the card, cold at 12 then warm at 7 twice (masked: a 1-D
+    mask for every lane, or the sweep's per-lane 2-D mask): bit for bit the
+    eager tick's."""
+    from libdwbc_tpu_torch.entry import _masked_inputs
+
+    B = 1024
+    m = case["model"]
+    if mask is None:
+        q, fs = _batch_inputs(m, B, 23)
+        args = ()
+    else:
+        qn, _, fsn, masks = _masked_inputs(m, B, seed=23)
+        q = torch.as_tensor(qn, device=dev)
+        fs = tuple(torch.as_tensor(f, device=dev) for f in fsn)
+        args = (torch.tensor([1.0, 0.0], device=dev) if mask == "1d"
+                else torch.as_tensor(masks, device=dev),)
+    g, e = _graph_and_eager(m, case["cfg"], dev, masked=mask is not None)
+    qd = torch.zeros((B, 39), device=dev)
+    wg, we = g.init_warm((B,)), e.init_warm((B,))
+    for k, iters in enumerate((12, 7, 7)):
+        qk = _moved(q, 1e-3 * k)
+        rg, wg = g._tick_impl(qk, qd, fs, *args, warm=wg, qp_iters=iters)
+        re, we = e._tick_impl(qk, qd, fs, *args, warm=we, qp_iters=iters)
+        _assert_bits((tuple(rg), wg), (tuple(re), we))
+    assert g.graph_counts == {"captures": 2, "replays": 1, "eager": 0}
+
+
+def test_graph_results_are_not_overwritten(case, dev):
+    """Two consecutive replays of one key: the first call's results and
+    warm state stay as they were."""
+    g, _ = _graph_and_eager(case["model"], case["cfg"], dev)
+    q, fs = _batch_inputs(case["model"], 64, 29)
+    qd = torch.zeros((64, 39), device=dev)
+    w = g.init_warm((64,))
+    outs = [g._tick_impl(_moved(q, 1e-3 * k), qd, fs, warm=w, qp_iters=7) for k in range(3)]
+    kept = [(tuple(t.clone() for t in r), tuple((x.clone(), l.clone()) for x, l in ww))
+            for r, ww in outs]
+    later = g._tick_impl(_moved(q, -1e-3), qd, fs, warm=w, qp_iters=7)
+    torch.cuda.synchronize()
+    for (r, ww), k in zip(outs, kept):
+        _assert_bits((tuple(r), ww), k)
+    assert not torch.equal(outs[1][0].torque_cmd, outs[2][0].torque_cmd)
+    assert not torch.equal(later[0].torque_cmd, outs[2][0].torque_cmd)
+    assert g.graph_counts["replays"] == 3
+
+
+def test_graph_control_loop_matches_eager(case, dev):
+    """``make_control_loop(..., gap_fallback=1e-3)`` on a moving state: the
+    same LoopResult from the graphs as from the eager tick."""
+    from libdwbc_tpu_torch.wbc.loop import make_control_loop
+
+    g, e = _graph_and_eager(case["model"], case["cfg"], dev)
+    q, fs = _batch_inputs(case["model"], 256, 31)
+    qd = torch.zeros((256, 39), device=dev)
+
+    def transition(q, qdot, res, dt):
+        return _moved(q, 1e-3 * torch.tanh(res.torque_cmd / 100.0)), qdot
+
+    got, want = (make_control_loop(t, transition, K=8, warm_start=True, warm_iters=7,
+                                   gap_fallback=1e-3)(q, qd, fs) for t in (g, e))
+    assert got.refined_ticks == want.refined_ticks
+    _assert_bits(tuple(got[:5]), tuple(want[:5]))
+    assert g.graph_counts["captures"] == 2
+    assert g.graph_counts["replays"] == 6 + got.refined_ticks
+
+
+def test_graph_launch_counts_and_keys(case, dev, monkeypatch):
+    """A capture adds no launch and a replay two (one a kernel), as the
+    eager tick; a new B captures a new key; past ``KEYS_MAX`` keys a call
+    runs eagerly, with the eager tick's results."""
+    from libdwbc_tpu_torch.wbc import tick_graph
+
+    g, e = _graph_and_eager(case["model"], case["cfg"], dev)
+    q, fs = _batch_inputs(case["model"], 8, 37)
+    qd = torch.zeros((8, 39), device=dev)
+    g._tick_impl(q, qd, fs)             # the key's first call: eager, then the capture
+    assert g.kernels.launches == {"tick_prestage": 1, "tick_qpchain": 1}
+    assert g.graph_counts == {"captures": 1, "replays": 0, "eager": 0}
+    for n in (2, 3):
+        g._tick_impl(q, qd, fs)
+        assert g.kernels.launches == {"tick_prestage": n, "tick_qpchain": n}
+    assert g.graph_counts == {"captures": 1, "replays": 2, "eager": 0}
+    g._tick_impl(q[:5], qd[:5], tuple(f[:5] for f in fs))
+    assert g.graph_counts["captures"] == 2
+    monkeypatch.setattr(tick_graph, "KEYS_MAX", 3)
+    g._tick_impl(q[:6], qd[:6], tuple(f[:6] for f in fs))
+    assert g.graph_counts["captures"] == 3
+    got = g._tick_impl(q[:7], qd[:7], tuple(f[:7] for f in fs))
+    assert g.graph_counts == {"captures": 3, "replays": 2, "eager": 1}
+    _assert_bits(tuple(got), tuple(e._tick_impl(q[:7], qd[:7], tuple(f[:7] for f in fs))))
+    torch.cuda.synchronize()
+    assert g.kernels.launches == {"tick_prestage": 6, "tick_qpchain": 6}

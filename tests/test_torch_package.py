@@ -24,7 +24,8 @@ MODULES = ("libdwbc_tpu_torch", "libdwbc_tpu_torch.convert", "libdwbc_tpu_torch.
            "libdwbc_tpu_torch.ops.qp_cuda", "libdwbc_tpu_torch.ops.tick_kernel",
            "libdwbc_tpu_torch.ops.tick_cuda", "libdwbc_tpu_torch.ops._build",
            "libdwbc_tpu_torch.wbc.dynamics", "libdwbc_tpu_torch.wbc.hqp",
-           "libdwbc_tpu_torch.wbc.fused", "libdwbc_tpu_torch.wbc.pipeline",
+           "libdwbc_tpu_torch.wbc.fused", "libdwbc_tpu_torch.wbc.tick_graph",
+           "libdwbc_tpu_torch.wbc.pipeline",
            "libdwbc_tpu_torch.wbc.types", "libdwbc_tpu_torch.wbc.masked",
            "libdwbc_tpu_torch.wbc.loop", "libdwbc_tpu_torch.utils.traj",
            "libdwbc_tpu_torch.model.urdf", "libdwbc_tpu_torch.model.rotations_np",
