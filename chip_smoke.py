@@ -258,7 +258,20 @@ Phases, each fatal on failure (nothing is caught):
    callback, every τ_cmd bit for bit the same chain called directly on
    the consumed states, the first within TAU_CMD_TOL of the plain float32
    tick; consumed ticks, missed deadlines and the consumer's latency
-   against the 1 ms bar printed.
+   against the 1 ms bar printed;
+31. the benchmark's hands-and-feet rollout pool (hands_pool): the
+   configuration wbcbench/configs/tocabi_hands_feet.json through the
+   benchmark's FusedTick(backend="cuda") and make_control_loop (gap_fallback
+   1e-3, warm at 7), on the eight draws of wbcbench/traffic/rollouts_b1024.json
+   (pool_seed 0, 1024 lanes each): one K = 64 rollout a draw, every call
+   (tick 0, each warm tick, each re-solve) against the benchmark's float64
+   reference on the card (wbcbench/reference), 4096 lanes a block, from the
+   call's own inputs; then tick 0 of eight fresh pools (pool_seed 1-8,
+   65,536 cold lane-solves).  Prints the largest τ_grav, τ_task, force_tau and
+   task_x deviations of the unflagged lanes and the flagged lanes; holds
+   every unflagged lane within the configuration's limits and, in pool 0,
+   no served lane-tick flagged.  ``python3 chip_smoke.py hands_pool`` runs
+   this phase alone.
 
 Each phase's time is printed as it ends.
 
@@ -2243,6 +2256,127 @@ def native_phase(dev, model, card):
     return launches
 
 
+def hands_pool(dev, card):
+    """Phase 31: the benchmark's hands-and-feet rollout pool against its
+    float64 reference (see the module docstring)."""
+    from libdwbc_tpu_torch.wbc.loop import make_control_loop
+    from wbcbench import program, recipes
+    from wbcbench.harness import load_json
+    from wbcbench.record import Recorder
+    from wbcbench.reference import RefTick
+
+    config = load_json(ROOT / "wbcbench" / "configs" / "tocabi_hands_feet.json")
+    traffic = load_json(ROOT / "wbcbench" / "traffic" / "rollouts_b1024.json")
+    lim = config["limits"]
+    tick = program.build_tick(config, dev)
+    ref = RefTick(config, dev, torch.float64)
+    tdofs = ref.plan.level_tdofs
+    B, K, gain = traffic["batch"], traffic["rollout_ticks"], traffic["nudge"]
+    q0, fs0 = recipes.standing(traffic, tick.model.nq, tick.model.ndof)
+    worst = {n: 0.0 for n in ("tau_grav_nm", "tau_task_nm", "force_tau_n", "task_x")}
+    tally = {"calls": 0, "lanes": 0, "flagged": 0, "over": 0}
+    blocks = {}
+
+    def judge(calls):
+        """Every unflagged lane of ``calls`` (one budget) against the
+        reference from the call's own inputs."""
+        def cat(f):
+            return torch.cat([f(c) for c in calls], 0)
+
+        q = cat(lambda c: c["q"])
+        fs = [cat(lambda c, h=h: c["fstars"][h]) for h in range(len(tdofs))]
+        warm = [(cat(lambda c, h=h: c["warm_in"][h][0]), cat(lambda c, h=h: c["warm_in"][h][1]))
+                for h in range(len(tdofs) + 1)]
+        out = ref.tick_el(q, fs, None, warm, calls[0]["iters"])
+        res = {f: cat(lambda c, f=f: getattr(c["res"], f))
+               for f in ("torque_grav", "torque_task", "torque_cmd", "contact_force", "qp_error")}
+        ok = ~res["qp_error"]
+        pre = out["pre"]
+        want_f = (torch.einsum("ij...,j...->i...", pre["Jbar_act"],
+                               res["torque_cmd"].T.double()) - pre["P_C"]).T
+        lane = {"tau_grav_nm": (res["torque_grav"].double() - out["torque_grav"]).abs().amax(1),
+                "tau_task_nm": (res["torque_task"].double() - out["torque_task"]).abs().amax(1),
+                "force_tau_n": (res["contact_force"].double() - want_f).abs().amax(1),
+                "task_x": torch.stack([
+                    (cat(lambda c, h=h: c["warm_out"][h][0])[:, :t].double()
+                     - out["warm_out"][h][0][:, :t]).abs().amax(1)
+                    for h, t in enumerate(tdofs)], 0).amax(0)}
+        over = torch.zeros_like(ok)
+        for n, v in lane.items():
+            v = torch.where(ok, v, torch.zeros_like(v))
+            worst[n] = max(worst[n], float(v.max()))
+            over |= v > lim[n]
+        tally["calls"] += len(calls)
+        tally["lanes"] += int(ok.numel())
+        tally["flagged"] += int((~ok).sum())
+        tally["over"] += int(over.sum())
+
+    def offer(call):
+        group = blocks.setdefault(call["iters"], [])
+        group.append(call)
+        if len(group) * B >= 4096:
+            judge(group)
+            group.clear()
+
+    def flush():
+        for group in blocks.values():
+            if group:
+                judge(group)
+                group.clear()
+
+    rec = Recorder(tick, config["warm_iters"])
+    loop = make_control_loop(rec, lambda q, qd, res, dt: (recipes.nudge(q, res.torque_cmd, gain),
+                                                           qd),
+                             K=K, warm_start=True, warm_iters=config["warm_iters"],
+                             gap_fallback=traffic["gap_fallback"])
+    t0 = time.perf_counter()
+    gen = recipes.generator(dev, traffic["pool_seed"])
+    pool = [recipes.draw_batch(traffic, q0, fs0, (B,), gen, dev) for _ in range(traffic["pool"])]
+    served_flagged, refined = 0, 0
+    for d, (q, qd, fs) in enumerate(pool):
+        sink = {}
+        rec.arm(range(K), sink)
+        out = loop(q, qd, fs)
+        rec.arm((), None)
+        served_flagged += int(out.qp_error.sum())
+        refined += out.refined_ticks
+        for k in range(K):
+            for call in sink[k]:
+                offer(call)
+        del sink, out
+    flush()
+    print(f"hands-and-feet rollout pool (pool_seed {traffic['pool_seed']}, {len(pool)} draws x {B} "
+          f"lanes, K = {K}): {tally['calls']} calls, {tally['lanes']} lane-solves against the "
+          f"float64 reference, {tally['flagged']} flagged, {tally['over']} unflagged over the "
+          f"limits; served lane-ticks flagged {served_flagged}; {refined} of "
+          f"{len(pool) * (K - 1)} warm ticks re-solved; worst "
+          + ", ".join(f"{n} {v:.4e} (limit {lim[n]:g})" for n, v in worst.items())
+          + f"  ({time.perf_counter() - t0:.1f} s)  [{card}]")
+    pool0, over0 = dict(worst), tally["over"]
+    for key in worst:
+        worst[key] = 0.0
+    tally.update(calls=0, lanes=0, flagged=0, over=0)
+    t0 = time.perf_counter()
+    for seed in range(1, 9):
+        gen = recipes.generator(dev, seed)
+        for _ in range(traffic["pool"]):
+            q, qd, fs = recipes.draw_batch(traffic, q0, fs0, (B,), gen, dev)
+            warm = tick.init_warm((B,))
+            res, wout = tick._tick_impl(q, qd, fs, warm=warm, qp_iters=config["cold_iters"])
+            offer(dict(q=q, fstars=tuple(fs), warm_in=warm, iters=config["cold_iters"], res=res,
+                       warm_out=wout))
+    flush()
+    print(f"hands-and-feet fresh pools (pool_seed 1-8, tick 0 cold at {config['cold_iters']}): "
+          f"{tally['lanes']} lane-solves, {tally['flagged']} flagged, {tally['over']} unflagged "
+          f"over the limits; worst "
+          + ", ".join(f"{n} {v:.4e}" for n, v in worst.items())
+          + f"  ({time.perf_counter() - t0:.1f} s)  [{card}]")
+    assert over0 == 0, "hands-and-feet pool: an unflagged lane over the limits"
+    assert served_flagged == 0, "hands-and-feet pool: a served lane-tick flagged"
+    assert tally["over"] == 0, "hands-and-feet fresh pools: an unflagged lane over the limits"
+    return pool0
+
+
 def main():
     t_start = time.perf_counter()
     marks = [("1", t_start)]
@@ -3254,6 +3388,8 @@ def main():
     mesh_launches = mesh_phase(dev, model, card)
     phase("30")
     rt_launches = native_phase(dev, model, card)
+    phase("31")
+    hands_pool(dev, card)
     phase("bounds, resources and the record")
 
     # bounds at batch B (B_M masked): bytes of each kernel's inputs and
@@ -3438,4 +3574,10 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["hands_pool"]:
+        sys.path.insert(0, str(ROOT))
+        from libdwbc_tpu_torch.ops import _build as _b
+        _b.build()
+        hands_pool(torch.device("cuda", 0), gpu_line())
+    else:
+        main()

@@ -2,10 +2,12 @@
 process: each tree's csrc/ is built into its own library, and the kernel
 is timed with CUDA events on the serving inputs of chip_smoke.py (static at
 B = 1024 and B = 1, masked at B = 4096, servo'd at B = 1024, config 3 —
-single support, a swing-foot third level — at B = 1024), in the order
-this, other, other, this; then the hands-and-feet plans (entry.
-_hands_feet_config: static at B = 1024, the four candidates masked at
-B = 4096) on this tree alone.
+single support, a swing-foot third level — at B = 1024) and the
+hands-and-feet plans (entry._hands_feet_config: static at B = 1024, the
+four candidates masked at B = 4096, and the eight draws of the benchmark's
+rollout pool, wbcbench/traffic/rollouts_b1024.json, at B = 1024 each), in
+the order this, other, other, this; a tree without the hands-and-feet plans
+leaves them to this tree alone.
 
     python -m libdwbc_tpu_torch.ab_prestage OTHER_REPO_ROOT
 
@@ -15,8 +17,8 @@ or those of a tree without ``dwbc_prestage_stride``, whose kernel takes no
 shared stride; each tree's kernels read the table that its own
 ``kernel_table`` packs (computed by a python run in that tree).  Prints
 each time, the mean of each tree's two runs, whether the two prestage
-buffers agree bit for bit, and the card's name and power limit.  Needs a
-CUDA device.
+buffers agree bit for bit (where not: the entries and the scenarios that
+differ), and the card's name and power limit.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 from . import entry
 from .model.compile import RobotModel
 from .ops import _build
-from .ops.tick_cuda import kernel_table, pack_servos, servo_mask
+from .ops.tick_cuda import pack_servos, servo_mask
 from .ops.tick_kernel import TickProgram
 from .wbc.fused import FusedTick
 from .wbc.pipeline import standard_tocabi_config
@@ -69,8 +71,9 @@ def build_tree(csrc: Path, out: Path) -> ctypes.CDLL:
     return lib
 
 
-# run in a tree: the kernel tables of the flagship, static and masked, and
-# of config 3, as that tree packs them (JSON lists of float64)
+# run in a tree: the kernel tables of the flagship, static and masked, of
+# config 3 and, where the tree has them, of the hands-and-feet plans, as
+# that tree packs them (JSON lists of float64)
 _TABLES = """
 import json, sys
 sys.path.insert(0, sys.argv[1])
@@ -83,16 +86,34 @@ from libdwbc_tpu_torch.wbc.pipeline import standard_tocabi_config
 m = RobotModel.load(str(entry.MODEL_PATH))
 cfg = standard_tocabi_config(m, qp_iters=12)
 cfg3 = standard_tocabi_config(m, both_feet=False, swing_task=True, qp_iters=12)
+plans = [("static", cfg, False), ("masked", cfg, True), ("config 3", cfg3, False)]
+if hasattr(entry, "_hands_feet_config"):
+    hcfg = entry._hands_feet_config(m)
+    plans += [("hands", hcfg, False), ("hands masked", hcfg, True)]
 print(json.dumps({name: kernel_table(TickProgram(m, c, "cpu", torch.float64,
                                                  masked=k).plan).tolist()
-                  for name, c, k in (("static", cfg, False), ("masked", cfg, True),
-                                     ("config 3", cfg3, False))}))
+                  for name, c, k in plans}))
 """
 
 
+def rollout_pool(model, dev):
+    """The q of the eight draws of the benchmark's rollout pool
+    (wbcbench/traffic/rollouts_b1024.json, drawn on the card from its
+    pool_seed, as the benchmark's rollouts draw them)."""
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    from wbcbench import recipes
+
+    traffic = json.loads((root / "wbcbench" / "traffic" / "rollouts_b1024.json").read_text())
+    q0, fs0 = recipes.standing(traffic, model.nq, model.ndof)
+    gen = recipes.generator(dev, traffic["pool_seed"])
+    return [recipes.draw_batch(traffic, q0, fs0, (traffic["batch"],), gen, dev)[0]
+            for _ in range(traffic["pool"])]
+
+
 def tree_tables(root: Path):
-    """{"static", "masked", "config 3": float32 table} as the tree at root
-    packs them."""
+    """{"static", "masked", "config 3" and, where the tree has them, "hands",
+    "hands masked": float32 table} as the tree at root packs them."""
     out = subprocess.run([sys.executable, "-c", _TABLES, str(root)], capture_output=True,
                          text=True, check=True, cwd=str(root)).stdout
     return {k: np.asarray(v, np.float32) for k, v in json.loads(out).items()}
@@ -176,17 +197,19 @@ def main():
             th = np.ascontiguousarray(tables[tag][tab])
             runs[tag] = prestage_call(lib, th, torch.as_tensor(th, device=dev), el(q), cd, sv)
         cases.append((label, runs))
-    # the hands-and-feet plans: this tree only (a tree before them refuses them)
-    hcfg = entry._hands_feet_config(model)
+    # the hands-and-feet plans: this tree alone where the other has none
     hq, _, _ = entry._hands_feet_inputs(model, 1024, seed=0)
     hmq, _, _, hmasks = entry._hands_masked_inputs(model, 4096, seed=0)
-    for label, masked, q, cm in (("hands B 1024", False, hq, None),
-                                 ("hands masked B 4096", True, hmq, hmasks)):
-        th = np.ascontiguousarray(kernel_table(TickProgram(
-            model, hcfg, "cpu", torch.float64, masked=masked).plan).astype(np.float32))
-        cases.append((label, {"this": prestage_call(
-            libs["this"], th, torch.as_tensor(th, device=dev), el(q),
-            None if cm is None else el(cm))}))
+    pool = [("hands pool draw %d B 1024" % d, "hands", q.T.contiguous(), None)
+            for d, q in enumerate(rollout_pool(model, dev))]
+    for label, tab, q, cm in [("hands B 1024", "hands", el(hq), None),
+                              ("hands masked B 4096", "hands masked", el(hmq), el(hmasks))] + pool:
+        runs = {}
+        for tag, lib in libs.items():
+            if tab in tables[tag]:
+                th = np.ascontiguousarray(tables[tag][tab])
+                runs[tag] = prestage_call(lib, th, torch.as_tensor(th, device=dev), q, cm)
+        cases.append((label, runs))
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
@@ -201,8 +224,10 @@ def main():
             t[tag].append(event_ms(runs[tag]))
         a, b = runs["this"]().clone(), runs["other"]().clone()
         same = torch.equal(a, b)
-        diff = "" if same else (f" ({int((a != b).sum())} entries differ, max abs "
-                                f"{float((a - b).abs().max()):.3e})")
+        lanes = torch.nonzero((a != b).any(0)).flatten().tolist()
+        diff = "" if same else (f" ({int((a != b).sum())} entries of {len(lanes)} scenarios "
+                                f"differ, max abs {float((a - b).abs().max()):.3e}; "
+                                f"scenarios {lanes[:16]})")
         print(f"tick_prestage {label}: this " + " ".join(f"{v:.3f}" for v in t["this"])
               + f" (mean {np.mean(t['this']):.3f}) ms, other "
               + " ".join(f"{v:.3f}" for v in t["other"])

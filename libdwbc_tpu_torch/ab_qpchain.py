@@ -4,9 +4,9 @@ is timed with CUDA events on warm QP chains (7 iterations, from a cold
 12-iteration warm state) over this tree's prestage of chip_smoke.py's
 serving inputs (static at B = 1024 and B = 1, masked at B = 4096, config 3
 — single support, a swing-foot third level — at B = 1024), in the order
-this, other, other, this; then the hands-and-feet plans (entry.
+this, other, other, this, and the hands-and-feet plans (entry.
 _hands_feet_config: static at B = 1024, the four candidates masked at
-B = 4096) on this tree alone.
+B = 4096), on this tree alone where the other has none.
 
     python -m libdwbc_tpu_torch.ab_qpchain OTHER_REPO_ROOT
 
@@ -95,8 +95,8 @@ def main():
             ("static B 1", cfg, False, qs[:1], [x[:1] for x in fs], None, "static"),
             ("masked B 4096", cfg, True, mq, mfs, masks, "masked"),
             ("config 3 B 1024", cfg3, False, q3, fs3, None, "config 3"),
-            ("hands B 1024", hcfg, False, hq, hfs, None, None),
-            ("hands masked B 4096", hcfg, True, hmq, hmfs, hmasks, None)):
+            ("hands B 1024", hcfg, False, hq, hfs, None, "hands"),
+            ("hands masked B 4096", hcfg, True, hmq, hmfs, hmasks, "hands masked")):
         k = tc.TickKernels(TickProgram(model, c, dev, torch.float32, masked=masked))
         nb = q.shape[0]
         pre = k.prestage_packed(el(q), None if cm is None else el(cm))
@@ -106,7 +106,7 @@ def main():
         n_out, n_warm = tc._elems(tc.out_layout(k.plan)), tc._elems(tc.warm_layout(k.plan))
         runs = {"this": qpchain_call(libs["this"], k._table_host, pre.buf, fsb, warm, nb,
                                      n_out, n_warm)}
-        if tab is not None:   # a tree before the hands-and-feet plans refuses them
+        if tab in tables["other"]:   # a tree before the hands-and-feet plans has none
             runs["other"] = qpchain_call(libs["other"], tables["other"][tab], pre.buf, fsb,
                                          warm, nb, n_out, n_warm)
         t = {tag: [] for tag in runs}

@@ -109,6 +109,13 @@ constexpr int kPreWarps = 4;    // scenarios per block
 // to kPreSmemMax, one block per SM.
 constexpr long long kPreSmemElems = 7232;
 constexpr long long kPreSmemMax = 2 * kPreSmemElems;
+// qr_pinv's rcond for NwJw's inner system at float32 (float64: 1e-6), as
+// ops/tick_kernel.py::NWJW_RCOND_F32: the inner system is singular where the
+// rows normalised against do not span the kernel basis (four contacts), and
+// in float32 its dropped pivot is left at roundoff, up to ~1e-6 of the
+// largest; a kept one scales NwJw's dropped direction by ~1e6 and stops the
+// QP chain's IPM off the optimum.  Live pivots lie above 4e-2 of the largest.
+constexpr double kNwJwRcond32 = 1e-4;
 
 // The floats of X's buffer: nd², or what it is given once A⁻¹ is formed if
 // that is more — the small inverses' L and X (order max(cd, 6, tmax)), J_C,
@@ -749,7 +756,7 @@ DWBC_HD void prestage_lane(const T* table, const T* qp, const T* cmp, const T* q
       }
       wp.sync();
     }
-    qr_pinv(w.Pinv, w.M6, w.Qp, w.Rp, cf, (T)1e-6, wp);
+    qr_pinv(w.Pinv, w.M6, w.Qp, w.Rp, cf, sizeof(T) == 4 ? (T)kNwJwRcond32 : (T)1e-6, wp);
     mm(pre.NwJw, w.V2T, w.Pinv, md, cf, cf, wp);
     if (tb.masked) {
       for (int e = wp.lane; e < md * cf; e += wp.nl) {

@@ -47,6 +47,16 @@ _CUSTOM = (T.TASK_LINK_6D_CUSTOM_FRAME, T.TASK_LINK_POSITION_CUSTOM_FRAME,
 # qp_fail_pres (csrc/ipm.cuh::kLostPivotNear)
 LOST_PIVOT_NEAR = 1e-3
 
+# qr_pinv's rcond for NwJw's inner system J̄ᵀ[rows]·V2 at float32 (float64:
+# qr_pinv's 1e-6; csrc/tick_prestage.cu::kNwJwRcond32).  The inner system is
+# singular where the rows normalised against do not span the kernel basis
+# (four contacts: rank 11 of 12), and in float32 its dropped pivot is left
+# at roundoff, up to ~1e-6 of the largest; a kept one scales NwJw's dropped
+# direction by ~1e6, which buries the contact block of the IPM's Gram so that
+# it loses a pivot at every step and stops on it off the optimum.  The live
+# pivots of the served plans lie above 4e-2 of the largest.
+NWJW_RCOND_F32 = 1e-4
+
 # elem shapes of ServoParams fields (wbc/pipeline.py::ServoParams): FusedTick
 # tells batched from unbatched leaves by them, and the CUDA prestage reads a
 # servo'd task's fields in their sorted order (68 values)
@@ -566,11 +576,12 @@ class TickProgram(nn.Module):
         # W⁻¹ is never formed: it is applied through the Cholesky factor of
         # Wfree + V2V2ᵀ with a rank-cfree correction
         V2T = None
+        nwjw_rcond = NWJW_RCOND_F32 if f32 else 1e-6
         if P.cfree > 0 and not P.masked:
             Ny = el.complete_basis(J_C[:, 0:6])[:, 6:]   # (cdof, cfree)+bt
             V2T = el.qr_thin(el.mTm(J_C[:, 6:], Ny))     # (mdof, cfree)+bt
             L_W, idg_W = el.chol_factor(Wfree + el.mmT_sym(V2T, V2T))
-            NwJw = el.mm(V2T, el.qr_pinv(el.mm(Jbar[0:P.cfree, 6:], V2T)))
+            NwJw = el.mm(V2T, el.qr_pinv(el.mm(Jbar[0:P.cfree, 6:], V2T), nwjw_rcond))
         elif P.cfree > 0:
             # masked kernel basis: rank active_cdof − 6 ≤ cfree; the dead
             # directions are exact zero columns, compacted to the right
@@ -589,7 +600,7 @@ class TickProgram(nn.Module):
                    * live[:, None])                      # (cfree, cdof)+bt
             inner = el.mm(sel, el.mm(Jbar[:, 6:], V2T)) * live[:, None] * live[None]
             inner = el.diag_add(inner, list(1.0 - live))
-            NwJw = el.mm(V2T, el.qr_pinv(inner)) * live[None]
+            NwJw = el.mm(V2T, el.qr_pinv(inner, nwjw_rcond)) * live[None]
         else:
             L_W, idg_W = el.chol_factor(Wfree)
             NwJw = None

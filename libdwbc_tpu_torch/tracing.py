@@ -37,7 +37,10 @@ sessions with none of these between them share one store.
 The spans and what they time:
 
 ==========================  ================================================
-``dwbc.loop.sync``          the control loop's host read of ``trip.any()``
+``dwbc.loop.sync``          the control loop's host read of the tripped
+                            lanes' count
+``dwbc.loop.resolve``       the loop's full-budget re-solve of a warm tick
+                            and its per-lane selection
 ``dwbc.loop.transition``    the loop's transition between ticks
 ``dwbc.tick.prep``          ``FusedTick``: inputs to element-leading tensors
                             (a graph's: staged into its static buffers)
@@ -51,6 +54,13 @@ The spans and what they time:
 ``dwbc.consumer.read``      its reads of τ_cmd and ``qp_error``
 ``dwbc.mesh.step``          one ``sharded_batch_solver`` step on this rank
 ==========================  ================================================
+
+Counters, summed over the session while spans record (``count``; read in
+``totals()`` as a count with no time):
+
+============================  ==============================================
+``dwbc.loop.resolve_lanes``   lanes whose result the loop took from a re-solve
+============================  ==============================================
 """
 
 from __future__ import annotations
@@ -67,7 +77,8 @@ from torch._C._profiler import _RecordFunctionFast as _Twin
 
 NAMES = ("dwbc.loop.sync", "dwbc.loop.transition", "dwbc.tick.prep", "dwbc.tick.run",
          "dwbc.tick.post", "dwbc.consumer", "dwbc.consumer.read", "dwbc.mesh.step",
-         "dwbc.tick.replay", "dwbc.tick.capture")
+         "dwbc.tick.replay", "dwbc.tick.capture", "dwbc.loop.resolve",
+         "dwbc.loop.resolve_lanes")
 # over a minute of a B = 1024 control loop, at five spans a tick
 CAPACITY = 1 << 18
 
@@ -100,7 +111,7 @@ class _Store:
 
     def begin(self, kind):
         self.kind, self.capacity = kind, CAPACITY
-        self.records, self.dropped = [], 0
+        self.records, self.dropped, self.counts = [], 0, {}
         self.wall_ns, self.perf_ns = time.time_ns(), time.perf_counter_ns()
 
 
@@ -189,6 +200,13 @@ def span(name: str):
     return _Open(name) if _recording() else _OFF
 
 
+def count(name: str, n: int):
+    """Add ``n`` to counter ``name`` (one of ``NAMES``) while spans record;
+    otherwise one check."""
+    if _recording():
+        _store.counts[name] = _store.counts.get(name, 0) + n
+
+
 def sequence() -> int:
     """A new sequence number for a serving layer's requests."""
     return next(_sequence)
@@ -229,7 +247,8 @@ def spans() -> list:
 
 def totals() -> dict:
     """Per span name, the closed spans' ``Total``: count, total ns and self
-    ns (its time less the part its child spans cover)."""
+    ns (its time less the part its child spans cover); per counter, its sum
+    as the count and no time."""
     recs = spans()
     child = [0] * len(recs)
     for s in recs:
@@ -242,6 +261,8 @@ def totals() -> dict:
         n, tot, own = out.get(s.name, (0, 0, 0))
         d = s.end_ns - s.start_ns
         out[s.name] = Total(n + 1, tot + d, own + d - c)
+    for name, n in _store.counts.items():
+        out[name] = Total(n, 0, 0)
     return out
 
 

@@ -7,13 +7,15 @@ budget where it left a real gap or violation.  ``forward_dynamics_transition``
 is the closed-loop simulator step.
 
 The JAX loop is one ``lax.scan`` with a ``lax.cond`` around the re-solve.
-Here the ticks are a Python loop, and the condition is one read of
-``trip.any()`` per warm tick: one host sync per warm tick when
+Here the ticks are a Python loop, and the condition is one read of the
+tripped lanes' count per warm tick: one host sync per warm tick when
 ``gap_fallback`` is set, none otherwise.  The re-solve launches only when
-that read is true; its result and warm state are taken per lane with
-``torch.where``.  The read and each transition are spans of ``tracing``
-(``dwbc.loop.sync``, ``dwbc.loop.transition``), and every tick is a
-request block (loop call, tick) whose spans carry it.
+that count is not 0; its result and warm state are taken per lane with
+``torch.where``.  The read, the re-solve with its selection and each
+transition are spans of ``tracing`` (``dwbc.loop.sync``,
+``dwbc.loop.resolve``, ``dwbc.loop.transition``), the count is added to
+its counter ``dwbc.loop.resolve_lanes``, and every tick is a request block
+(loop call, tick) whose spans carry it.
 """
 
 from __future__ import annotations
@@ -177,18 +179,20 @@ def make_control_loop(
                 if gap_fallback is not None:
                     trip = torch.maximum(res.qp_gap, res.qp_primal_res) > gap_fallback
                     with tracing.span("dwbc.loop.sync"):
-                        tripped = bool(trip.any())   # the loop's one host sync
+                        tripped = int(trip.sum())    # the loop's one host sync
                     if tripped:
-                        res2, warm2 = _tick(q, qdot, fstars, contact_mask, warm=warm,
-                                            qp_iters=full, servos=sv)
+                        with tracing.span("dwbc.loop.resolve"):
+                            res2, warm2 = _tick(q, qdot, fstars, contact_mask, warm=warm,
+                                                qp_iters=full, servos=sv)
 
-                        def sel(a, b):
-                            t = trip.reshape(trip.shape + (1,) * (a.ndim - trip.ndim))
-                            return torch.where(t, a, b)
+                            def sel(a, b):
+                                t = trip.reshape(trip.shape + (1,) * (a.ndim - trip.ndim))
+                                return torch.where(t, a, b)
 
-                        res = TickResult(*(sel(a, b) for a, b in zip(res2, res)))
-                        warm = tuple((sel(x2, x), sel(l2, l))
-                                     for (x2, l2), (x, l) in zip(warm2, warm))
+                            res = TickResult(*(sel(a, b) for a, b in zip(res2, res)))
+                            warm = tuple((sel(x2, x), sel(l2, l))
+                                         for (x2, l2), (x, l) in zip(warm2, warm))
+                        tracing.count("dwbc.loop.resolve_lanes", tripped)
                         refined += 1
                 q, qdot = step(q, qdot, res)
             rs.append(res)

@@ -1293,3 +1293,36 @@ def test_graph_launch_counts_and_keys(case, dev, monkeypatch):
     _assert_bits(tuple(got), tuple(e._tick_impl(q[:7], qd[:7], tuple(f[:7] for f in fs))))
     torch.cuda.synchronize()
     assert g.kernels.launches == {"tick_prestage": 6, "tick_qpchain": 6}
+
+
+def test_hands_feet_lane487_lands_within_limits(dev):
+    """Lane 487 of draw 3 of the benchmark's rollout pool on the hands-and-
+    feet plan (tests/data/hands_feet_lane487.npz: its float32 q, q̇ and f*,
+    drawn on the card), served unbatched by FusedTick(backend="cuda") cold at
+    the plan's 25 iterations (the kernels repeat the lane's B = 1024 result
+    bit for bit at B = 1), against the plain float64 tick: τ_task within
+    1.0 Nm and the task variables within 0.5, the configuration's limits.
+    With qr_pinv's float64 rcond in the float32 prestage, tick_prestage kept
+    the singular inner system's roundoff pivot and the τ_task assertion
+    failed, 5.93 Nm off, the lane unflagged (tests/test_torch_hands_feet.py
+    puts the same roundoff into the plain path on the CPU)."""
+    from libdwbc_tpu_torch.entry import _hands_feet_config
+    from libdwbc_tpu_torch.model.compile import RobotModel
+    from libdwbc_tpu_torch.ops.tick_kernel import TickProgram
+    from libdwbc_tpu_torch.wbc.fused import FusedTick
+
+    m = RobotModel.load(MODEL)
+    hcfg = _hands_feet_config(m)
+    assert hcfg.qp_iters == 25
+    z = np.load(os.path.join(ROOT, "tests", "data", "hands_feet_lane487.npz"))
+    fs = (z["f0"], z["f1"])
+    tick = FusedTick(m, hcfg, dev, backend="cuda")
+    res, warm = tick._tick_impl(z["q"], z["qd"], fs, warm=tick.init_warm(), qp_iters=25)
+    plain = TickProgram(m, hcfg, "cpu", torch.float64)
+    want = plain.tick(torch.as_tensor(z["q"], dtype=torch.float64)[:, None],
+                      [torch.as_tensor(f, dtype=torch.float64)[:, None] for f in fs], iters=25)
+    assert not bool(res.qp_error)
+    tau_err = float((res.torque_task.cpu().double() - want["torque_task"][:, 0]).abs().max())
+    assert tau_err <= 1.0, tau_err
+    for (x, _), (wx, _), t in zip(warm, want["warm_out"], plain.plan.level_tdofs):
+        assert float((x.cpu().double()[:t] - wx[:t, 0]).abs().max()) <= 0.5

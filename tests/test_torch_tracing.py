@@ -193,3 +193,64 @@ def test_request_holds_for_its_block_only(served):
         tick._tick_impl(q, qd, fs)
         tracing.stop()
     assert [s.request for s in tracing.spans()] == [None] * len(TICK)
+
+
+class _ForcedTrip:
+    """The served tick with the gap of ``lanes`` raised past the fallback on
+    every warm tick at the warm budget, so that the loop re-solves those
+    lanes; every call's iteration budget and result are kept."""
+
+    def __init__(self, tick, lanes, warm_iters):
+        self.tick, self.lanes, self.warm_iters = tick, lanes, warm_iters
+        self.model, self.cfg, self.dtype, self.device = (tick.model, tick.cfg, tick.dtype,
+                                                         tick.device)
+        self.init_warm = tick.init_warm
+        self.calls = []
+
+    def _tick_impl(self, q, qdot, fstars, warm=None, qp_iters=None, servos=None):
+        res, w = self.tick._tick_impl(q, qdot, fstars, warm=warm, qp_iters=qp_iters,
+                                      servos=servos)
+        if qp_iters == self.warm_iters:
+            gap = res.qp_gap.clone()
+            gap[self.lanes] = 1.0
+            res = res._replace(qp_gap=gap)
+        self.calls.append((qp_iters, res))
+        return res, w
+
+
+def test_forced_trip_counts_resolved_lanes(served):
+    """With two of three lanes tripped on every warm tick, the loop re-solves
+    each warm tick once, in a ``dwbc.loop.resolve`` span of its request, and
+    counts the two lanes a tick in ``dwbc.loop.resolve_lanes``: the lanes
+    whose served torque is the re-solve's."""
+    model, tick, _, (q, qd, fs) = served
+    lanes, k_ = [0, 2], 4
+    forced = _ForcedTrip(tick, lanes, warm_iters=4)
+    loop = make_control_loop(forced, K=k_, warm_start=True, warm_iters=4, gap_fallback=1e-3)
+    batch = (np.tile(q[0], (3, 1)), np.tile(qd[0], (3, 1)), tuple(np.tile(f[0], (3, 1))
+                                                                   for f in fs))
+    tracing.start()
+    out = loop(*batch)
+    tracing.stop()
+    assert out.refined_ticks == k_ - 1
+    assert tracing.totals()["dwbc.loop.resolve_lanes"] == tracing.Total(len(lanes) * (k_ - 1),
+                                                                         0, 0)
+    sp = tracing.spans()
+    resolves = [s for s in sp if s.name == "dwbc.loop.resolve"]
+    assert [s.request[1] for s in resolves] == list(range(1, k_))
+    # each re-solve span holds the re-solve's tick and follows the tick's sync
+    for s in resolves:
+        mine = [c.name for c in sp if c.request == s.request and c.parent == -1]
+        assert mine == [*TICK, "dwbc.loop.sync", "dwbc.loop.resolve", "dwbc.loop.transition"]
+        assert [c.name for c in sp if c.parent == sp.index(s)] == list(TICK)
+    iters = [i for i, _ in forced.calls]
+    assert iters == [tick.cfg.qp_iters] + [4, tick.cfg.qp_iters] * (k_ - 1)
+    from_resolve = 0
+    for k in range(1, k_):
+        warm_res, full_res = forced.calls[2 * k - 1][1], forced.calls[2 * k][1]
+        served_k = out.torques[k]
+        took = (served_k == full_res.torque_cmd).all(-1) & (served_k != warm_res.torque_cmd).any(-1)
+        kept = (served_k == warm_res.torque_cmd).all(-1)
+        assert took.tolist() == [True, False, True] and bool(kept[1])
+        from_resolve += int(took.sum())
+    assert from_resolve == tracing.totals()["dwbc.loop.resolve_lanes"].count
