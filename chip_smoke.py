@@ -57,8 +57,9 @@ Phases, each fatal on failure (nothing is caught):
    masked=True, backend="cuda"), gap_fallback=1e-3) over B = 4096
    scenarios and K = 32 ticks (tick 0 cold at 12 iterations, then warm at
    7, q[:, 6:39] += 1e-6·tanh(τ_cmd) between ticks): every output finite,
-   no qp_error, primal residual ≤ 1e-3, launches exactly 2 × (K + refined
-   ticks), peak device memory; then the same chain without the fallback,
+   no qp_error, primal residual ≤ 1e-3, launches exactly K + refined ticks
+   of tick_qpchain and as many of tick_prestage less the re-solves that took
+   their warm tick's prestage, peak device memory; then the same chain without the fallback,
    whose qp_gap_max is printed, not asserted;
 10. the masked truth guard on 6 lanes, 2 per hypothesis: tick 0 of
    FusedTick(masked, cuda) vs the plain masked fused tick and vs the port's
@@ -153,7 +154,8 @@ Phases, each fatal on failure (nothing is caught):
    FusedTick(cuda), warm, gap_fallback 1e-3) at batch 1024, tick 0 cold at
    the configuration's 25 iterations, 15 warm ticks at 7, then one
    unbatched tick, its launch counts set to 0 just before and read just
-   after (two per tick and re-solve); on every lane and tick no qp_error,
+   after (two per tick and re-solve, less the tick_prestage of each
+   re-solve that took its warm tick's prestage); on every lane and tick no qp_error,
    gap and primal residual ≤ 1e-3, |τ_cmd| ≤ 300 Nm + 1e-3, the normal
    forces summing below −400 N; the truth guard on 4 lanes against the
    plain float64 tick on the CPU (τ_grav); times, the warm chain's
@@ -969,6 +971,7 @@ def hands_serving(dev, model, card, times):
     torch.cuda.synchronize()
     for k in tick.kernels.launches:
         tick.kernels.launches[k] = 0
+    tick.prestage_reuses = 0
     lr = loop(q_d, qd_d, fs_d)
     res1 = tick._tick_impl(q_d[0], qd_d[0], tuple(f[0] for f in fs_d))
     torch.cuda.synchronize()
@@ -976,8 +979,10 @@ def hands_serving(dev, model, card, times):
     n_solve = K + lr.refined_ticks + 1
     print(f"hands-and-feet serving path (make_control_loop, gap_fallback {GAP_FALLBACK:g}): "
           f"{K} ticks at batch {B} (tick 0 at {hcfg.qp_iters} iterations) + 1 unbatched tick, "
-          f"refined ticks {lr.refined_ticks}, launches {launches}")
-    assert launches == {"tick_prestage": n_solve, "tick_qpchain": n_solve}, launches
+          f"refined ticks {lr.refined_ticks} ({tick.prestage_reuses} on their warm tick's "
+          f"prestage), launches {launches}")
+    assert launches == {"tick_prestage": n_solve - tick.prestage_reuses,
+                        "tick_qpchain": n_solve}, launches
     for r in seen + [res1]:
         for name, v in r._asdict().items():
             if v.dtype != torch.bool:
@@ -1385,6 +1390,7 @@ def hands_masked_loop(dev, model, card, times):
     torch.cuda.synchronize()
     for k in tick.kernels.launches:
         tick.kernels.launches[k] = 0
+    tick.prestage_reuses = 0
     t0 = time.perf_counter()
     lr = loop(q_d, qd_d, fs_d, m_d)
     torch.cuda.synchronize()
@@ -1394,10 +1400,12 @@ def hands_masked_loop(dev, model, card, times):
     m_err, m_pres = int(lr.qp_error.sum()), float(lr.qp_primal_res.max())
     print(f"hands-and-feet masked sweep (make_control_loop, gap_fallback {GAP_FALLBACK:g}): "
           f"{K_M} ticks at batch {B_M}, tick 0 at {hcfg.qp_iters} iterations, refined ticks "
-          f"{lr.refined_ticks}, launches {launches}, {loop_s * 1e3:.3f} ms; qp_error "
+          f"{lr.refined_ticks} ({tick.prestage_reuses} on their warm tick's prestage), "
+          f"launches {launches}, {loop_s * 1e3:.3f} ms; qp_error "
           f"ticks×lanes {m_err}  qp_primal_res max {m_pres:.3e}  Σ normal force max "
           f"{max(fz):.1f} N")
-    assert launches == {"tick_prestage": n_solve, "tick_qpchain": n_solve}, launches
+    assert launches == {"tick_prestage": n_solve - tick.prestage_reuses,
+                        "tick_qpchain": n_solve}, launches
     for name, v in lr._asdict().items():
         if isinstance(v, torch.Tensor) and v.dtype != torch.bool:
             assert torch.isfinite(v).all(), f"hands masked loop: non-finite {name}"
@@ -2839,6 +2847,7 @@ def main():
     torch.cuda.reset_peak_memory_stats(dev)
     for k in mtick.kernels.launches:
         mtick.kernels.launches[k] = 0
+    mtick.prestage_reuses = 0
     t0 = time.perf_counter()
     lr = loop(mq_d, mqd_d, mfs_d, mm_d)
     torch.cuda.synchronize()
@@ -2847,9 +2856,11 @@ def main():
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
     n_solve = K_M + lr.refined_ticks
     print(f"masked serving path (make_control_loop, gap_fallback {GAP_FALLBACK:g}): {K_M} "
-          f"ticks at batch {B_M}, refined ticks {lr.refined_ticks}, launches {mlaunches}, "
+          f"ticks at batch {B_M}, refined ticks {lr.refined_ticks} ({mtick.prestage_reuses} "
+          f"on their warm tick's prestage), launches {mlaunches}, "
           f"peak device memory {peak_mb:.1f} MiB, {loop_s * 1e3:.3f} ms")
-    assert mlaunches == {"tick_prestage": n_solve, "tick_qpchain": n_solve}, mlaunches
+    assert mlaunches == {"tick_prestage": n_solve - mtick.prestage_reuses,
+                         "tick_qpchain": n_solve}, mlaunches
     for name, v in lr._asdict().items():
         if isinstance(v, torch.Tensor) and v.dtype != torch.bool:
             assert torch.isfinite(v).all(), f"masked loop: non-finite {name}"

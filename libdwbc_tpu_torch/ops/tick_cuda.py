@@ -15,8 +15,9 @@ section; its layout, its packing and the f* the QP chain reads follow from
 that one flag.
 
 Each wrapper adds one to ``launches[name]`` where it launches its kernel,
-except ``tick_staged``, whose caller (``wbc/tick_graph.py``, which captures
-it into a CUDA graph) counts the kernels that ran.  Outputs and workspace
+except ``prestage_staged`` and ``qpchain_staged``, whose caller
+(``wbc/tick_graph.py``, which captures them into CUDA graphs) counts the
+kernels that ran.  Outputs and workspace
 are allocated here with ``torch.empty``; the kernels run on the current
 stream, allocate nothing and do not synchronise.
 """
@@ -642,12 +643,11 @@ class TickKernels(nn.Module):
         self._raise_on(rc, "tick_qpchain")
         return out, wout
 
-    def tick_staged(self, q, fs, win, cmask, iters):
-        """Both kernels on the inputs as they reach the kernels: q (nq, B),
-        f* of every level concatenated (T, B), the warm (x, λ) of every QP
-        concatenated (warm_elems, B) or None, the mask (nc, B) or None →
-        (result buffer, warm buffer).  Counts nothing: a caller that
-        captures the launches into a CUDA graph counts the replays."""
+    def prestage_staged(self, q, cmask):
+        """``tick_prestage`` without servos on the inputs as they reach the
+        kernel: q (nq, B), the mask (nc, B) or None → the prestage buffer.
+        Counts nothing: a caller that captures the launch into a CUDA graph
+        counts the replays."""
         B = q.shape[-1]
         plan = self.plan
         self._check("q", q, (plan.nq, B))
@@ -655,10 +655,21 @@ class TickKernels(nn.Module):
             raise ValueError("cmask goes with a masked plan, and only there")
         if cmask is not None:
             self._check("cmask", cmask, (len(plan.cfg.contacts), B))
+        return self._launch_prestage(q, cmask, None, None, None, 0)
+
+    def qpchain_staged(self, pre, fs, win, iters):
+        """``tick_qpchain`` on a prestage buffer without the servo section
+        and the inputs as they reach the kernel: f* of every level
+        concatenated (T, B), the warm (x, λ) of every QP concatenated
+        (warm_elems, B) or None → (result buffer, warm buffer).  Counts
+        nothing, as ``prestage_staged``."""
+        B = pre.shape[-1]
+        plan = self.plan
+        _, sz = self._lib_and_sizes()
+        self._check("pre", pre, (sz["pre"], B))
         self._check("fstars", fs, (sum(plan.level_tdofs), B))
         if win is not None:
             self._check("warm", win, (_elems(warm_layout(plan)), B))
-        pre = self._launch_prestage(q, cmask, None, None, None, 0)
         return self._launch_qpchain(pre, fs, win, iters)
 
     # ---------------------------------- the plain version's interface

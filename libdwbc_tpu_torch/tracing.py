@@ -58,9 +58,12 @@ The spans and what they time:
 Counters, summed over the session while spans record (``count``; read in
 ``totals()`` as a count with no time):
 
-============================  ==============================================
-``dwbc.loop.resolve_lanes``   lanes whose result the loop took from a re-solve
-============================  ==============================================
+==============================  ============================================
+``dwbc.loop.resolve_lanes``     lanes whose result the loop took from a
+                                re-solve
+``dwbc.tick.prestage_reused``   ``FusedTick`` calls that took the previous
+                                call's prestage (the QP chain alone)
+==============================  ============================================
 """
 
 from __future__ import annotations
@@ -78,7 +81,7 @@ from torch._C._profiler import _RecordFunctionFast as _Twin
 NAMES = ("dwbc.loop.sync", "dwbc.loop.transition", "dwbc.tick.prep", "dwbc.tick.run",
          "dwbc.tick.post", "dwbc.consumer", "dwbc.consumer.read", "dwbc.mesh.step",
          "dwbc.tick.replay", "dwbc.tick.capture", "dwbc.loop.resolve",
-         "dwbc.loop.resolve_lanes")
+         "dwbc.loop.resolve_lanes", "dwbc.tick.prestage_reused")
 # over a minute of a B = 1024 control loop, at five spans a tick
 CAPACITY = 1 << 18
 

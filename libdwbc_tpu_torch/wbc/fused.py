@@ -40,6 +40,10 @@ class FusedTick(nn.Module):
         self.prog = TickProgram(model, cfg, device, dtype, masked=masked)
         # how often a call was served by a captured graph, and how often eagerly
         self.graph_counts = {"captures": 0, "replays": 0, "eager": 0}
+        # calls that took the previous call's prestage; what the next may take
+        # (a list: a module's attribute assignment costs microseconds a call)
+        self.prestage_reuses = 0
+        self._last = [None]
         self.graphs = None
         if backend == "cuda":
             from ..ops.tick_cuda import TickKernels
@@ -108,30 +112,88 @@ class FusedTick(nn.Module):
         other eagerly.  The three stages are the spans ``dwbc.tick.prep``
         (the inputs staged, or made element-leading), ``dwbc.tick.run`` (the
         graph's replay or capture, or the launches) and ``dwbc.tick.post``
-        (the graph's outputs copied; the results batch-major)."""
+        (the graph's outputs copied; the results batch-major).
+
+        Without servos the prestage depends on q and the mask alone.  A
+        call without servos whose q, and mask, are the very tensors of the
+        previous call, on the tick's device and not modified in place since
+        (their ``_version``), takes that call's prestage and runs the QP
+        chain alone (``prestage_reuses``, the counter
+        ``dwbc.tick.prestage_reused``): the control loop's full-budget
+        re-solve of a warm tick.  The held prestage is that of a graph's
+        replay (not of its capture, which executes nothing) or of the plain
+        path; the eager CUDA path (servos, keys past ``KEYS_MAX``) holds
+        none.  An input written behind torch's back (through numpy, ``.data``
+        or a raw pointer) between two calls has to be a new tensor."""
         with tracing.span("dwbc.tick.prep"):
             if (contact_mask is not None) != self.masked:
                 raise ValueError("contact_mask goes with FusedTick(masked=True), and only there")
             iters = self.cfg.qp_iters if qp_iters is None else qp_iters
-            graph = None if self.graphs is None else self.graphs.graph(
-                q, fstars, contact_mask, warm, iters, servos)
+            held = self._held_pre(q, contact_mask, servos)
+            graph = None
+            if self.graphs is not None:
+                if held is not None:
+                    graph = self.graphs.graph(q, fstars, contact_mask, warm, iters, servos,
+                                              source=held)
+                    if graph is None:
+                        held = None
+                if graph is None:
+                    graph = self.graphs.graph(q, fstars, contact_mask, warm, iters, servos)
+            if held is not None:
+                self.prestage_reuses += 1
+                tracing.count("dwbc.tick.prestage_reused", 1)
             if graph is None:
                 self.graph_counts["eager"] += 1
                 batched, q_el, fs_el, kw = self._element_leading(q, qdot, fstars, contact_mask,
                                                                  warm, servos)
                 kw["iters"] = iters
-                ticker = self.kernels if self.backend == "cuda" else self.prog
         with tracing.span("dwbc.tick.run"):
-            if graph is None:
-                out = ticker.tick(q_el, fs_el, **kw)
+            left = None                 # the prestage this call leaves to take
+            if graph is not None:
+                if graph.run():
+                    left = graph
+            elif self.backend == "torch" and servos is None:
+                left = held if held is not None else self.prog.prestage(q_el, kw["cmask"])
+                out = self.prog.qpchain(left, fs_el, warm=kw["warm"], iters=iters)
+                # the results alias these two fields of the prestage
+                out.update(torque_grav=out["torque_grav"].clone(),
+                           health=out["health"].clone())
             else:
-                graph.run()
+                ticker = self.kernels if self.backend == "cuda" else self.prog
+                out = ticker.tick(q_el, fs_el, **kw)
+            if held is None:
+                self._hold(q, contact_mask, left)
         with tracing.span("dwbc.tick.post"):
             if graph is None:
                 return self._batch_major(out, batched, warm is not None)
             out, wout, err = graph.results()
             return self._batch_major(self.kernels.unpack_result(out, wout), graph.batched,
                                      warm is not None, err)
+
+    def _hold(self, q, mask, pre):
+        """Remember this call's q and mask, with their versions, and the
+        prestage it leaves behind (None: none to take), where both inputs
+        are tensors on the tick's device."""
+        last = None
+        if pre is not None:
+            dev = self.device
+            if all(x is None or (isinstance(x, torch.Tensor) and x.device == dev)
+                   for x in (q, mask)):
+                last = (q, q._version, mask, None if mask is None else mask._version, pre)
+        self._last[0] = last
+
+    def _held_pre(self, q, mask, servos):
+        """The previous call's held prestage if this call may take it, else
+        None."""
+        last = self._last[0]
+        if last is None or servos is not None:
+            return None
+        lq, qv, lm, mv, pre = last
+        if q is not lq or q._version != qv or mask is not lm:
+            return None
+        if mask is not None and mask._version != mv:
+            return None
+        return pre
 
     def _element_leading(self, q, qdot, fstars, contact_mask, warm, servos):
         """(batched, q, f*, the other inputs by keyword) of a call,

@@ -17,9 +17,19 @@ A key's first call runs the tick eagerly on the capture's side stream
 pool with the tick's other keys (they replay one at a time on the caller's
 stream, and each keeps its own outputs).  A tick holds at most ``KEYS_MAX`` graphs;
 calls of further keys, and calls the key refuses, run the eager path.
+
+A whole tick's graph keeps its prestage buffer as a static output.  A call
+whose prestage that buffer already holds (``FusedTick`` decides: the
+control loop's full-budget re-solve repeats the warm tick's q) is served
+by a graph of the QP chain alone on it, keyed by the whole tick's key and
+the call's: its own staged f* and warm state, ``tick_qpchain`` and the
+failure flag.
 """
 
 from __future__ import annotations
+
+import gc
+import weakref
 
 import numpy as np
 import torch
@@ -98,7 +108,8 @@ class Staged:
 
     ``el`` (rows, B) float32 on the device holds q (nq, B), the f* of every
     level concatenated, the warm (x, λ) of every QP concatenated and the
-    mask (nc, B), host-resident groups' rows first.  ``host`` (on a CUDA
+    mask (nc, B), host-resident groups' rows first; a group the key places
+    nowhere (None) has no rows.  ``host`` (on a CUDA
     device pinned) holds those rows, staged by ``np.copyto`` and uploaded
     by one copy.  A device-resident group is staged by one op: a ``copy_``
     of a single tensor into its rows (transposed), or a ``torch.cat`` of
@@ -145,7 +156,7 @@ class Staged:
             off += n
         self.n_host = n_host
         # what the kernels read
-        self.q = self.view["q"]
+        self.q = self.view.get("q")
         self.fs = self.view["fstars"]
         self.win = self.view.get("warm")
         self.cmask = self.view.get("mask")
@@ -177,50 +188,74 @@ class Staged:
 
 
 class _Graph:
-    """One key's static inputs, its graph and the graph's static outputs."""
+    """One key's static inputs, its graph and the graph's static outputs.
 
-    def __init__(self, owner, key):
-        self.owner = owner
+    source None: the whole tick, whose prestage buffer ``pre`` is a static
+    output too.  Otherwise the QP chain alone on ``source``'s ``pre``
+    (its staged inputs f* and the warm state only)."""
+
+    def __init__(self, owner, key, source=None):
+        self.owner = weakref.proxy(owner)       # no cycle: a tick frees its graphs
+        self.source, self.key = source, key
         self.batched, _, self.warm_given, self.iters = key[:4]
+        if source is not None:
+            key = key[:5] + (None,) + key[6:8] + (None,)
         self.staged = Staged(key, owner.dims, owner.device)
-        self.graph = self.outs = self.first = None
+        self.graph = self.outs = self.first = self.pre = None
 
     def _body(self):
-        """The tick on the staged inputs → (results, warm state, qp_error)."""
+        """The tick on the staged inputs → (prestage buffer, (results, warm
+        state, qp_error))."""
         st, k = self.staged, self.owner.kernels
         st.upload()
-        out, wout = k.tick_staged(st.q, st.fs, st.win, st.cmask, self.iters)
+        pre = (k.prestage_staged(st.q, st.cmask) if self.source is None
+               else self.source.pre)
+        out, wout = k.qpchain_staged(pre, st.fs, st.win, self.iters)
         res = k.unpack_result(out, wout)
         err = qp_error_flag(res["qp_gap"], res["qp_primal_res"],
                             res["torque_cmd"].movedim(-1, 0), self.owner.cfg)
-        return out, wout, err
+        return pre, (out, wout, err)
 
-    def run(self):
+    def run(self) -> bool:
         """Replay the graph; on the key's first call run the tick eagerly on
-        the side stream (this call's results), then capture."""
+        the side stream (this call's results), then capture.  Whether
+        ``pre`` now holds this call's prestage: after a replay of a whole
+        tick, not after a capture, which executes nothing."""
         own = self.owner
         if self.graph is None:
             side, cur = own.side_stream(), torch.cuda.current_stream(own.device)
             side.wait_stream(cur)
             with torch.cuda.stream(side):
-                self.first = self._body()
+                self.first = self._body()[1]
             cur.wait_stream(side)
             for t in self.first:
                 t.record_stream(cur)
             graph = torch.cuda.CUDAGraph()
-            with tracing.span("dwbc.tick.capture"):
-                with torch.cuda.graph(graph, pool=own.pool, stream=side,
-                                      capture_error_mode="thread_local"):
-                    self.outs = self._body()
+            # a collection inside the capture that frees another CUDA graph
+            # destroys it there, which invalidates the capture
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with tracing.span("dwbc.tick.capture"):
+                    with torch.cuda.graph(graph, pool=own.pool, stream=side,
+                                          capture_error_mode="thread_local"):
+                        self.pre, self.outs = self._body()
+            finally:
+                if collecting:
+                    gc.enable()
             self.graph = graph
             own.counts["captures"] += 1
+            held = False
         else:
             with tracing.span("dwbc.tick.replay"):
                 self.graph.replay()
             own.counts["replays"] += 1
+            held = self.source is None
         launches = own.kernels.launches
-        launches["tick_prestage"] += 1
+        if self.source is None:
+            launches["tick_prestage"] += 1
         launches["tick_qpchain"] += 1
+        return held
 
     def results(self):
         """This call's (results, warm state, qp_error) in fresh tensors."""
@@ -234,7 +269,9 @@ class _Graph:
 class TickGraphs:
     """The graphs of one ``FusedTick(backend="cuda")``: ``graph(...)`` gives
     the call's ``_Graph`` with its inputs staged, or None for the eager
-    path.  ``counts``: captures, replays and eager calls."""
+    path; with ``source`` (a whole tick's ``_Graph`` whose ``pre`` holds
+    this call's prestage) the graph of the QP chain alone on it, or None.
+    ``counts``: captures, replays and eager calls."""
 
     def __init__(self, tick, counts):
         plan = tick.prog.plan
@@ -251,11 +288,14 @@ class TickGraphs:
             self.pool = torch.cuda.graph_pool_handle()
         return self._side
 
-    def graph(self, q, fstars, mask, warm, iters, servos):
+    def graph(self, q, fstars, mask, warm, iters, servos, source=None):
         key = graph_key(q, fstars, mask, warm, iters, servos, self.dims, self.device)
-        g = self.graphs.get(key) if key is not None else None
-        if g is None and key is not None and len(self.graphs) < KEYS_MAX:
-            g = self.graphs[key] = _Graph(self, key)
+        if key is None:
+            return None
+        gkey = key if source is None else (source.key, key)
+        g = self.graphs.get(gkey)
+        if g is None and len(self.graphs) < KEYS_MAX:
+            g = self.graphs[gkey] = _Graph(self, key, source)
         if g is not None:
             g.staged.stage(q, fstars, mask, warm)
         return g

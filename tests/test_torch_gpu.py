@@ -508,7 +508,9 @@ def test_masked_qpchain_kernel_matches_plain_float32(mcase, dev, warm):
 
 def test_masked_fused_tick_cuda_serving(mcase, dev):
     """Two launches per tick, warm carry at the padded shapes, an unbatched
-    tick with a 1-D mask, and the loop's launch count: 2 × (ticks + re-solves)."""
+    tick with a 1-D mask, and the loop's launch count: a QP chain per tick
+    and re-solve, and a prestage for tick 0 alone (the held state hands
+    every later call tick 0's very q and mask, which take its prestage)."""
     from libdwbc_tpu_torch.wbc.fused import FusedTick
     from libdwbc_tpu_torch.wbc.loop import make_control_loop
 
@@ -527,10 +529,12 @@ def test_masked_fused_tick_cuda_serving(mcase, dev):
     loop = make_control_loop(tick, K=4, warm_start=True, warm_iters=7, gap_fallback=1e-3)
     for k in tick.kernels.launches:
         tick.kernels.launches[k] = 0
+    tick.prestage_reuses = 0
     lr = loop(q, qd, fs, m)
     torch.cuda.synchronize()
     n = 4 + lr.refined_ticks
-    assert tick.kernels.launches == {"tick_prestage": n, "tick_qpchain": n}
+    assert tick.prestage_reuses == n - 1
+    assert tick.kernels.launches == {"tick_prestage": 1, "tick_qpchain": n}
     assert not bool(lr.qp_error.any()) and float(lr.qp_primal_res.max()) <= 1e-3
 
 
@@ -889,9 +893,10 @@ def test_general_fused_tick_cuda_serving(case, dev):
 def test_hands_fused_tick_cuda_serving(case, dev):
     """FusedTick(backend="cuda") serving the hands-and-feet chain: through
     make_control_loop (tick 0 cold at the configuration's 25 iterations,
-    then warm at 7, gap_fallback 1e-3) exactly two launches per tick and
-    re-solve, and one unbatched tick; no lane flagged, the contacts
-    carrying the weight."""
+    then warm at 7, gap_fallback 1e-3) exactly one QP chain per tick and
+    re-solve and one prestage less each call that took the previous call's
+    (the held state repeats q), and one unbatched tick; no lane flagged,
+    the contacts carrying the weight."""
     from libdwbc_tpu_torch.entry import _hands_feet_inputs
     from libdwbc_tpu_torch.wbc.fused import FusedTick
     from libdwbc_tpu_torch.wbc.loop import make_control_loop
@@ -906,7 +911,9 @@ def test_hands_fused_tick_cuda_serving(case, dev):
     r1 = tick._tick_impl(q[0], qd[0], tuple(f[0] for f in fs))
     torch.cuda.synchronize()
     n = 4 + lr.refined_ticks + 1
-    assert tick.kernels.launches == {"tick_prestage": n, "tick_qpchain": n}
+    assert tick.prestage_reuses >= 1
+    assert tick.kernels.launches == {"tick_prestage": n - tick.prestage_reuses,
+                                     "tick_qpchain": n}
     assert not bool(lr.qp_error.any()) and float(lr.qp_primal_res.max()) <= 1e-3
     assert not bool(r1.qp_error) and r1.contact_force.shape == (18,)
     assert float(r1.contact_force[[2, 8, 14, 17]].sum()) < -400.0
@@ -1263,8 +1270,13 @@ def test_graph_control_loop_matches_eager(case, dev):
                                    gap_fallback=1e-3)(q, qd, fs) for t in (g, e))
     assert got.refined_ticks == want.refined_ticks
     _assert_bits(tuple(got[:5]), tuple(want[:5]))
-    assert g.graph_counts["captures"] == 2
-    assert g.graph_counts["replays"] == 6 + got.refined_ticks
+    # a re-solve takes its warm tick's prestage, except right after the warm
+    # key's capture (tick 1); the first that takes it captures the QP chain
+    n, reused = got.refined_ticks, g.prestage_reuses
+    assert n - 1 <= reused <= n and e.prestage_reuses == 0
+    assert g.graph_counts["captures"] == 2 + (reused > 0)
+    assert g.graph_counts["replays"] == 6 + n - (reused > 0)
+    assert g.kernels.launches == {"tick_prestage": 8 + n - reused, "tick_qpchain": 8 + n}
 
 
 def test_graph_launch_counts_and_keys(case, dev, monkeypatch):
@@ -1276,11 +1288,12 @@ def test_graph_launch_counts_and_keys(case, dev, monkeypatch):
     g, e = _graph_and_eager(case["model"], case["cfg"], dev)
     q, fs = _batch_inputs(case["model"], 8, 37)
     qd = torch.zeros((8, 39), device=dev)
-    g._tick_impl(q, qd, fs)             # the key's first call: eager, then the capture
+    # each call its own q: a repeated q would take the previous call's prestage
+    g._tick_impl(q.clone(), qd, fs)     # the key's first call: eager, then the capture
     assert g.kernels.launches == {"tick_prestage": 1, "tick_qpchain": 1}
     assert g.graph_counts == {"captures": 1, "replays": 0, "eager": 0}
     for n in (2, 3):
-        g._tick_impl(q, qd, fs)
+        g._tick_impl(q.clone(), qd, fs)
         assert g.kernels.launches == {"tick_prestage": n, "tick_qpchain": n}
     assert g.graph_counts == {"captures": 1, "replays": 2, "eager": 0}
     g._tick_impl(q[:5], qd[:5], tuple(f[:5] for f in fs))
@@ -1293,6 +1306,63 @@ def test_graph_launch_counts_and_keys(case, dev, monkeypatch):
     _assert_bits(tuple(got), tuple(e._tick_impl(q[:7], qd[:7], tuple(f[:7] for f in fs))))
     torch.cuda.synchronize()
     assert g.kernels.launches == {"tick_prestage": 6, "tick_qpchain": 6}
+
+
+@pytest.mark.parametrize("plan,nb", [("stand", 1024), ("hands", 1024), ("masked", 4096),
+                                     ("stand", None)])
+def test_graph_resolve_takes_the_warm_ticks_prestage(case, dev, plan, nb):
+    """The control loop's call sequence on the graphs (nb None: unbatched):
+    cold at the full budget, warm at 7, the re-solve at the full budget on
+    the warm tick's q (and mask) from its warm output, three times.  Every
+    call equals bit for bit the eager tick (``TickKernels.tick`` on the
+    element-leading inputs).  The first re-solve follows the warm key's
+    capturing call, which executed nothing: it runs the whole tick again.
+    The next two take the warm tick's prestage, the first of them capturing
+    the graph of the QP chain alone: ``tick_prestage`` launches once per
+    tick and per whole re-solve, ``tick_qpchain`` once per call."""
+    from libdwbc_tpu_torch.entry import _hands_feet_config, _hands_feet_inputs, _masked_inputs
+
+    m = case["model"]
+    B_ = 1 if nb is None else nb
+    args = ()
+    if plan == "stand":
+        q, fs = _batch_inputs(m, B_, 41)
+        cfg = case["cfg"]
+    elif plan == "hands":
+        cfg = _hands_feet_config(m)
+        qn, _, fsn = _hands_feet_inputs(m, B_, seed=41)
+        q, fs = torch.as_tensor(qn, device=dev), tuple(torch.as_tensor(f, device=dev)
+                                                        for f in fsn)
+    else:
+        cfg = case["cfg"]
+        qn, _, fsn, masks = _masked_inputs(m, B_, seed=41)
+        q, fs = torch.as_tensor(qn, device=dev), tuple(torch.as_tensor(f, device=dev)
+                                                        for f in fsn)
+        args = (torch.as_tensor(masks, device=dev),)
+    if nb is None:
+        q, fs = q[0].clone(), tuple(f[0].clone() for f in fs)
+    lead = () if nb is None else (B_,)
+    qd = torch.zeros(lead + (39,), device=dev)
+    g, e = _graph_and_eager(m, cfg, dev, masked=plan == "masked")
+    full = cfg.qp_iters
+    wg, we = g.init_warm(lead), e.init_warm(lead)
+    rg, wg = g._tick_impl(q.clone(), qd, fs, *args, warm=wg, qp_iters=full)
+    re, we = e._tick_impl(q.clone(), qd, fs, *args, warm=we, qp_iters=full)
+    _assert_bits((tuple(rg), wg), (tuple(re), we))
+    for k in range(3):
+        qk = _moved(q, 1e-3 * (k + 1))
+        rg, wg = g._tick_impl(qk, qd, fs, *args, warm=wg, qp_iters=7)
+        re, we = e._tick_impl(qk, qd, fs, *args, warm=we, qp_iters=7)
+        _assert_bits((tuple(rg), wg), (tuple(re), we))
+        rg, wg = g._tick_impl(qk, qd, fs, *args, warm=wg, qp_iters=full)
+        re, we = e._tick_impl(qk, qd, fs, *args, warm=we, qp_iters=full)
+        _assert_bits((tuple(rg), wg), (tuple(re), we))
+        assert g.prestage_reuses == k
+    torch.cuda.synchronize()
+    assert e.prestage_reuses == 0
+    assert g.graph_counts == {"captures": 3, "replays": 4, "eager": 0}
+    assert g.kernels.launches == {"tick_prestage": 5, "tick_qpchain": 7}
+    assert e.kernels.launches == {"tick_prestage": 7, "tick_qpchain": 7}
 
 
 def test_hands_feet_lane487_lands_within_limits(dev):

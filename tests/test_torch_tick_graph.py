@@ -197,3 +197,32 @@ def test_plain_ticks_count_eager_calls(ticks):
     qm, qdm, fsm, masks = entry._masked_inputs(model, 2)
     mtick._tick_impl(qm, qdm, fsm, masks)
     assert mtick.graph_counts == dict(m0, eager=m0["eager"] + 1)
+
+
+def test_graphs_free_without_the_collector(ticks):
+    """A tick's graphs sit in no reference cycle: they are freed when the
+    tick lets go of them, not by the cyclic collector, which may run inside
+    another tick's capture and destroy a graph there (that invalidates the
+    capture)."""
+    import gc
+    import weakref
+    from types import SimpleNamespace
+
+    from libdwbc_tpu_torch.wbc.tick_graph import TickGraphs
+
+    model, tick, _ = ticks
+    owner = SimpleNamespace(prog=tick.prog, kernels=None, cfg=tick.cfg, device=CPU,
+                            masked=False)
+    q, fs, warm = inputs(model, tick, 3, np.random.default_rng(19))
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        graphs = TickGraphs(owner, {})
+        g = graphs.graph(q, fs, None, warm, 7, None)
+        assert g is not None and graphs.graph(q, fs, None, warm, 7, None) is g
+        alive = (weakref.ref(graphs), weakref.ref(g))
+        del graphs, g
+        assert [r() for r in alive] == [None, None]
+    finally:
+        if collecting:
+            gc.enable()

@@ -67,7 +67,11 @@ def test_profiled_loop_spans(served):
         mine = [s.name for s in sp if s.request == (seq, k)]
         want = [*TICK] + (["dwbc.loop.sync"] if k else []) + ["dwbc.loop.transition"]
         assert mine == want, (k, mine)
-    for name, t in tracing.totals().items():
+    totals = tracing.totals()
+    # the held state (no transition) hands ticks 1 … K − 1 the very q of
+    # tick 0: each takes tick 0's prestage
+    assert totals.pop("dwbc.tick.prestage_reused") == tracing.Total(K - 1, 0, 0)
+    for name, t in totals.items():
         assert t.count == n[name] and 0 <= t.self_ns <= t.total_ns
     assert tracing.dropped() == 0
 
