@@ -1,11 +1,15 @@
 """Wrappers of the two CUDA kernels of the WBC tick (``csrc/``).
 
 ``TickKernels`` launches ``tick_prestage`` and ``tick_qpchain`` for one
-configuration.  Its methods take and return what the plain
-``TickProgram`` does (element-leading tensors, batch last), and follow one
-rule: a CPU tensor goes to the plain version; a CUDA tensor goes to the
-kernel, or the call raises (dtype other than float32, a wrong shape,
-device or layout, a failed build, a refused launch).  Nothing falls back.
+configuration, each from one checked launch: ``prestage_staged`` and
+``qpchain_staged`` take the inputs as they reach the kernel
+(element-leading, batch last; every level's f* and every QP's warm state
+concatenated) and raise on anything else: a dtype other than float32, a
+tensor off the tables' CUDA device (a CPU tensor too), a wrong shape or
+layout, a failed build, a refused launch.  Nothing falls back.  The
+list-taking ``prestage_packed``/``qpchain_packed`` and the dict-level
+``prestage``/``qpchain`` (the card's parity code: plain ``TickProgram``
+dicts in and out) convert, then call those two.
 
 A servo'd tick is still these two launches: ``tick_prestage`` also takes
 q̇, the caller's f* and the servo buffer (``pack_servos``), and writes the
@@ -14,12 +18,11 @@ them.  A packed prestage (``PackedPre``) carries whether it has that
 section; its layout, its packing and the f* the QP chain reads follow from
 that one flag.
 
-Each wrapper adds one to ``launches[name]`` where it launches its kernel,
-except ``prestage_staged`` and ``qpchain_staged``, whose caller
-(``wbc/tick_graph.py``, which captures them into CUDA graphs) counts the
-kernels that ran.  Outputs and workspace
-are allocated here with ``torch.empty``; the kernels run on the current
-stream, allocate nothing and do not synchronise.
+Each launch adds one to ``launches[name]``, except one captured into a
+CUDA graph: whoever replays the graph counts it (``wbc/tick_graph.py``).
+Outputs and workspace are allocated here with ``torch.empty``; the
+kernels run on the current stream, allocate nothing and do not
+synchronise.
 """
 
 from __future__ import annotations
@@ -482,14 +485,31 @@ def _unpack(buf, layout):
     return out
 
 
+def unpack_result(plan, out, wout):
+    """(result buffer, warm buffer) → result dict, its "warm_out" (x, λ) per
+    QP: views of the two buffers."""
+    res = _unpack(out, out_layout(plan))
+    w = _unpack(wout, warm_layout(plan))
+    res["warm_out"] = tuple((w[f"x.{h}"], w[f"lam.{h}"]) for h in range(len(plan.qp_dims)))
+    return res
+
+
+def pack_result(plan, res):
+    """A result dict (``TickProgram.qpchain``'s) → (result buffer, warm
+    buffer), the kernel's layout."""
+    B = res["torque_grav"].shape[-1]
+    return (torch.cat([res[name].reshape(-1, B) for name, _ in out_layout(plan)], 0),
+            torch.cat([t for xl in res["warm_out"] for t in xl], 0))
+
+
 class TickKernels(nn.Module):
-    """The CUDA tick of one configuration; ``prog`` is its plain version.
-    The packed float32 model/config table is the buffer ``table``, on the
-    device of ``prog``'s tables."""
+    """The two CUDA kernels of one configuration (``prog``: its plain
+    ``TickProgram``, whose plan and device they take): one checked launch
+    each, ``prestage_staged`` and ``qpchain_staged``.  The packed float32
+    model/config table is the buffer ``table``, on ``prog``'s device."""
 
     def __init__(self, prog):
         super().__init__()
-        self.prog = prog
         self.plan = prog.plan
         self._table_host = kernel_table(self.plan).astype(np.float32)
         self.register_buffer("table", torch.as_tensor(
@@ -531,9 +551,9 @@ class TickKernels(nn.Module):
         return lib, self._sizes
 
     def _check(self, name, t, shape):
-        if t.device != self.table.device:
-            raise ValueError(f"{name} is on {t.device}, the kernels' tables on "
-                             f"{self.table.device}")
+        if t.device.type != "cuda" or t.device != self.table.device:
+            raise ValueError(f"{name} is on {t.device}; the kernels take tensors on "
+                             f"their tables' CUDA device ({self.table.device})")
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: the CUDA tick takes float32, got {t.dtype}")
         if tuple(t.shape) != tuple(shape):
@@ -541,18 +561,20 @@ class TickKernels(nn.Module):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
-    @staticmethod
-    def _raise_on(rc, name):
+    def _launched(self, name, rc):
+        """Raise on a failed launch; count one that ran (not one captured)."""
         if rc != 0:
             raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        if not torch.cuda.is_current_stream_capturing():
+            self.launches[name] += 1
 
-    # --------------------------------------------------------- packed API
-    def prestage_packed(self, q, cmask=None, qdot=None, fstars=None, servos=None):
-        """q (nq, B) float32 on the device, and in masked mode the 0/1
-        contact mask cmask (nc, B) → ``PackedPre``.  With servos (per level
-        None or a per-spec tuple of element-leading dicts or None): also
-        qdot (ndof, B) and f* per level (t, B), and the buffer carries the
-        servo section."""
+    # ---------------------------------------------------- the two launches
+    def prestage_staged(self, q, cmask, qdot=None, fs=None, sv=None, smask=0):
+        """``tick_prestage``: q (nq, B), the 0/1 contact mask (nc, B) of a
+        masked plan or None → ``PackedPre``.  A servo'd call (smask: the
+        task mask, ``servo_mask``) also takes q̇ (ndof, B), the f* of every
+        level concatenated (T, B) and the servo buffer (``pack_servos``),
+        and the buffer carries the servo section."""
         B = q.shape[-1]
         plan = self.plan
         self._check("q", q, (plan.nq, B))
@@ -560,119 +582,70 @@ class TickKernels(nn.Module):
             raise ValueError("cmask goes with a masked plan, and only there")
         if cmask is not None:
             self._check("cmask", cmask, (len(plan.cfg.contacts), B))
-        smask = servo_mask(servos, plan)
-        fs = sv = None
         if smask:
-            if qdot is None or fstars is None:
-                raise ValueError("a servo'd prestage needs qdot and f*")
-            self._check("qdot", qdot, (plan.ndof, B))
-            self._check_fstars(fstars, B)
-            fs = torch.cat(list(fstars), 0)
-            sv = pack_servos(servos, plan, B)
-            self._check("servo buffer", sv, (SERVO_ELEMS * bin(smask).count("1"), B))
-        pre = self._launch_prestage(q, cmask, qdot, fs, sv, smask)
-        self.launches["tick_prestage"] += 1
-        return PackedPre(pre, smask != 0)
-
-    def _launch_prestage(self, q, cmask, qdot, fs, sv, smask):
-        """tick_prestage on checked inputs (f* concatenated) → the prestage
-        buffer; counts nothing."""
-        B = q.shape[-1]
+            for name, t, rows in (("qdot", qdot, plan.ndof), ("fstars", fs, sum(plan.level_tdofs)),
+                                  ("servo buffer", sv, SERVO_ELEMS * bin(smask).count("1"))):
+                if t is None:
+                    raise ValueError("a servo'd prestage needs qdot, f* and the servo buffer")
+                self._check(name, t, (rows, B))
         lib, sz = self._lib_and_sizes()
         pre = torch.empty((sz["pre_servo" if smask else "pre"], B), dtype=torch.float32,
                           device=q.device)
         ws = torch.empty((B, sz["ws_pre"]), dtype=torch.float32, device=q.device)
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+        ptr = [None if not smask else t.data_ptr() for t in (qdot, fs, sv)]
         rc = lib.dwbc_tick_prestage(self.table.data_ptr(), q.data_ptr(),
-                                    None if cmask is None else cmask.data_ptr(),
-                                    None if not smask else qdot.data_ptr(),
-                                    None if not smask else fs.data_ptr(),
-                                    None if not smask else sv.data_ptr(), smask,
-                                    pre.data_ptr(), ws.data_ptr(), sz["stride_pre"], B, stream)
-        self._raise_on(rc, "tick_prestage")
-        return pre
+                                    None if cmask is None else cmask.data_ptr(), *ptr, smask,
+                                    pre.data_ptr(), ws.data_ptr(), sz["stride_pre"], B,
+                                    torch.cuda.current_stream(q.device).cuda_stream)
+        self._launched("tick_prestage", rc)
+        return PackedPre(pre, smask != 0)
 
-    def _check_fstars(self, fstars, B):
-        if len(fstars) != len(self.plan.level_tdofs):
-            raise ValueError(f"{len(fstars)} f* for {len(self.plan.level_tdofs)} task levels")
-        for h, (f, t) in enumerate(zip(fstars, self.plan.level_tdofs)):
-            self._check(f"fstars[{h}]", f, (t, B))
-
-    def qpchain_packed(self, pre, fstars, warm, iters):
-        """``PackedPre``, f* per level (None for a servo'd buffer, whose
-        servo section holds them), warm (x, λ) per QP or None → (result
-        buffer (out_elems, B), warm buffer (warm_elems, B))."""
-        buf = pre.buf
+    def qpchain_staged(self, pre, fs, win, iters):
+        """``tick_qpchain``: ``PackedPre``, the f* of every level
+        concatenated (T, B) (None for a servo'd buffer, whose servo section
+        holds them), the warm (x, λ) of every QP concatenated (warm_elems,
+        B) or None → (result buffer (out_elems, B), warm buffer (warm_elems,
+        B))."""
+        buf, plan = pre.buf, self.plan
         B = buf.shape[-1]
-        lib, sz = self._lib_and_sizes()
-        self._check("pre", buf, (sz["pre_servo" if pre.servo else "pre"], B))
-        if (fstars is None) != pre.servo:
+        self._check("pre", buf, (_elems(pre_layout(plan, pre.servo)), B))
+        if (fs is None) != pre.servo:
             raise ValueError("a servo'd prestage buffer brings its own f*, any other "
                              "needs the caller's")
-        if warm is not None and len(warm) != len(self.plan.qp_dims):
-            raise ValueError(f"warm state for {len(warm)} QPs, the tick has "
-                             f"{len(self.plan.qp_dims)}")
-        fs = None                   # null: the kernel reads the servo section
-        if not pre.servo:
-            self._check_fstars(fstars, B)
-            fs = torch.cat(list(fstars), 0)
-        win = None
-        if warm is not None:
-            for h, ((x, lam), (nv, m)) in enumerate(zip(warm, self.plan.qp_dims)):
-                self._check(f"warm[{h}].x", x, (nv, B))
-                self._check(f"warm[{h}].lam", lam, (m, B))
-            win = torch.cat([t for xl in warm for t in xl], 0)
-        out, wout = self._launch_qpchain(buf, fs, win, iters)
-        self.launches["tick_qpchain"] += 1
-        return out, wout
-
-    def _launch_qpchain(self, buf, fs, win, iters):
-        """tick_qpchain on checked inputs (f* and the warm state each
-        concatenated, or None) → (result buffer, warm buffer); counts
-        nothing."""
-        B = buf.shape[-1]
+        if fs is not None:
+            self._check("fstars", fs, (sum(plan.level_tdofs), B))
+        if win is not None:
+            self._check("warm", win, (_elems(warm_layout(plan)), B))
         lib, sz = self._lib_and_sizes()
         out = torch.empty((sz["out"], B), dtype=torch.float32, device=buf.device)
         wout = torch.empty((sz["warm"], B), dtype=torch.float32, device=buf.device)
-        stream = torch.cuda.current_stream(buf.device).cuda_stream
-        launch = lib.dwbc_tick_qpchain if self.plan.tlim is not None else lib.dwbc_tick_qpchain_nolim
+        launch = lib.dwbc_tick_qpchain if plan.tlim is not None else lib.dwbc_tick_qpchain_nolim
         rc = launch(
             self.table.data_ptr(), buf.data_ptr(), None if fs is None else fs.data_ptr(),
             None if win is None else win.data_ptr(), out.data_ptr(),
-            wout.data_ptr(), sz["smem_qp"], B, int(iters), stream)
-        self._raise_on(rc, "tick_qpchain")
+            wout.data_ptr(), sz["smem_qp"], B, int(iters),
+            torch.cuda.current_stream(buf.device).cuda_stream)
+        self._launched("tick_qpchain", rc)
         return out, wout
 
-    def prestage_staged(self, q, cmask):
-        """``tick_prestage`` without servos on the inputs as they reach the
-        kernel: q (nq, B), the mask (nc, B) or None → the prestage buffer.
-        Counts nothing: a caller that captures the launch into a CUDA graph
-        counts the replays."""
-        B = q.shape[-1]
-        plan = self.plan
-        self._check("q", q, (plan.nq, B))
-        if (cmask is not None) != plan.masked:
-            raise ValueError("cmask goes with a masked plan, and only there")
-        if cmask is not None:
-            self._check("cmask", cmask, (len(plan.cfg.contacts), B))
-        return self._launch_prestage(q, cmask, None, None, None, 0)
+    # ------------------------------ lists and the plain version's dicts
+    def prestage_packed(self, q, cmask=None, qdot=None, fstars=None, servos=None):
+        """``prestage_staged`` on f* per level (t, B) and servos (per level
+        None or a per-spec tuple of element-leading dicts or None)."""
+        smask = servo_mask(servos, self.plan)
+        if not smask:
+            return self.prestage_staged(q, cmask)
+        fs = None if fstars is None else torch.cat(list(fstars), 0)
+        return self.prestage_staged(q, cmask, qdot, fs,
+                                    pack_servos(servos, self.plan, q.shape[-1]), smask)
 
-    def qpchain_staged(self, pre, fs, win, iters):
-        """``tick_qpchain`` on a prestage buffer without the servo section
-        and the inputs as they reach the kernel: f* of every level
-        concatenated (T, B), the warm (x, λ) of every QP concatenated
-        (warm_elems, B) or None → (result buffer, warm buffer).  Counts
-        nothing, as ``prestage_staged``."""
-        B = pre.shape[-1]
-        plan = self.plan
-        _, sz = self._lib_and_sizes()
-        self._check("pre", pre, (sz["pre"], B))
-        self._check("fstars", fs, (sum(plan.level_tdofs), B))
-        if win is not None:
-            self._check("warm", win, (_elems(warm_layout(plan)), B))
-        return self._launch_qpchain(pre, fs, win, iters)
+    def qpchain_packed(self, pre, fstars, warm, iters):
+        """``qpchain_staged`` on f* per level (None for a servo'd buffer)
+        and warm (x, λ) per QP or None."""
+        fs = None if fstars is None else torch.cat(list(fstars), 0)
+        win = None if warm is None else torch.cat([t for xl in warm for t in xl], 0)
+        return self.qpchain_staged(pre, fs, win, iters)
 
-    # ---------------------------------- the plain version's interface
     # A servo'd prestage dict also holds "fstars" (the f* of every level)
     # and "task_states" {(level, spec): (pos, vel, rot, w)}.
     def unpack_pre(self, pre):
@@ -712,35 +685,16 @@ class TickKernels(nn.Module):
         return PackedPre(torch.cat(parts, 0), servo)
 
     def unpack_result(self, out, wout):
-        res = _unpack(out, out_layout(self.plan))
-        w = _unpack(wout, warm_layout(self.plan))
-        res["warm_out"] = tuple((w[f"x.{h}"], w[f"lam.{h}"])
-                                for h in range(len(self.plan.qp_dims)))
-        return res
+        return unpack_result(self.plan, out, wout)
 
     def prestage(self, q, cmask=None, qdot=None, fstars=None, servos=None):
-        """tick_prestage; for a CPU tensor the plain prestage (with servos
-        ``prestage_servo``)."""
-        if q.device.type == "cpu":
-            if servos is None:
-                return self.prog.prestage(q, cmask)
-            return self.prog.prestage_servo(q, cmask, qdot, fstars, servos)
+        """``prestage_packed`` → prestage dict (servo'd: with its f* and
+        task states)."""
         return self.unpack_pre(self.prestage_packed(q, cmask, qdot, fstars, servos))
 
     def qpchain(self, pre, fstars, warm=None, iters=25):
-        """tick_qpchain; the plain qpchain for CPU tensors.  A servo'd
+        """``qpchain_packed`` on a prestage dict → result dict.  A servo'd
         prestage dict brings its own f*."""
-        if pre["torque_grav"].device.type == "cpu":
-            return self.prog.qpchain(pre, pre.get("fstars", fstars), warm=warm, iters=iters)
         packed = self.pack_pre(pre)
         return self.unpack_result(*self.qpchain_packed(
             packed, None if packed.servo else fstars, warm, iters))
-
-    def tick(self, q, fstars, warm=None, iters=25, cmask=None, qdot=None, servos=None):
-        """Both kernels back to back; the plain tick for a CPU tensor."""
-        if q.device.type == "cpu":
-            return self.prog.tick(q, fstars, warm=warm, iters=iters, cmask=cmask, qdot=qdot,
-                                  servos=servos)
-        pre = self.prestage_packed(q, cmask, qdot, fstars, servos)
-        return self.unpack_result(*self.qpchain_packed(pre, None if pre.servo else fstars,
-                                                       warm, iters))

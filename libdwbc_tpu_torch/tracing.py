@@ -42,14 +42,14 @@ The spans and what they time:
 ``dwbc.loop.resolve``       the loop's full-budget re-solve of a warm tick
                             and its per-lane selection
 ``dwbc.loop.transition``    the loop's transition between ticks
-``dwbc.tick.prep``          ``FusedTick``: inputs to element-leading tensors
-                            (a graph's: staged into its static buffers)
-``dwbc.tick.run``           ``FusedTick``: the tick's launch (the kernels',
-                            or the graph's replay or capture)
+``dwbc.tick.prep``          ``FusedTick``: the call's key and entry, its
+                            inputs staged into the entry's static buffers
+``dwbc.tick.run``           ``FusedTick``: the entry's graph replayed or
+                            captured, or its body run
 ``dwbc.tick.replay``        inside it: a CUDA graph's replay
 ``dwbc.tick.capture``       inside it: a CUDA graph's capture
-``dwbc.tick.post``          ``FusedTick``: results back to batch-major
-                            (a graph's outputs copied first)
+``dwbc.tick.post``          ``FusedTick``: the entry's outputs copied, the
+                            results batch-major
 ``dwbc.consumer``           one ``native.TickConsumer`` call
 ``dwbc.consumer.read``      its reads of τ_cmd and ``qp_error``
 ``dwbc.mesh.step``          one ``sharded_batch_solver`` step on this rank

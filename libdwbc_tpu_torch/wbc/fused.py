@@ -7,21 +7,55 @@ on-device trajectory-PD servo inside the tick (inside ``tick_prestage``
 under ``backend="cuda"``), fed by q̇.  ``masked=True`` is
 the multi-contact-mode tick: ``cfg.contacts`` is a candidate set and each
 call takes a per-scenario ``contact_mask`` (the ``MaskedTick`` signature, so
-``make_control_loop`` drives either).  ``backend="cuda"`` runs
-``tick_prestage`` then ``tick_qpchain`` (``ops/tick_cuda.py``), a call
-without servos from the CUDA graph of its shape (``wbc/tick_graph.py``);
-``backend="torch"`` runs the plain element-leading program
-(``ops/tick_kernel.py``) on any device.
+``make_control_loop`` drives either).
+
+Every call takes one route on either backend: its key, its entry and its
+staged inputs (``wbc/tick_graph.py``, the one owner of the element-leading
+layout), the body on them, the results batch-major.  The backend chooses
+the body's two stage functions (``backend="cuda"``: ``tick_prestage`` and
+``tick_qpchain``, ``ops/tick_cuda.py``; ``backend="torch"``: the plain
+element-leading program, ``ops/tick_kernel.py``, on any device and dtype)
+and whether a kept key is captured into a CUDA graph (on the card).
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 from torch import nn
 
 from .. import tracing
+from ..ops.tick_cuda import TickKernels, pack_result, pack_servos, servo_mask
 from ..ops.tick_kernel import SERVO_ELEM_SHAPES, TickProgram
-from .pipeline import TickResult, card_setup, qp_error_flag
+from .pipeline import TickResult, card_setup
+from .tick_graph import TickEntries
+
+
+# The body's two stage functions per backend (``tick_graph._Entry._body``):
+# the prestage of an entry's staged inputs (servos element-leading, or
+# None), and the QP chain on a prestage → (result buffer, warm buffer).
+def _kernels_prestage(k, st, servos):
+    smask = servo_mask(servos, k.plan)
+    if not smask:
+        return k.prestage_staged(st.q, st.cmask)
+    return k.prestage_staged(st.q, st.cmask, st.qdot, st.fs,
+                             pack_servos(servos, k.plan, st.el.shape[1]), smask)
+
+
+def _kernels_qpchain(k, pre, st, iters):
+    return k.qpchain_staged(pre, None if pre.servo else st.fs, st.win, iters)
+
+
+def _plain_prestage(prog, st, servos):
+    if servos is None:
+        return prog.prestage(st.q, st.cmask)
+    return prog.prestage_servo(st.q, st.cmask, st.qdot, st.fstars, servos)
+
+
+def _plain_qpchain(prog, pre, st, iters):
+    res = prog.qpchain(pre, pre.get("fstars", st.fstars), warm=st.warm, iters=iters)
+    return pack_result(prog.plan, res)
 
 
 class FusedTick(nn.Module):
@@ -38,19 +72,19 @@ class FusedTick(nn.Module):
         self.backend = backend
         self.masked = masked
         self.prog = TickProgram(model, cfg, device, dtype, masked=masked)
-        # how often a call was served by a captured graph, and how often eagerly
+        # how often a call was served by a captured graph, and how often not
         self.graph_counts = {"captures": 0, "replays": 0, "eager": 0}
         # calls that took the previous call's prestage; what the next may take
         # (a list: a module's attribute assignment costs microseconds a call)
         self.prestage_reuses = 0
         self._last = [None]
-        self.graphs = None
         if backend == "cuda":
-            from ..ops.tick_cuda import TickKernels
-            from .tick_graph import TickGraphs
-
             self.kernels = TickKernels(self.prog)
-            self.graphs = TickGraphs(self, self.graph_counts)
+            self.stages = (partial(_kernels_prestage, self.kernels),
+                           partial(_kernels_qpchain, self.kernels))
+        else:
+            self.stages = (partial(_plain_prestage, self.prog), partial(_plain_qpchain, self.prog))
+        self.entries = TickEntries(self, capture=backend == "cuda")
 
     @property
     def device(self):
@@ -105,14 +139,14 @@ class FusedTick(nn.Module):
         state out when warm was given.  servos: CompiledTick's nested per-level
         / per-spec ServoParams; q̇ feeds the servo'd task links' velocities.
         Without servos q̇ is unused: the tick compensates gravity, not
-        Coriolis.
+        Coriolis.  Inputs: numpy arrays, tensors or sequences, any float
+        dtype, on the host or the tick's device.
 
-        Under ``backend="cuda"`` a call without servos is served by the CUDA
-        graph of its shape (``wbc/tick_graph.py``; ``graph_counts``), any
-        other eagerly.  The three stages are the spans ``dwbc.tick.prep``
-        (the inputs staged, or made element-leading), ``dwbc.tick.run`` (the
-        graph's replay or capture, or the launches) and ``dwbc.tick.post``
-        (the graph's outputs copied; the results batch-major).
+        The three stages are the spans ``dwbc.tick.prep`` (the call's entry
+        found or made, its inputs staged), ``dwbc.tick.run`` (the entry's
+        graph replayed or captured, or its body run) and ``dwbc.tick.post``
+        (the outputs copied; the results batch-major).  ``graph_counts``
+        counts captures, replays and runs not captured.
 
         Without servos the prestage depends on q and the mask alone.  A
         call without servos whose q, and mask, are the very tensors of the
@@ -120,121 +154,57 @@ class FusedTick(nn.Module):
         (their ``_version``), takes that call's prestage and runs the QP
         chain alone (``prestage_reuses``, the counter
         ``dwbc.tick.prestage_reused``): the control loop's full-budget
-        re-solve of a warm tick.  The held prestage is that of a graph's
-        replay (not of its capture, which executes nothing) or of the plain
-        path; the eager CUDA path (servos, keys past ``KEYS_MAX``) holds
-        none.  An input written behind torch's back (through numpy, ``.data``
-        or a raw pointer) between two calls has to be a new tensor."""
+        re-solve of a warm tick.  The previous call leaves one where its
+        kept entry executed (not a graph's capture); a servo'd call, one
+        past ``KEYS_MAX`` and one whose inputs were converted leave none.
+        An input written behind torch's back (through numpy, ``.data`` or a
+        raw pointer) between two calls has to be a new tensor."""
         with tracing.span("dwbc.tick.prep"):
             if (contact_mask is not None) != self.masked:
                 raise ValueError("contact_mask goes with FusedTick(masked=True), and only there")
             iters = self.cfg.qp_iters if qp_iters is None else qp_iters
             held = self._held_pre(q, contact_mask, servos)
-            graph = None
-            if self.graphs is not None:
-                if held is not None:
-                    graph = self.graphs.graph(q, fstars, contact_mask, warm, iters, servos,
-                                              source=held)
-                    if graph is None:
-                        held = None
-                if graph is None:
-                    graph = self.graphs.graph(q, fstars, contact_mask, warm, iters, servos)
             if held is not None:
                 self.prestage_reuses += 1
                 tracing.count("dwbc.tick.prestage_reused", 1)
-            if graph is None:
-                self.graph_counts["eager"] += 1
-                batched, q_el, fs_el, kw = self._element_leading(q, qdot, fstars, contact_mask,
-                                                                 warm, servos)
-                kw["iters"] = iters
+            entry = self.entries.entry(q, qdot, fstars, contact_mask, warm, iters, servos,
+                                       source=held)
         with tracing.span("dwbc.tick.run"):
-            left = None                 # the prestage this call leaves to take
-            if graph is not None:
-                if graph.run():
-                    left = graph
-            elif self.backend == "torch" and servos is None:
-                left = held if held is not None else self.prog.prestage(q_el, kw["cmask"])
-                out = self.prog.qpchain(left, fs_el, warm=kw["warm"], iters=iters)
-                # the results alias these two fields of the prestage
-                out.update(torque_grav=out["torque_grav"].clone(),
-                           health=out["health"].clone())
-            else:
-                ticker = self.kernels if self.backend == "cuda" else self.prog
-                out = ticker.tick(q_el, fs_el, **kw)
+            holds = entry.run()
             if held is None:
-                self._hold(q, contact_mask, left)
+                self._hold(q, contact_mask, entry if holds else None)
         with tracing.span("dwbc.tick.post"):
-            if graph is None:
-                return self._batch_major(out, batched, warm is not None)
-            out, wout, err = graph.results()
-            return self._batch_major(self.kernels.unpack_result(out, wout), graph.batched,
-                                     warm is not None, err)
+            return self._batch_major(*entry.results(), entry.batched, warm is not None)
 
-    def _hold(self, q, mask, pre):
+    def _hold(self, q, mask, entry):
         """Remember this call's q and mask, with their versions, and the
-        prestage it leaves behind (None: none to take), where both inputs
-        are tensors on the tick's device."""
+        entry that holds its prestage (None: none to take), where both
+        inputs are tensors on the tick's device."""
         last = None
-        if pre is not None:
+        if entry is not None:
             dev = self.device
             if all(x is None or (isinstance(x, torch.Tensor) and x.device == dev)
                    for x in (q, mask)):
-                last = (q, q._version, mask, None if mask is None else mask._version, pre)
+                last = (q, q._version, mask, None if mask is None else mask._version, entry)
         self._last[0] = last
 
     def _held_pre(self, q, mask, servos):
-        """The previous call's held prestage if this call may take it, else
-        None."""
+        """The entry holding the previous call's prestage if this call may
+        take it, else None."""
         last = self._last[0]
         if last is None or servos is not None:
             return None
-        lq, qv, lm, mv, pre = last
+        lq, qv, lm, mv, entry = last
         if q is not lq or q._version != qv or mask is not lm:
             return None
         if mask is not None and mask._version != mv:
             return None
-        return pre
+        return entry
 
-    def _element_leading(self, q, qdot, fstars, contact_mask, warm, servos):
-        """(batched, q, f*, the other inputs by keyword) of a call,
-        element-leading and contiguous, as ``TickProgram.tick`` and the
-        kernels take them."""
-
-        def as_t(x):
-            return torch.as_tensor(x, dtype=self.dtype, device=self.device)
-
-        q = as_t(q)
-        fstars = tuple(as_t(f) for f in fstars)
-        batched = q.ndim == 2
-        if not batched:
-            q = q[None]
-            fstars = tuple(f[None] for f in fstars)
-            if warm is not None:
-                warm = tuple((as_t(x)[None], as_t(l)[None]) for x, l in warm)
-        qd_el = sv_el = None
-        if servos is not None:
-            qdot = as_t(qdot)
-            qd_el = (qdot if batched else qdot[None]).T.contiguous()
-            sv_el = self._servos_el(servos, q.shape[0])
-        q_el = q.T.contiguous()
-        fs_el = [f.T.contiguous() for f in fstars]
-        cm_el = None
-        if self.masked:
-            cmask = as_t(contact_mask)
-            if cmask.ndim == 1:
-                cmask = cmask[:, None].expand(cmask.shape[0], q_el.shape[1])
-            else:
-                cmask = cmask.T
-            cm_el = cmask.contiguous()
-        w_el = None
-        if warm is not None:
-            w_el = [(as_t(x).T.contiguous(), as_t(l).T.contiguous()) for x, l in warm]
-        return batched, q_el, fs_el, dict(warm=w_el, cmask=cm_el, qdot=qd_el, servos=sv_el)
-
-    def _batch_major(self, out, batched, warm_given, qp_error=None):
-        """The kernels' element-leading outputs as the TickResult (and the
-        warm state out when warm was given), batch-major; ``qp_error`` when
-        it was computed already (B,)."""
+    def _batch_major(self, out, qp_error, batched, warm_given):
+        """An entry's element-leading results and qp_error (B,) as the
+        TickResult (and the warm state out when warm was given),
+        batch-major."""
 
         def bm(t):
             return t.movedim(-1, 0)
@@ -248,8 +218,7 @@ class FusedTick(nn.Module):
             qp_gap=out["qp_gap"],
             qp_primal_res=out["qp_primal_res"],
             contact_rank_health=out["health"],
-            qp_error=qp_error if qp_error is not None else qp_error_flag(
-                out["qp_gap"], out["qp_primal_res"], bm(out["torque_cmd"]), self.cfg),
+            qp_error=qp_error,
         )
         wout = tuple((bm(x), bm(l)) for x, l in out["warm_out"])
         if not batched:

@@ -595,7 +595,7 @@ def srun(lanes, request):
                 _ptr(qd_el.numpy()), _ptr(np.ascontiguousarray(torch.cat(fs_el).numpy())),
                 _ptr(tc.pack_servos(sv_el, prog.plan, B).numpy()), smask, _ptr(pre),
                 _ptr(np.full((B, ws_pre), np.nan)), B, 1)
-    ref_pre = k.prestage(q_el, cm_el, qd_el, fs_el, sv_el)
+    ref_pre = prog.prestage_servo(q_el, cm_el, qd_el, fs_el, sv_el)
     # the QP chain's lanes on the plain servo'd prestage (see _lane_run)
     buf = np.ascontiguousarray(k.pack_pre(ref_pre).buf.numpy())
 
@@ -977,7 +977,7 @@ def gsrun(lanes, request):
     servo = (np.ascontiguousarray(qd_el.numpy()), np.ascontiguousarray(torch.cat(fs_el).numpy()),
              np.ascontiguousarray(tc.pack_servos(sv_el, prog.plan, B).numpy()), smask)
     pre, _ = _prestage_buffers(lanes, tab, np.ascontiguousarray(q_el.numpy()), 1, None, servo)
-    ref_pre = k.prestage(q_el, None, qd_el, fs_el, sv_el)
+    ref_pre = prog.prestage_servo(q_el, None, qd_el, fs_el, sv_el)
     buf = np.ascontiguousarray(k.pack_pre(ref_pre).buf.numpy())
     ws_pre, _, _, n_out, n_warm, n_pre, _, _ = _sizes(lanes, tab)
 

@@ -1136,14 +1136,31 @@ def test_batched_bridge_cuda_matches_float64_bridge(dev):
 
 
 # ------------------------------------------------- the tick's CUDA graphs
+class _Uncaptured:
+    """A FusedTick each of whose calls runs with ``KEYS_MAX`` monkeypatched
+    to 0: in a transient entry, the body uncaptured."""
+
+    def __init__(self, tick):
+        self.tick = tick
+
+    def __getattr__(self, name):
+        return getattr(self.tick, name)
+
+    def _tick_impl(self, *args, **kw):
+        from libdwbc_tpu_torch.wbc import tick_graph
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tick_graph, "KEYS_MAX", 0)
+            return self.tick._tick_impl(*args, **kw)
+
+
 def _graph_and_eager(m, cfg, dev, masked=False):
     """(a FusedTick served from its CUDA graphs, one that runs every call
-    eagerly: its ``graphs`` taken away)."""
+    eagerly: ``KEYS_MAX`` 0 while it runs)."""
     from libdwbc_tpu_torch.wbc.fused import FusedTick
 
     graph = FusedTick(m, cfg, dev, backend="cuda", masked=masked)
-    eager = FusedTick(m, cfg, dev, backend="cuda", masked=masked)
-    eager.graphs = None
+    eager = _Uncaptured(FusedTick(m, cfg, dev, backend="cuda", masked=masked))
     return graph, eager
 
 
@@ -1314,8 +1331,8 @@ def test_graph_resolve_takes_the_warm_ticks_prestage(case, dev, plan, nb):
     """The control loop's call sequence on the graphs (nb None: unbatched):
     cold at the full budget, warm at 7, the re-solve at the full budget on
     the warm tick's q (and mask) from its warm output, three times.  Every
-    call equals bit for bit the eager tick (``TickKernels.tick`` on the
-    element-leading inputs).  The first re-solve follows the warm key's
+    call equals bit for bit the eager tick (the body uncaptured on the
+    same staged inputs).  The first re-solve follows the warm key's
     capturing call, which executed nothing: it runs the whole tick again.
     The next two take the warm tick's prestage, the first of them capturing
     the graph of the QP chain alone: ``tick_prestage`` launches once per

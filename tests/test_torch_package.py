@@ -147,50 +147,87 @@ def test_unknown_backend_raises(flagship):
         FusedTick(m, cfg, device="cpu", backend="pallas")
 
 
-@pytest.mark.parametrize("stage", ["prestage", "qpchain", "tick", "masked_tick", "servo_tick"])
-def test_wrapper_routes_cpu_tensors_to_plain_version(flagship, stage):
+@pytest.mark.parametrize("stage", ["tick", "masked_tick", "servo_tick", "past_keys_max",
+                                   "reuse_past_keys_max"])
+def test_plain_fused_tick_is_the_plain_program(flagship, stage, monkeypatch):
+    """``FusedTick(backend="torch")`` through its one host path (key,
+    entry, staging, body) gives bit for bit ``TickProgram.tick`` on
+    element-leading inputs built here: a call, a masked call, a servo'd
+    call, a call past ``KEYS_MAX`` (a transient entry) and a reuse of a
+    held prestage past ``KEYS_MAX`` (the QP chain's transient entry)."""
+    from libdwbc_tpu_torch.entry import _example_inputs, _servo_inputs
+    from libdwbc_tpu_torch.wbc import tick_graph
+    from libdwbc_tpu_torch.wbc.fused import FusedTick
+
+    m, cfg = flagship
+    masked = stage == "masked_tick"
+    tick = FusedTick(m, cfg, "cpu", torch.float32, backend="torch", masked=masked)
+    q, qd, fs = _example_inputs(m)
+    rng = np.random.default_rng(5)
+    q = np.tile(q, (3, 1))
+    q[:, 6:39] += 0.02 * rng.standard_normal((3, 33)).astype(np.float32)
+    qd = np.tile(qd, (3, 1))
+    fs = [np.tile(f, (3, 1)) + 0.05 * rng.standard_normal((3, f.shape[0])).astype(np.float32)
+          for f in fs]
+
+    def el(x):
+        return torch.as_tensor(x).T.contiguous()
+
+    args, kw, servos = (), {}, None
+    if masked:
+        cm = np.array([[1.0, 1.0], [1.0, 0.0], [0.0, 1.0]], np.float32)
+        args, kw["cmask"] = (torch.as_tensor(cm),), el(cm)
+    if stage == "servo_tick":
+        _, qd, _, servos = _servo_inputs(m, 3)
+        kw.update(qdot=el(qd), servos=tick._servos_el(servos, 3))
+    want = tick.prog.tick(el(q), [el(f) for f in fs], None, 12, **kw)
+    if "past_keys_max" in stage:
+        monkeypatch.setattr(tick_graph, "KEYS_MAX", 1)
+    if stage == "past_keys_max":
+        tick._tick_impl(q[:2], qd[:2], [f[:2] for f in fs], qp_iters=12)   # the kept key
+    qt = torch.as_tensor(q)
+    if stage == "reuse_past_keys_max":
+        tick._tick_impl(qt, qd, fs, qp_iters=12)          # the kept key; holds its prestage
+    got = tick._tick_impl(qt, qd, fs, *args, qp_iters=12, servos=servos)
+    assert tick.prestage_reuses == (stage == "reuse_past_keys_max")
+    if "past_keys_max" in stage:
+        assert len(tick.entries.kept) == 1
+    for f, k in (("torque_grav", "torque_grav"), ("torque_task", "torque_task"),
+                 ("torque_contact", "torque_contact"), ("torque_cmd", "torque_cmd"),
+                 ("contact_force", "contact_force"), ("qp_gap", "qp_gap"),
+                 ("qp_primal_res", "qp_primal_res"), ("contact_rank_health", "health")):
+        w = want[k]
+        assert torch.equal(getattr(got, f), w.movedim(-1, 0) if w.ndim == 2 else w), f
+
+
+@pytest.mark.parametrize("launch", ["prestage_staged", "prestage_packed", "prestage",
+                                    "qpchain_staged", "qpchain_packed", "qpchain"])
+def test_kernels_refuse_cpu_tensors(flagship, launch):
+    """``TickKernels`` routes nothing to the plain version: a CPU tensor
+    raises at every launch, before any build, as one on a wrong device
+    does, and nothing is counted."""
     from libdwbc_tpu_torch.entry import _example_inputs
     from libdwbc_tpu_torch.ops.tick_cuda import TickKernels
     from libdwbc_tpu_torch.ops.tick_kernel import TickProgram
 
     m, cfg = flagship
-    prog = TickProgram(m, cfg, "cpu", torch.float32, masked=stage == "masked_tick")
+    prog = TickProgram(m, cfg, "cpu", torch.float32)
     kern = TickKernels(prog)
     q, _, fs = _example_inputs(m)
     q_el = torch.as_tensor(np.tile(q, (3, 1)).T.copy())
     fs_el = [torch.as_tensor(np.tile(f, (3, 1)).T.copy()) for f in fs]
-    if stage == "prestage":
-        got, want = kern.prestage(q_el), prog.prestage(q_el)
-        keys = ["torque_grav", "Atemp", "health"]
-    elif stage == "qpchain":
-        pre = prog.prestage(q_el)
-        got, want = kern.qpchain(pre, fs_el, None, 12), prog.qpchain(pre, fs_el, None, 12)
-        keys = ["torque_cmd", "qp_gap"]
-    elif stage == "tick":
-        got, want = kern.tick(q_el, fs_el, None, 12), prog.tick(q_el, fs_el, None, 12)
-        keys = ["torque_cmd", "contact_force"]
-    elif stage == "masked_tick":
-        cm = torch.tensor([[1.0, 1.0, 0.0], [1.0, 0.0, 1.0]])
-        got, want = (kern.tick(q_el, fs_el, None, 12, cmask=cm),
-                     prog.tick(q_el, fs_el, None, 12, cmask=cm))
-        keys = ["torque_cmd", "qp_gap"]
-        with pytest.raises(ValueError):
-            kern.tick(q_el, fs_el, None, 12)
-    else:
-        from libdwbc_tpu_torch.entry import _servo_inputs
-        from libdwbc_tpu_torch.wbc.fused import FusedTick
-
-        _, qd, _, servos = _servo_inputs(m, 3)
-        sv = FusedTick(m, cfg, "cpu", backend="torch")._servos_el(servos, 3)
-        qd_el = torch.as_tensor(qd.T.copy())
-        got, want = (kern.tick(q_el, fs_el, None, 12, qdot=qd_el, servos=sv),
-                     prog.tick(q_el, fs_el, None, 12, qdot=qd_el, servos=sv))
-        keys = ["torque_cmd", "qp_gap"]
-        pre = kern.prestage(q_el, qdot=qd_el, fstars=fs_el, servos=sv)
-        assert torch.equal(kern.qpchain(pre, None, None, 12)["torque_cmd"], got["torque_cmd"])
-    for k in keys:
-        assert torch.equal(got[k], want[k]), k
+    pre = prog.prestage(q_el)
+    calls = {"prestage_staged": lambda: kern.prestage_staged(q_el, None),
+             "prestage_packed": lambda: kern.prestage_packed(q_el),
+             "prestage": lambda: kern.prestage(q_el),
+             "qpchain_staged": lambda: kern.qpchain_staged(kern.pack_pre(pre),
+                                                           torch.cat(fs_el), None, 12),
+             "qpchain_packed": lambda: kern.qpchain_packed(kern.pack_pre(pre), fs_el, None, 12),
+             "qpchain": lambda: kern.qpchain(pre, fs_el, None, 12)}
+    with pytest.raises(ValueError, match="CUDA device"):
+        calls[launch]()
     assert kern.launches == {"tick_prestage": 0, "tick_qpchain": 0}
+    assert not hasattr(kern, "tick")
 
 
 def test_pack_unpack_round_trip(flagship):
@@ -221,9 +258,9 @@ def _round_trip(flagship, masked, servo=False):
     cm = torch.tensor([[1.0, 0.0], [1.0, 1.0]]) if masked else None
     if servo:
         _, qd, fs, servos = _servo_inputs(m, 2)
-        pre = kern.prestage(q_el, cm, torch.as_tensor(qd.T.copy()),
-                            [torch.as_tensor(f.T.copy()) for f in fs],
-                            tick._servos_el(servos, 2))
+        pre = prog.prestage_servo(q_el, cm, torch.as_tensor(qd.T.copy()),
+                                  [torch.as_tensor(f.T.copy()) for f in fs],
+                                  tick._servos_el(servos, 2))
     else:
         pre = prog.prestage(q_el, cm)
     packed = kern.pack_pre(pre)

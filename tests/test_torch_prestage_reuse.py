@@ -6,8 +6,9 @@ prestage and gives bit for bit what the whole tick gives; a rollout with the
 gap fallback gives the LoopResult of the same rollout whose every call gets
 a fresh q; the guard refuses a q edited in place, an equal but distinct q,
 an equal but distinct mask or one edited in place, servos and a numpy q;
-the counter ``dwbc.tick.prestage_reused`` counts one per reuse.  The CUDA graph of the
-QP chain alone runs on the card only (``tests/test_torch_gpu.py``)."""
+the counter ``dwbc.tick.prestage_reused`` counts one per reuse; no result is
+changed by a later call.  The CUDA graph of the QP chain alone runs on the
+card only (``tests/test_torch_gpu.py``)."""
 
 import pytest
 import torch
@@ -70,6 +71,10 @@ def assert_same(a, b):
         assert torch.equal(a, b)
 
 
+def flat(x):
+    return [u for t in x for u in flat(t)] if isinstance(x, tuple) else [x]
+
+
 def clone(x):
     return tuple(clone(t) for t in x) if isinstance(x, tuple) else x.clone()
 
@@ -107,6 +112,42 @@ def test_repeated_full_budget_call_is_the_full_tick(plan):
     assert tick.prestage_reuses == n0 + 2
     assert_same(kept, result(want))
     assert_same(result(again), result(want))
+
+
+def test_results_outlive_later_calls(plan):
+    """No result aliases a buffer that a later call writes (the entry's
+    staged inputs, its outputs, a held prestage): a call's results and warm
+    state stay as they were after a reuse of its prestage and after a later
+    call of the same key, and the reuse's after that call too."""
+    tick, q, qd, fs, mask = plan
+    full = tick.cfg.qp_iters
+    q = q.clone()
+    first = tick._tick_impl(q, qd, fs, *mask_args(mask), warm=tick.init_warm((B,)),
+                            qp_iters=full)
+    kept = clone(result(first))
+    n0 = tick.prestage_reuses
+    reuse = tick._tick_impl(q, qd, fs, *mask_args(mask), warm=first[1], qp_iters=full)
+    assert tick.prestage_reuses == n0 + 1
+    kept_reuse = clone(result(reuse))
+    q2 = q.clone()
+    q2[:, 6:39] += 1e-3
+    later = tick._tick_impl(q2, qd, fs, *mask_args(mask), warm=tick.init_warm((B,)),
+                            qp_iters=full)
+    assert not torch.equal(later[0].torque_cmd, first[0].torque_cmd)
+    assert_same(result(first), kept)
+    assert_same(result(reuse), kept_reuse)
+    # the rule itself: no served tensor shares storage with what an entry
+    # keeps (its staged inputs, its outputs, its held prestage)
+    held = set()
+    for e in tick.entries.kept.values():
+        pre = list(e.pre.values()) if isinstance(e.pre, dict) else []
+        for t in [e.staged.el, *(e.outs or ()), *pre]:
+            for x in t if isinstance(t, list) else [t]:
+                if isinstance(x, torch.Tensor):
+                    held.add(x.untyped_storage().data_ptr())
+    for out in (first, reuse, later):
+        for t in flat(result(out)):
+            assert t.untyped_storage().data_ptr() not in held
 
 
 class FreshQ:

@@ -1,17 +1,18 @@
-"""The CUDA-graph path of ``FusedTick`` (``wbc/tick_graph.py``) on the CPU:
-its staging writes bit for bit the element-leading inputs the eager path
-hands the kernels (``FusedTick._element_leading`` and the two ``torch.cat``s
-of ``TickKernels.qpchain_packed``), its key tells the call shapes apart and
-refuses what the graphs do not take, and a tick that cannot capture (the
-plain path, servos) counts its calls as eager.  The graphs themselves run
-on the card only (``tests/test_torch_gpu.py``)."""
+"""The host path of ``FusedTick`` (``wbc/tick_graph.py``) on the CPU: its
+staging writes bit for bit the element-leading inputs the kernels and the
+plain program read (q, q̇ and the mask transposed, every level's f* and
+every QP's warm state concatenated), its key tells the call shapes apart
+and refuses what it cannot place, a tick that does not capture (the plain
+backend) keeps entries and counts its calls as eager, and a tick and its
+entries are freed without the collector.  The graphs themselves run on the
+card only (``tests/test_torch_gpu.py``)."""
 
 import numpy as np
 import pytest
 import torch
 
 from libdwbc_tpu_torch import entry
-from libdwbc_tpu_torch.wbc.tick_graph import Staged, graph_key
+from libdwbc_tpu_torch.wbc.tick_graph import Staged, graph_key, tick_dims
 
 # one intra-op thread: the suite's workers share the host's cores, where
 # oversubscribed OpenMP barriers make small batched ops ~100x slower
@@ -25,12 +26,6 @@ def ticks():
     model, tick = entry._model_and_tick("cpu", torch.float32, backend="torch")
     _, mtick = entry._model_and_tick("cpu", torch.float32, backend="torch", masked=True)
     return model, tick, mtick
-
-
-def dims(tick):
-    plan = tick.prog.plan
-    return (plan.nq, tuple(plan.level_tdofs), tuple(plan.qp_dims),
-            len(tick.cfg.contacts) if tick.masked else None)
 
 
 def inputs(model, tick, B, rng, warm=True):
@@ -56,30 +51,43 @@ def bits(t):
     return t.contiguous().view(torch.int32)
 
 
-def eager_el(tick, q, fs, mask, warm):
-    """What the eager path hands the kernels: q, f* and the warm state
-    concatenated, the mask."""
-    _, q_el, fs_el, kw = tick._element_leading(q, None, fs, mask, warm, None)
-    win = None if kw["warm"] is None else torch.cat([t for xl in kw["warm"] for t in xl], 0)
-    return q_el, torch.cat(list(fs_el), 0), win, kw["cmask"]
+def want_el(q, fs, mask, warm, qdot=None):
+    """The element-leading float32 inputs, built here: q, q̇ and the mask
+    transposed (a 1-D mask for every lane), f* and the warm state
+    concatenated."""
+    def el(x):
+        t = torch.as_tensor(x, dtype=torch.float32)
+        return (t[None] if t.ndim == 1 else t).T
+
+    q_el = el(q)
+    cm = None
+    if mask is not None:
+        cm = torch.as_tensor(mask, dtype=torch.float32)
+        cm = cm[:, None].expand(cm.shape[0], q_el.shape[1]) if cm.ndim == 1 else cm.T
+    win = None if warm is None else torch.cat([el(t) for xl in warm for t in xl], 0)
+    return (q_el, torch.cat([el(f) for f in fs], 0), win, cm,
+            None if qdot is None else el(qdot))
 
 
-CASES = [  # (masked, B, mask: None, "1d" or "2d", warm given)
-    (False, None, None, True), (False, None, None, False), (False, 1, None, True),
-    (False, 3, None, True), (False, 3, None, False), (True, 3, "1d", True),
-    (True, 3, "2d", True), (True, None, "1d", True), (True, 1, "2d", False)]
+CASES = [  # (masked, B, mask: None, "1d" or "2d", warm given, q̇ staged: servo'd)
+    (False, None, None, True, False), (False, None, None, False, False),
+    (False, 1, None, True, False), (False, 3, None, True, False), (False, 3, None, False, False),
+    (True, 3, "1d", True, False), (True, 3, "2d", True, False), (True, None, "1d", True, False),
+    (True, 1, "2d", False, False), (False, 3, None, True, True), (True, None, "1d", False, True)]
 # where each group lives: numpy everywhere, torch everywhere (on the tick's
 # device, here the CPU), and mixed
 RESIDENCE = ["numpy", "torch", "mixed"]
 
 
 @pytest.mark.parametrize("residence", RESIDENCE)
-@pytest.mark.parametrize("masked,B,mask_kind,warm_given", CASES)
-def test_staging_matches_eager_bit_for_bit(ticks, masked, B, mask_kind, warm_given, residence):
+@pytest.mark.parametrize("masked,B,mask_kind,warm_given,servod", CASES)
+def test_staging_matches_eager_bit_for_bit(ticks, masked, B, mask_kind, warm_given, servod,
+                                           residence):
     model, tick, mtick = ticks
     tick = mtick if masked else tick
     rng = np.random.default_rng([7, B or 0, masked])
     q, fs, warm = inputs(model, tick, B, rng, warm_given)
+    qd = 0.1 * rng.standard_normal(q.shape[:-1] + (q.shape[-1] - 1,)) if servod else None
     mask = None
     if mask_kind == "1d":
         mask = np.array([1.0, 0.0])
@@ -87,24 +95,29 @@ def test_staging_matches_eager_bit_for_bit(ticks, masked, B, mask_kind, warm_giv
         mask = (rng.uniform(size=(B or 1, 2)) < 0.5).astype(np.float64)
         mask[:, 0] = 1.0
     if residence == "torch":
-        q, fs, warm, mask = as_torch(q), as_torch(fs), as_torch(warm), as_torch(mask)
+        q, fs, warm, mask, qd = (as_torch(x) for x in (q, fs, warm, mask, qd))
     elif residence == "mixed":
         q, warm = as_torch(q), as_torch(warm)
-    key = graph_key(q, fs, mask, warm, 12, None, dims(tick), CPU)
+    key = graph_key(q, fs, mask, warm, 12, qd, tick_dims(tick), CPU)
     assert key is not None
-    st = Staged(key, dims(tick), CPU)
+    st = Staged(key, tick_dims(tick), CPU, torch.float32)
     st.el.fill_(float("nan"))
     if st.host is not None:
         st.host.fill_(float("nan"))
-    st.stage(q, fs, mask, warm)
+    st.stage(q, fs, mask, warm, qd)
     st.upload()
-    want = eager_el(tick, q, fs, mask, warm)
-    got = (st.q, st.fs, st.win, st.cmask)
-    for name, g, w in zip(("q", "fstars", "warm", "mask"), got, want):
+    want = want_el(q, fs, mask, warm, qd)
+    got = (st.q, st.fs, st.win, st.cmask, st.qdot)
+    for name, g, w in zip(("q", "fstars", "warm", "mask", "qdot"), got, want):
         assert (g is None) == (w is None), name
         if w is not None:
             assert g.shape == w.shape and g.dtype == torch.float32, name
             assert torch.equal(bits(g), bits(w)), name
+    # the plain body's rows: per level, per QP (x, λ)
+    assert torch.equal(bits(torch.cat(st.fstars, 0)), bits(want[1]))
+    assert (st.warm is None) == (warm is None)
+    if warm is not None:
+        assert torch.equal(bits(torch.cat([t for xl in st.warm for t in xl], 0)), bits(want[2]))
 
 
 def test_staging_reuses_its_buffers(ticks):
@@ -112,25 +125,25 @@ def test_staging_reuses_its_buffers(ticks):
     model, tick, _ = ticks
     rng = np.random.default_rng(3)
     calls = [inputs(model, tick, 3, rng) for _ in range(2)]
-    key = graph_key(*calls[0][:2], None, calls[0][2], 7, None, dims(tick), CPU)
-    st = Staged(key, dims(tick), CPU)
+    key = graph_key(*calls[0][:2], None, calls[0][2], 7, None, tick_dims(tick), CPU)
+    st = Staged(key, tick_dims(tick), CPU, torch.float32)
     ptr = st.el.data_ptr()
     for q, fs, warm in calls:
-        st.stage(q, fs, None, warm)
+        st.stage(q, fs, None, warm, None)
         st.upload()
         assert st.el.data_ptr() == ptr
-        for g, w in zip((st.q, st.fs, st.win), eager_el(tick, q, fs, None, warm)):
+        for g, w in zip((st.q, st.fs, st.win), want_el(q, fs, None, warm)):
             assert torch.equal(bits(g), bits(w))
 
 
 def test_key_separates_call_shapes(ticks):
     model, tick, mtick = ticks
     rng = np.random.default_rng(11)
-    d, md = dims(tick), dims(mtick)
+    d, md = tick_dims(tick), tick_dims(mtick)
     keys = {}
 
-    def key(name, q, fs, warm, iters=12, mask=None, dm=d):
-        keys[name] = graph_key(q, fs, mask, warm, iters, None, dm, CPU)
+    def key(name, q, fs, warm, iters=12, mask=None, dm=d, qdot=None):
+        keys[name] = graph_key(q, fs, mask, warm, iters, qdot, dm, CPU)
         assert keys[name] is not None, name
 
     q1, f1, w1 = inputs(model, tick, None, rng)
@@ -149,6 +162,9 @@ def test_key_separates_call_shapes(ticks):
     key("masked 1-D", q3, f3, w3, mask=np.ones(2), dm=md)
     key("masked 2-D", q3, f3, w3, mask=np.ones((3, 2)), dm=md)
     key("masked 2-D on the device", q3, f3, w3, mask=torch.ones((3, 2)), dm=md)
+    qd3 = 0.1 * rng.standard_normal((3, 39))
+    key("B 3 servo'd", q3, f3, w3, qdot=qd3)
+    key("B 3 servo'd, q̇ on the device", q3, f3, w3, qdot=as_torch(qd3))
     assert len(set(keys.values())) == len(keys)
     # the same call shape, other values: the same key
     q3b, f3b, w3b = inputs(model, tick, 3, rng)
@@ -158,10 +174,9 @@ def test_key_separates_call_shapes(ticks):
 def test_key_refuses_what_the_graphs_do_not_take(ticks):
     model, tick, mtick = ticks
     rng = np.random.default_rng(13)
-    d, md = dims(tick), dims(mtick)
+    d, md = tick_dims(tick), tick_dims(mtick)
     q, fs, warm = inputs(model, tick, 3, rng)
-    _, _, _, servos = entry._servo_inputs(model, 3)
-    assert graph_key(q, fs, None, warm, 12, servos, d, CPU) is None
+    assert graph_key(q, fs, None, warm, 12, q[:, :-2], d, CPU) is None   # q̇ (3, 38)
     assert graph_key(q[:, :-1], fs, None, warm, 12, None, d, CPU) is None
     assert graph_key(q, fs[:1], None, warm, 12, None, d, CPU) is None
     assert graph_key(q, (fs[0], fs[1][:2]), None, warm, 12, None, d, CPU) is None
@@ -183,16 +198,18 @@ def test_key_refuses_what_the_graphs_do_not_take(ticks):
 
 
 def test_plain_ticks_count_eager_calls(ticks):
-    """A tick on the plain path (the CPU, ``backend="torch"``), with and
-    without servos, has no graphs and counts every call as eager."""
+    """A tick on the plain backend (``backend="torch"``) keeps entries but
+    captures none, and counts every call as eager: with and without servos,
+    unbatched, masked."""
     model, tick, mtick = ticks
     q, qd, fs, servos = entry._servo_inputs(model, 2)
     tick.graph_counts.update(captures=0, replays=0, eager=0)
-    assert tick.graphs is None and mtick.graphs is None
+    assert not tick.entries.capture and not mtick.entries.capture
     tick._tick_impl(q, qd, fs)
     tick._tick_impl(q, qd, fs, servos=servos)
     tick._tick_impl(q[0], qd[0], tuple(f[0] for f in fs), warm=tick.init_warm(), qp_iters=7)
     assert tick.graph_counts == {"captures": 0, "replays": 0, "eager": 3}
+    assert tick.entries.kept and all(e.graph is None for e in tick.entries.kept.values())
     m0 = dict(mtick.graph_counts)
     qm, qdm, fsm, masks = entry._masked_inputs(model, 2)
     mtick._tick_impl(qm, qdm, fsm, masks)
@@ -200,29 +217,28 @@ def test_plain_ticks_count_eager_calls(ticks):
 
 
 def test_graphs_free_without_the_collector(ticks):
-    """A tick's graphs sit in no reference cycle: they are freed when the
-    tick lets go of them, not by the cyclic collector, which may run inside
-    another tick's capture and destroy a graph there (that invalidates the
-    capture)."""
+    """A tick and its entries sit in no reference cycle: they are freed when
+    the caller lets go of the tick, not by the cyclic collector, which may
+    run inside another tick's capture and destroy a graph there (that
+    invalidates the capture)."""
     import gc
     import weakref
-    from types import SimpleNamespace
 
-    from libdwbc_tpu_torch.wbc.tick_graph import TickGraphs
+    from libdwbc_tpu_torch.wbc.fused import FusedTick
 
     model, tick, _ = ticks
-    owner = SimpleNamespace(prog=tick.prog, kernels=None, cfg=tick.cfg, device=CPU,
-                            masked=False)
     q, fs, warm = inputs(model, tick, 3, np.random.default_rng(19))
     collecting = gc.isenabled()
     gc.disable()
     try:
-        graphs = TickGraphs(owner, {})
-        g = graphs.graph(q, fs, None, warm, 7, None)
-        assert g is not None and graphs.graph(q, fs, None, warm, 7, None) is g
-        alive = (weakref.ref(graphs), weakref.ref(g))
-        del graphs, g
-        assert [r() for r in alive] == [None, None]
+        t = FusedTick(model, tick.cfg, "cpu", torch.float32, backend="torch")
+        qt = torch.as_tensor(q)
+        t._tick_impl(qt, None, fs, warm=warm, qp_iters=7)
+        t._tick_impl(qt, None, fs, warm=warm, qp_iters=7)         # held: the QP chain's entry
+        assert t.prestage_reuses == 1 and len(t.entries.kept) == 2
+        alive = [weakref.ref(x) for x in (t, t.entries, *t.entries.kept.values())]
+        del t
+        assert [r() for r in alive] == [None] * len(alive)
     finally:
         if collecting:
             gc.enable()
