@@ -13,8 +13,9 @@ B = 4096), on this tree alone where the other has none.
 The other tree's tick_qpchain must take the same C arguments and read the
 flagship's and config 3's prestage buffers as this one's; each tree's kernel reads the
 table that its own ``kernel_table`` packs.  Prints each time, the mean of
-each tree's two runs, whether the two results agree bit for bit, and the
-card's name and power limit.  Needs a CUDA device.
+each tree's two runs, whether the two results agree bit for bit and, where
+they do not, the largest |Δ| of τ_cmd, τ_task, the gap and the warm x and
+λ out, and the card's name and power limit.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from .wbc.pipeline import standard_tocabi_config
 
 def qpchain_call(lib, table_host, pre, fs, warm, nb, n_out, n_warm):
     """A closure launching the library's tick_qpchain, warm at 7 iterations;
-    returns the result buffer."""
+    returns the result and warm-out buffers."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dwbc_tick_qpchain.argtypes = [p, p, p, p, p, p, i, i, i, p]
     lib.dwbc_qpchain_smem_elems.argtypes = [p]
@@ -56,9 +57,21 @@ def qpchain_call(lib, table_host, pre, fs, warm, nb, n_out, n_warm):
                                    torch.cuda.current_stream(pre.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"tick_qpchain launch failed: CUDA error {rc}")
-        return out
+        return out, wout
 
     return run
+
+
+def max_deltas(plan, a, b):
+    """{output: largest |Δ|} of two (result, warm-out) pairs of one plan."""
+    ra, rb = (tc.unpack_result(plan, *(t.clone() for t in r)) for r in (a, b))
+    d = {name: float((ra[key] - rb[key]).abs().max())
+         for name, key in (("tau_cmd", "torque_cmd"), ("tau_task", "torque_task"),
+                           ("gap", "qp_gap"))}
+    for k, name in ((0, "warm_x"), (1, "warm_lam")):
+        d[name] = max(float((wa[k] - wb[k]).abs().max())
+                      for wa, wb in zip(ra["warm_out"], rb["warm_out"]))
+    return d
 
 
 def main():
@@ -117,8 +130,12 @@ def main():
             f"{tag} " + " ".join(f"{v:.3f}" for v in ts) + f" (mean {np.mean(ts):.3f}) ms"
             for tag, ts in t.items())
         if "other" in runs:
-            same = torch.equal(runs["this"]().clone(), runs["other"]().clone())
+            a, b = (tuple(t.clone() for t in runs[tag]()) for tag in ("this", "other"))
+            same = all(torch.equal(x, y) for x, y in zip(a, b))
             line += f"; results bit for bit equal: {same}"
+            if not same:
+                line += "; max |Δ| " + ", ".join(
+                    f"{name} {v:.3e}" for name, v in max_deltas(k.plan, a, b).items())
         print(f"{line}  [{card}]")
 
 

@@ -22,31 +22,42 @@
 // then moves x far from the optimum at a small gap (warm single-support
 // lanes of the masked tick, in both forms: on the masked sweep MaskedTick's
 // float32 qp_solve put such lanes up to 0.036 Nm (H100) and its plain
-// recurrence 0.47 Nm (CPU) from a float64 solve of the same QP).  So a lane
-// whose μ and largest |r_p| are both within kLostPivotNear skips that step;
-// any other lane takes the step with the lost pivot's reciprocal 0 and its
-// column out of the elimination, i.e. holds that variable (dx = 0) and
-// moves the others (Wright's modified Cholesky for IPMs): on active
-// constraints far from convergence (the servo'd loop) the Gram is as
-// ill-conditioned, and a skipped step would stall the lane.
+// recurrence 0.47 Nm (CPU) from a float64 solve of the same QP).  So in
+// float32 a lane whose μ and largest |r_p| are both within kLostPivotNear
+// skips that step; any other lane, and every lane in float64, takes the
+// step with the lost pivot's reciprocal 0 and its column out of the
+// elimination, i.e. holds that variable (dx = 0) and moves the others
+// (Wright's modified Cholesky for IPMs): on active constraints far from
+// convergence (the servo'd loop) the Gram is as ill-conditioned, and a
+// skipped step would stall the lane.  Float64 has no float32 noise to
+// guard against, and there a pivot that is the ridge alone (a direction
+// with no Hessian and no constraint: the hands plan's singular NwJw
+// direction, 1e-9 at a diagonal of ~1e8) falls below 1e-30 or not by
+// rounding, so a skip would stop a lane at an iteration its rounding
+// picks; the held step leaves that direction, which nothing reads, alone.
+// (The plain tick, TickProgram._ipm, also skips in float64; the two part
+// only on a float64 lane that loses a pivot within the bars.)
 //
 // The nl lanes of a Lanes (warp_linalg.cuh) share one problem: tick_qpchain
 // runs a warp per scenario and qp_solve a warp per problem, each on shared
-// memory.  The lanes split outputs, never a sum: the stored rows
-// of C·x, the n outputs of Cᵀv, the n(n+1)/2 entries of the Gram, the m
-// rows of every elementwise update, the trailing triangle of each Cholesky
-// column; the two triangular solves are one lane's; μ, μ_aff and the gap
-// are sequential sums that every lane takes alike; the step lengths and
-// max |r_p| are exact min / max reductions.  So every value is the same
-// for any nl.
+// memory.  Every value is taken in a fixed order set by the problem (n, m),
+// the same for any nl.  The lanes split outputs: the stored rows of C·x,
+// the n outputs of Cᵀv, the n(n+1)/2 entries of the Gram, the m rows of
+// every elementwise update, the trailing triangle of each Cholesky column.
+// The two triangular solves go column by column, each lane holding its
+// rows' running sums (solve_lower_vec in the row order's bits,
+// solve_upperT_vec with each row's terms from the last column down).  μ,
+// μ_aff and the gap are fixed_sum's 32 partials and tree.  The step
+// lengths, max |r_p|, the primal residual and the finite-dx test are exact
+// min / max reductions.
 #pragma once
 
 #include "warp_linalg.cuh"
 
 namespace dwbc {
 
-// μ and max |r_p| at or below which a lane stops on a lost pivot: the
-// tick's failure bars (PipelineConfig.qp_fail_gap / qp_fail_pres), as
+// μ and max |r_p| at or below which a float32 lane stops on a lost pivot: the
+// tick's failure bars (PipelineConfig.qp_fail_gap / qp_fail_pres),
 // ops/tick_kernel.py::LOST_PIVOT_NEAR.
 constexpr double kLostPivotNear = 1e-3;
 
@@ -135,19 +146,8 @@ DWBC_HD void newton(const IPMWS<T>& w, V<T> lam, V<T> dxo, V<T> dso, V<T> dlo,
   ctv_full(w, v, w.rhs, n, me, mr, wp);
   for (int i = wp.lane; i < n; i += wp.nl) w.rhs[i] = -w.r_d[i] - w.rhs[i];
   wp.sync();
-  if (wp.lane == 0) {
-    for (int i = 0; i < n; ++i) {                 // L y = rhs
-      T acc = w.rhs[i];
-      for (int k = 0; k < i; ++k) acc -= w.L(i, k) * dxo[k];
-      dxo[i] = acc * w.idg[i];
-    }
-    for (int i = n - 1; i >= 0; --i) {            // Lᵀ dx = y
-      T acc = dxo[i];
-      for (int k = i + 1; k < n; ++k) acc -= w.L(k, i) * dxo[k];
-      dxo[i] = acc * w.idg[i];
-    }
-  }
-  wp.sync();
+  solve_lower_vec(w.L, w.idg, w.rhs, dxo, n, wp);
+  solve_upperT_vec(w.L, w.idg, dxo, n, wp);
   cx_full(w, dxo, dso, n, me, mr, wp);
   for (int r = wp.lane; r < m; r += wp.nl) {
     T rc = w.s[r] * lam[r] - (corrector ? sigma_mu - w.ds_a[r] * w.dlam_a[r] : (T)0);
@@ -190,9 +190,7 @@ DWBC_HD void ipm_iterate(const IPMWS<T>& w, M<T> H, V<T> g, V<T> x, V<T> lam,
   wp.sync();
 
   for (int it = 0; it < iters; ++it) {
-    T mu = 0;                                     // every lane alike, in row order
-    for (int r = 0; r < m; ++r) mu += w.s[r] * lam[r];
-    mu = mu / (T)m;
+    const T mu = fixed_sum<T>([&](int r) { return w.s[r] * lam[r]; }, m, wp) / (T)m;
     const T live = mu > mu_tol ? (T)1 : (T)0;
 
     // factor: residuals, scaling w = λ/s, Gram Cᵀdiag(w)C + H + ridge
@@ -260,10 +258,9 @@ DWBC_HD void ipm_iterate(const IPMWS<T>& w, M<T> H, V<T> g, V<T> x, V<T> lam,
     newton(w, lam, w.dx_a, w.ds_a, w.dlam_a, false, (T)0, n, me, mr, wp);
     const T a_p = alpha_max(w.s, w.ds_a, m, wp);
     const T a_d = alpha_max(lam, w.dlam_a, m, wp);
-    T mu_aff = 0;
-    for (int r = 0; r < m; ++r)
-      mu_aff += (w.s[r] + a_p * w.ds_a[r]) * (lam[r] + a_d * w.dlam_a[r]);
-    mu_aff = mu_aff / (T)m;
+    const T mu_aff = fixed_sum<T>([&](int r) {
+                       return (w.s[r] + a_p * w.ds_a[r]) * (lam[r] + a_d * w.dlam_a[r]);
+                     }, m, wp) / (T)m;
     T ratio = mu_aff / clamp_min(mu, (T)1e-30);
     const T sigma = ratio * ratio * ratio;
 
@@ -277,8 +274,10 @@ DWBC_HD void ipm_iterate(const IPMWS<T>& w, M<T> H, V<T> g, V<T> x, V<T> lam,
       a_pc = live * vmin(alpha_max(w.s, w.ds, m, wp), alpha_max(lam, w.dlam, m, wp));
       a_dc = a_pc;
     }
-    bool ok = !(collapsed && mu <= (T)kLostPivotNear && rp_max <= (T)kLostPivotNear);
-    for (int i = 0; i < n; ++i) ok = ok && isfinite(w.dx[i]);
+    T finite = 1;
+    for (int i = wp.lane; i < n; i += wp.nl) finite = isfinite(w.dx[i]) ? finite : (T)0;
+    const bool ok = wp.reduce(finite, MinOp{}) != (T)0 && !(f32 && collapsed && mu <= (T)kLostPivotNear &&
+                                        rp_max <= (T)kLostPivotNear);
     if (ok) {
       for (int i = wp.lane; i < n; i += wp.nl) x[i] = x[i] + a_pc * w.dx[i];
       for (int r = wp.lane; r < m; r += wp.nl) {

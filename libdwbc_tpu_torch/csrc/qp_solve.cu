@@ -27,10 +27,11 @@
 //
 // What bounds it on the H100: per iteration one Gram matrix (n²/2·me FMAs)
 // and one n×n Cholesky, in a chain of warp phases on shared memory (about
-// 40 barriers per iteration, the two triangular solves on one lane, μ as a
-// sequential sum): the latency of that chain at small batches, the SM's
-// instruction throughput once every SM holds its blocks; not the bytes (a
-// few KB per problem) nor the card's FLOP rate.
+// 40 barriers per iteration; the triangular solves column by column across
+// the lanes and μ as 32 partials and a tree, ipm.cuh): the latency of that
+// chain at small batches, the SM's instruction throughput once every SM
+// holds its blocks; not the bytes (a few KB per problem) nor the card's
+// FLOP rate.
 #include "ipm.cuh"
 
 namespace dwbc {

@@ -30,12 +30,17 @@
 //
 // What bounds it on the H100: per IPM iteration one Gram matrix (n²/2·m
 // FMAs; flagship n ≤ 12, m = 86; hands and feet n ≤ 18, m = 98) and one
-// n×n Cholesky, plus passes over the 53×n (hands 65×n) stored rows: about 108k FLOP per scenario at 7 iterations, on shared
-// memory, in a chain of warp phases (about 40 barriers per iteration, the
-// two triangular solves on one lane, μ and the gap as sequential sums):
-// the latency of that chain at small batches, the SM's instruction throughput
-// once every SM holds its four blocks (16 warps); not the bytes (~8 KB per
-// scenario) nor the card's FLOP rate.
+// n×n Cholesky, plus passes over the 53×n (hands 65×n) stored rows: about
+// 108k FLOP per scenario at 7 iterations, on shared memory, in a chain of
+// warp phases whose latency sets the time at any batch (B = 1 takes ~90%
+// of B = 1024's): not the bytes (~8 KB per scenario) nor the card's FLOP
+// rate.  So every chain is kept short: each value is taken in a fixed
+// order set by the problem, the same for any nl (ipm.cuh), the two
+// triangular solves as n shuffle-linked column steps each rather than
+// n(n−1)/2 dependent steps on one lane, μ, μ_aff and the gap as 32
+// partials and a five-level tree rather than m-long sums.  The Cholesky's
+// n pivot steps, each two barriers apart, are the longest chain (27-31%
+// of the kernel's time on the flagship and hands plans).
 #include "ipm.cuh"
 
 namespace dwbc {
@@ -154,9 +159,9 @@ DWBC_HD void qpchain_stage_out(const Tab<T>& tb, T* outp, T* warm_out, T* sm, lo
 }
 
 // min ½xᵀdiag(H)x s.t. Cx ≤ d, H = 1 on the first nt variables and 0 on
-// the rest (ipm.cuh), then the primal residual and the normalized
-// complementarity gap (every lane alike).  x and lam are the warm state in
-// and the solution out.
+// the rest (ipm.cuh), then the primal residual (an exact max over the
+// lanes) and the normalized complementarity gap (fixed_sum), the same on
+// every lane.  x and lam are the warm state in and the solution out.
 template <typename T>
 DWBC_HD void ipm(const QPWS<T>& w, V<T> x, V<T> lam, int n, int nt, int me,
                  int mr, int iters, bool warm, T& gap, T& pres, Lanes wp) {
@@ -165,14 +170,12 @@ DWBC_HD void ipm(const QPWS<T>& w, V<T> x, V<T> lam, int n, int nt, int me,
   ipm_iterate<T>(w, M<T>{nullptr, 0, 0}, V<T>{nullptr, 0}, x, lam, n, nt, me,
                  mr, iters, warm, ridge, wp);
   cx_full<T>(w, x, w.tmp, n, me, mr, wp);
-  T p = 0, g = 0;
-  for (int r = 0; r < m; ++r) {
-    T slack = w.d[r] - w.tmp[r];
-    p = vmax(p, clamp_min(-slack, (T)0));
-    g += fabs(slack) * (lam[r] / ((T)1 + lam[r]));
-  }
-  pres = p;
-  gap = g / (T)m;
+  T p = 0;
+  for (int r = wp.lane; r < m; r += wp.nl) p = vmax(p, clamp_min(w.tmp[r] - w.d[r], (T)0));
+  pres = wp.reduce(p, MaxOp{});
+  gap = fixed_sum<T>([&](int r) {
+          return fabs(w.d[r] - w.tmp[r]) * (lam[r] / ((T)1 + lam[r]));
+        }, m, wp) / (T)m;
   wp.sync();
 }
 

@@ -11,9 +11,13 @@
 // per lane).  With nl = 1 the code is the per-thread code, so one source
 // serves the warp kernels, the per-thread ones and the host compiler.
 //
-// Work is split over *outputs*, never over a sum: every element receives the
-// same operations in the same order whatever nl is, so the results do not
-// depend on it.
+// Every value is taken in a fixed order set by the problem, the same for any
+// nl, so the results do not depend on it.  Work is split over *outputs*
+// (every element receives the same operations in the same order); a sum
+// over many terms is cut by fixed_sum into 32 partials joined by a fixed
+// tree; a triangular solve (solve_lower_vec, solve_upperT_vec) runs column
+// by column, each lane holding its rows' running sums, each row taking its
+// terms in one column order.  min and max, exact, go through reduce().
 #pragma once
 
 #include "tick_common.cuh"
@@ -42,7 +46,7 @@ struct Lanes {
   }
 
   // op over the lanes' values, the same result on every lane.  For the
-  // exact, order-free ops below (min, NaN-sticky max) only.
+  // exact, order-free ops below (min, max, NaN-sticky max) only.
   template <typename T, typename Op>
   DWBC_HDI T reduce(T v, Op op) const {
     if (nl == 1) return v;
@@ -58,12 +62,30 @@ struct Lanes {
     return r;
 #endif
   }
+
+  // Lane src's v, on every lane.
+  template <typename T>
+  DWBC_HDI T bcast(T v, int src) const {
+    if (nl == 1) return v;
+#ifdef __CUDA_ARCH__
+    return __shfl_sync(0xffffffffu, v, src);
+#else
+    if (lane == src) host->slot[0] = (double)v;
+    sync();
+    const T r = (T)host->slot[0];
+    sync();
+    return r;
+#endif
+  }
 };
 
 DWBC_HDI Lanes one_lane() { return Lanes{0, 1, nullptr}; }
 
 struct MinOp {       // as vmin: a NaN second operand is dropped
   template <typename T> DWBC_HDI T operator()(T a, T b) const { return vmin(a, b); }
+};
+struct MaxOp {       // as vmax: a NaN second operand is dropped
+  template <typename T> DWBC_HDI T operator()(T a, T b) const { return vmax(a, b); }
 };
 struct NanMaxOp {    // max that keeps a NaN once one is seen (torch's amax)
   template <typename T> DWBC_HDI T operator()(T a, T b) const {
@@ -72,6 +94,95 @@ struct NanMaxOp {    // max that keeps a NaN once one is seen (torch's amax)
     return b > a ? b : a;
   }
 };
+
+// Σ_{r < m} term(r) in an order set by m alone: partial p (p < 32) adds the
+// terms r ≡ p (mod 32) in row order, from 0, and a pairwise tree joins the
+// partials, p with p + 16, then + 8, + 4, + 2, + 1 (sum_tree).  Every lane
+// gets the result, the same bits for any nl: on the device a warp (nl 32
+// only), lane p taking partial p and the tree as a shuffle butterfly
+// (a + b = b + a, so every lane's pairs give the same value); on the host
+// the lanes take the partials in turn and each joins them alike.
+constexpr int kSumParts = 32;
+
+// The partials p, p + O, p + 2O, … < 32 joined by the tree's levels below O.
+template <int O, typename T, typename P>
+DWBC_HDI T sum_tree(const P& part, int p) {
+  if constexpr (O == kSumParts)
+    return part(p);
+  else
+    return sum_tree<2 * O, T>(part, p) + sum_tree<2 * O, T>(part, p + O);
+}
+
+template <typename T, typename F>
+DWBC_HDI T fixed_sum(const F& term, int m, Lanes wp) {
+  const auto part = [&](int p) {
+    T acc = 0;
+    for (int r = p; r < m; r += kSumParts) acc += term(r);
+    return acc;
+  };
+  if (wp.nl == 1) return sum_tree<1, T>(part, 0);
+#ifdef __CUDA_ARCH__
+  T v = part(wp.lane);
+  for (int o = kSumParts / 2; o >= 1; o >>= 1) v = v + __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+#else
+  for (int p = wp.lane; p < kSumParts; p += wp.nl) wp.host->slot[p] = (double)part(p);
+  wp.sync();
+  const T r = sum_tree<1, T>([&](int p) { return (T)wp.host->slot[p]; }, 0);
+  wp.sync();
+  return r;
+#endif
+}
+
+// The triangular solves of a Cholesky factor L (lower, reciprocal diagonal
+// idg; a lost pivot's 0 holds that variable at 0), column by column: row
+// i's running sum lives on lane i mod nl, the rows in blocks of nl; a
+// column's value comes from its row's lane (bcast) and the rows still open
+// take their term.  A block first takes the finished columns of the blocks
+// before it.  So each row takes its terms in one order for any nl.  The
+// column loops stay rolled: unrolled, tick_qpchain without the ±τ rows
+// spilled 12 bytes at its 128-register bound.
+
+// y = L⁻¹·b: row i takes k = 0..i−1 in turn, the row-oriented
+// substitution's bits.
+template <typename T>
+DWBC_HD void solve_lower_vec(M<T> L, V<T> idg, V<T> b, V<T> y, int n, Lanes wp) {
+  for (int c0 = 0; c0 < n; c0 += wp.nl) {
+    const int i = c0 + wp.lane, c1 = c0 + wp.nl < n ? c0 + wp.nl : n;
+    T acc = i < n ? b[i] : (T)0;
+    if (i < n)
+      for (int k = 0; k < c0; ++k) acc -= L(i, k) * y[k];
+    #pragma unroll 1
+    for (int k = c0; k < c1; ++k) {
+      const T yk = wp.bcast(acc * idg[k], k - c0);
+      if (i == k)
+        y[k] = yk;
+      else if (i > k && i < n)
+        acc -= L(i, k) * yk;
+    }
+    wp.sync();
+  }
+}
+
+// x ← L⁻ᵀ·x in place: row i takes k = n−1 down to i+1 in turn.
+template <typename T>
+DWBC_HD void solve_upperT_vec(M<T> L, V<T> idg, V<T> x, int n, Lanes wp) {
+  for (int c0 = (n - 1) / wp.nl * wp.nl; c0 >= 0; c0 -= wp.nl) {
+    const int i = c0 + wp.lane, c1 = c0 + wp.nl < n ? c0 + wp.nl : n;
+    T acc = i < n ? x[i] : (T)0;
+    if (i < n)
+      for (int k = n - 1; k >= c1; --k) acc -= L(k, i) * x[k];
+    #pragma unroll 1
+    for (int k = c1 - 1; k >= c0; --k) {
+      const T xk = wp.bcast(acc * idg[k], k - c0);
+      if (i == k)
+        x[k] = xk;
+      else if (i < k)
+        acc -= L(k, i) * xk;
+    }
+    wp.sync();
+  }
+}
 
 // Row-major walks over a triangle, for lanes that split its entries: the
 // entry `step` places after (i, k), within rows of the given shapes.

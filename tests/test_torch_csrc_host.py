@@ -91,7 +91,55 @@ static void qpchain(const T* t, const T* p, const T* f, const T* wi, T* o, T* wo
   }
 }
 
+// L·y = b (back 0), then Lᵀ·x = y (back 1), by nl lanes: L n×n row-major,
+// its lower triangle read.
+template <typename T>
+static void trisolve(const T* L, const T* idg, const T* b, T* x, int n, int back, int nl) {
+  const dwbc::M<T> Lm{const_cast<T*>(L), 1, n};
+  const dwbc::V<T> dg{const_cast<T*>(idg), 1}, bv{const_cast<T*>(b), 1}, xv{x, 1};
+  run_lanes(nl, [&](dwbc::Lanes wp) {
+    dwbc::solve_lower_vec(Lm, dg, bv, xv, n, wp);
+    if (back) dwbc::solve_upperT_vec(Lm, dg, xv, n, wp);
+  });
+}
+
 extern "C" {
+void trisolve64(const double* L, const double* g, const double* b, double* x, int n, int back,
+                int nl) {
+  trisolve<double>(L, g, b, x, n, back, nl);
+}
+void trisolve32(const float* L, const float* g, const float* b, float* x, int n, int back,
+                int nl) {
+  trisolve<float>(L, g, b, x, n, back, nl);
+}
+// fixed_sum of a[r]·b[r] over m rows by nl lanes, lane l's result in out[l]
+void fixedsum64(const double* a, const double* b, int m, double* out, int nl) {
+  run_lanes(nl, [&](dwbc::Lanes wp) {
+    out[wp.lane] = dwbc::fixed_sum<double>([&](int r) { return a[r] * b[r]; }, m, wp);
+  });
+}
+// The tick form of ipm_iterate (H = 1 on the first nt variables, 0 on the
+// rest, g = 0) by nl lanes on a NaN-filled workspace: C the me stored rows
+// (n wide), d (m = me + mr), x (n) and lam (m) the warm state in (warm) and
+// the solution out, s (m) the slacks out.
+void ipm64(const double* C, const double* d, double* x, double* lam, double* s, int n, int nt,
+           int me, int mr, int iters, int warm, double ridge, int nl) {
+  const int m = me + mr;
+  dwbc::Arena<double> cnt{nullptr, 1, 0};
+  dwbc::IPMWS<double> sized(cnt, n, me, m);
+  std::vector<double> sm(cnt.off, (double)NAN);
+  dwbc::Arena<double> a{sm.data(), 1, 0};
+  const dwbc::IPMWS<double> w(a, n, me, m);
+  for (int r = 0; r < me; ++r)
+    for (int i = 0; i < n; ++i) w.C(r, i) = C[r * n + i];
+  for (int r = 0; r < m; ++r) w.d[r] = d[r];
+  run_lanes(nl, [&](dwbc::Lanes wp) {
+    dwbc::ipm_iterate<double>(w, dwbc::M<double>{nullptr, 0, 0}, dwbc::V<double>{nullptr, 0},
+                              dwbc::V<double>{x, 1}, dwbc::V<double>{lam, 1}, n, nt, me, mr,
+                              iters, warm != 0, ridge, wp);
+  });
+  for (int r = 0; r < m; ++r) s[r] = w.s[r];
+}
 void psdinv64(const double* A, double* out, int B, int n, int nl) {
   std::vector<double> sm(dwbc::psd_inverse_smem_elems(n));
   for (int b = 0; b < B; ++b) {
@@ -338,20 +386,27 @@ def run(lanes, setup):
     return _lane_run(lanes, *setup)
 
 
-def _warp_lanes_match_one_lane(r):
-    """The QP chain run by 32 lanes as threads (the kernel's warp, each
+def _warp_lanes_match_one_lane(r, nl=32):
+    """The QP chain run by nl lanes as threads (32: the kernel's warp, each
     phase concurrent between syncs) gives the one-lane results bit for bit,
     cold and then warm from the cold warm state: every output and warm
     state element is computed, once, by the same operations in the same
     order."""
-    out, wout = r["qp"](25, None, 32)
+    out, wout = r["qp"](25, None, nl)
     assert np.array_equal(out, r["raw"]["cold"][0]) and np.array_equal(wout, r["raw"]["cold"][1])
-    out, _ = r["qp"](7, r["raw"]["cold"][1], 32)
+    out, _ = r["qp"](7, r["raw"]["cold"][1], nl)
     assert np.array_equal(out, r["raw"]["warm"])
 
 
 def test_qpchain_warp_lanes_match_one_lane(run):
     _warp_lanes_match_one_lane(run)
+
+
+def test_qpchain_five_lanes_match_one_lane(run):
+    """As test_qpchain_warp_lanes_match_one_lane with 5 lanes: the
+    triangular solves' blocks of rows and fixed_sum's 32 partials then fall
+    on the lanes otherwise than on a warp, the order of every sum not."""
+    _warp_lanes_match_one_lane(run, 5)
 
 
 def _prestage_buffers(lanes, tab, q_el, nl, cm_el=None, servo=None):
@@ -458,6 +513,10 @@ def mrun(lanes, msetup):
 
 def test_masked_qpchain_warp_lanes_match_one_lane(mrun):
     _warp_lanes_match_one_lane(mrun)
+
+
+def test_masked_qpchain_five_lanes_match_one_lane(mrun):
+    _warp_lanes_match_one_lane(mrun, 5)
 
 
 def test_masked_prestage_warp_lanes_match_one_lane(lanes, msetup):
@@ -619,6 +678,11 @@ def test_servo_qpchain_warp_lanes_match_one_lane(srun):
     """As test_qpchain_warp_lanes_match_one_lane, f* read from the servo
     section: 32 lanes as threads give the one-lane results bit for bit."""
     out, wout = srun["qp"](32)
+    assert np.array_equal(out, srun["raw"][0]) and np.array_equal(wout, srun["raw"][1])
+
+
+def test_servo_qpchain_five_lanes_match_one_lane(srun):
+    out, wout = srun["qp"](5)
     assert np.array_equal(out, srun["raw"][0]) and np.array_equal(wout, srun["raw"][1])
 
 
@@ -800,6 +864,10 @@ def grun(lanes, gsetup):
 
 def test_general_qpchain_warp_lanes_match_one_lane(grun):
     _warp_lanes_match_one_lane(grun)
+
+
+def test_general_qpchain_five_lanes_match_one_lane(grun):
+    _warp_lanes_match_one_lane(grun, 5)
 
 
 def test_general_prestage_warp_lanes_match_one_lane(lanes, gsetup):
@@ -1000,6 +1068,11 @@ def test_general_servo_warp_lanes_match_one_lane(lanes, gsrun):
     _prestage_warp_lanes_match_one_lane(lanes, gsrun["tab"], gsrun["q_el"], None,
                                         gsrun["servo"])
     out, wout = gsrun["qp"](32)
+    assert np.array_equal(out, gsrun["raw"][0]) and np.array_equal(wout, gsrun["raw"][1])
+
+
+def test_general_servo_qpchain_five_lanes_match_one_lane(gsrun):
+    out, wout = gsrun["qp"](5)
     assert np.array_equal(out, gsrun["raw"][0]) and np.array_equal(wout, gsrun["raw"][1])
 
 
@@ -1270,3 +1343,125 @@ def test_qp_solve_lanes_match_plain(lanes, mode):
     for nl in (5, 32):
         for name, got, want in zip(("x", "s", "lam"), outs[nl], outs[1]):
             assert np.array_equal(got, want), f"{mode}.{name}: {nl} lanes"
+
+
+# ------------------------------------------- the order of the IPM's sums
+def _serial_lower(L, idg, b):
+    """L·y = b row by row, row i's terms k = 0..i−1 in turn, each operation
+    rounded to b's dtype."""
+    t = b.dtype.type
+    y = np.zeros_like(b)
+    for i in range(len(b)):
+        acc = t(b[i])
+        for k in range(i):
+            acc = t(acc - t(L[i, k] * y[k]))
+        y[i] = t(acc * idg[i])
+    return y
+
+
+def _serial_upperT(L, idg, y):
+    """Lᵀ·x = y row by row from the last, row i's terms k = n−1 down to i+1."""
+    t = y.dtype.type
+    x = y.copy()
+    n = len(y)
+    for i in reversed(range(n)):
+        acc = t(x[i])
+        for k in range(n - 1, i, -1):
+            acc = t(acc - t(L[k, i] * x[k]))
+        x[i] = t(acc * idg[i])
+    return x
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("n", [1, 5, 12, 18, 33, 40])
+def test_triangular_solves_match_serial_substitution(lanes, dtype, n):
+    """The IPM's triangular solves, column by column with the running sums on
+    the lanes: solve_lower_vec gives the row-oriented serial substitution's
+    bits, solve_upperT_vec those of a serial back substitution that takes
+    each row's terms from the last column down, for 1, 5 and 32 lanes (n =
+    33, 40: more rows than a warp has lanes).  A lost pivot (reciprocal 0,
+    its column and row left in L) holds its variable at exactly 0."""
+    f = lanes.trisolve64 if dtype is np.float64 else lanes.trisolve32
+    f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    rng = np.random.default_rng(30 + n)
+    L = np.tril(rng.standard_normal((n, n)), -1) + np.diag(rng.uniform(0.5, 2.0, n))
+    L = np.ascontiguousarray(L + np.triu(np.full((n, n), np.nan), 1), dtype)  # never read
+    idg = np.ascontiguousarray(1 / np.diag(L), dtype)
+    lost = n // 2
+    idg[lost] = 0
+    b = rng.standard_normal(n).astype(dtype)
+    y = _serial_lower(L, idg, b)
+    x = _serial_upperT(L, idg, y)
+    assert y[lost] == 0 and x[lost] == 0 and np.isfinite(x).all()
+    for nl in (1, 5, 32):
+        for back, want in ((0, y), (1, x)):
+            got = np.full(n, np.nan, dtype)
+            f(_ptr(L), _ptr(idg), _ptr(b), _ptr(got), n, back, nl)
+            assert np.array_equal(got, want), (nl, back)
+
+
+def _fixed_sum_ref(a, b):
+    """32 partials, partial p the terms r ≡ p (mod 32) in row order from 0,
+    joined p with p + 16, then + 8, + 4, + 2, + 1."""
+    part = [0.0] * 32
+    for r in range(len(a)):
+        part[r % 32] = part[r % 32] + a[r] * b[r]
+    o = 16
+    while o:
+        for p in range(o):
+            part[p] = part[p] + part[p + o]
+        o //= 2
+    return part[0]
+
+
+@pytest.mark.parametrize("m", [1, 5, 31, 32, 33, 86, 98, 512])
+def test_fixed_sum_order(lanes, m):
+    """fixed_sum (μ, μ_aff and the gap) gives every lane the partitioned,
+    tree-joined sum bit for bit, for 1, 5 and 32 lanes."""
+    lanes.fixedsum64.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_void_p, ctypes.c_int]
+    rng = np.random.default_rng(50 + m)
+    a = rng.standard_normal(m) * np.logspace(-8, 8, m)
+    b = rng.standard_normal(m)
+    want = _fixed_sum_ref(a.tolist(), b.tolist())
+    for nl in (1, 5, 32):
+        out = np.full(nl, np.nan)
+        lanes.fixedsum64(_ptr(a), _ptr(b), m, _ptr(out), nl)
+        assert (out == want).all(), (nl, out, want)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_ipm_holds_a_lost_pivot_variable(lanes, warm):
+    """The tick form's IPM on a QP whose variable 4 has no Hessian, no
+    constraint column and no ridge: its Gram pivot is 0, lost at every
+    iteration, and every step holds it (dx = 0 exactly) while the other
+    variables move and μ falls; 1, 5 and 32 lanes bit for bit."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lanes.ipm64.argtypes = [p] * 5 + [i] * 6 + [ctypes.c_double, i]
+    n, nt, mr, extra, held = 6, 3, 4, 8, 4
+    rng = np.random.default_rng(41)
+    Bm, D = rng.standard_normal((mr, n)), rng.standard_normal((extra, n))
+    Bm[:, held] = D[:, held] = 0.0
+    full = np.concatenate([Bm, -Bm, D])
+    m = len(full)
+    x_feas = rng.standard_normal(n)
+    d = full @ x_feas + rng.uniform(0.1, 1.0, m)
+    stored = np.ascontiguousarray(np.concatenate([Bm, D]))
+    x0 = x_feas + 0.1 * rng.standard_normal(n) if warm else np.full(n, np.nan)
+    lam0 = rng.uniform(0.5, 2.0, m) if warm else np.full(m, np.nan)
+    outs = {}
+    for nl in (1, 5, 32):
+        x, lam, s = x0.copy(), lam0.copy(), np.full(m, np.nan)
+        lanes.ipm64(_ptr(stored), _ptr(d), _ptr(x), _ptr(lam), _ptr(s), n, nt, m - mr, mr, 10,
+                    int(warm), 0.0, nl)
+        outs[nl] = (x, lam, s)
+    x, lam, s = outs[1]
+    start = x0 if warm else np.zeros(n)
+    assert x[held] == start[held]
+    moved = np.delete(np.abs(x - start), held)
+    assert (moved > 1e-6).any()
+    assert float(np.mean(s * lam)) < 0.1 * (np.mean(np.maximum(d, 1.0)) if not warm
+                                            else np.mean(lam0 * np.maximum(d - full @ x0, 1e-4)))
+    for nl in (5, 32):
+        for name, got, want in zip(("x", "lam", "s"), outs[nl], outs[1]):
+            assert np.array_equal(got, want), (name, nl)
